@@ -1,0 +1,25 @@
+"""repro_torch — the PyTorch/CUDA port of `repro` (ADRA computing-in-memory).
+
+The package mirrors `repro` module for module (`repro_torch.cim.planner`
+<-> `repro.cim.planner`), imports torch and numpy and never jax or `repro`,
+and grows slice by slice; the JAX package stays the reference it is held
+against. Plane stacks are `torch.int32` tensors holding the uint32 bit
+pattern (PyTorch's CPU build lacks `~`, `<<` and `>>` on `torch.uint32`).
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`; asking
+for `cuda` without a GPU raises. The one kernel of this slice, the fused
+bit-plane access (`repro_torch.cim.fused_kernel`), is CUDA C++ for sm_90a,
+built at first use into `build/repro_torch_kernels/`.
+"""
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `cuda` by default; raises when
+    CUDA is asked for and absent instead of carrying on on the CPU."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU")
+    return dev

@@ -1,0 +1,299 @@
+"""Banked CiM array substrate: physical geometry, tile placement, residency.
+
+Port of `repro.cim.array` without the fault layer (ECC-protected pins,
+disabled banks and failover wait). An `ArraySpec` describes the physical
+array — banks of subarrays of rows x bitline words — and its `plan()` turns
+an operand word count into a `TilePlan`. A `ResidentSet` tracks plane
+stacks pinned in bank rows across calls (the paper's stored-operand
+assumption): every pin charges the ledger its operand-load accesses once,
+every reuse charges none, pins are LRU-evicted under row pressure, and
+`reserve()` row claims (paged KV blocks) are never evicted. Counters
+aggregate process-wide into `dispatch.cache_stats()`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from collections import OrderedDict
+from typing import Any, Dict, Optional, Tuple
+
+from . import opset
+
+
+@dataclasses.dataclass(frozen=True)
+class ArraySpec:
+    """Physical geometry of a banked ADRA CiM array.
+
+    banks          : independently activatable banks (concurrent).
+    subarrays      : subarrays per bank, activated together per access.
+    rows           : wordlines per subarray — bounds the plane budget.
+    bitline_words  : words served per subarray activation; a multiple of 32
+                     so tiles align with the packed lanes of PlanePack.
+    """
+
+    banks: int = 4
+    subarrays: int = 4
+    rows: int = 1024
+    bitline_words: int = 1024
+
+    def __post_init__(self):
+        if self.banks < 1 or self.subarrays < 1 or self.rows < 1:
+            raise opset.CimOpError(f"degenerate ArraySpec: {self}")
+        if self.bitline_words < 32 or self.bitline_words % 32:
+            raise opset.CimOpError(
+                f"bitline_words must be a positive multiple of 32 (packed "
+                f"lanes), got {self.bitline_words}")
+
+    @property
+    def tile_words(self) -> int:
+        """Words one bank activation serves = the tiling granule."""
+        return self.subarrays * self.bitline_words
+
+    def plan(self, n_words: int) -> "TilePlan":
+        if n_words < 1:
+            raise opset.CimOpError(f"cannot place {n_words} words")
+        n_tiles = -(-n_words // self.tile_words)
+        return TilePlan(n_words=n_words, tile_words=self.tile_words,
+                        n_tiles=n_tiles, banks=self.banks)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """Placement of an operand pair onto a banked array: tile t covers words
+    [t * tile_words, (t+1) * tile_words) and runs on bank t % banks during
+    wave t // banks."""
+
+    n_words: int
+    tile_words: int
+    n_tiles: int
+    banks: int
+
+    @property
+    def waves(self) -> int:
+        return -(-self.n_tiles // self.banks)
+
+    def bank_counts(self, n_devices: int = 1) -> Dict[Tuple[int, int], int]:
+        """Activations per (device, bank), closed form: device d owns a
+        contiguous tile block and bank s every tile == s mod banks in it."""
+        banks = self.banks
+
+        def upto(x: int, s: int) -> int:
+            return (x - s + banks - 1) // banks
+
+        per_dev = -(-self.n_tiles // n_devices)
+        counts: Dict[Tuple[int, int], int] = {}
+        for d in range(n_devices):
+            lo = min(d * per_dev, self.n_tiles)
+            hi = min(lo + per_dev, self.n_tiles)
+            for s in range(banks):
+                n = upto(hi, s) - upto(lo, s)
+                if n:
+                    counts[(d, s)] = n
+        return counts
+
+
+#: the paper's array, four banks of four subarrays
+DEFAULT_SPEC = ArraySpec()
+
+
+@dataclasses.dataclass
+class ResidentEntry:
+    """One pinned occupant of the resident region (pack None for a
+    `reserve()` row claim). `fingerprint` names the source tensors: a
+    mismatched `get()` drops the entry as stale."""
+
+    key: Tuple
+    pack: Any
+    rows_by_bank: Dict[int, int]
+    words32: float = 0.0
+    fingerprint: Tuple = ()
+    evictable: bool = True
+    aux: Any = None
+    hits: int = 0
+
+
+class ResidentSet:
+    """Row-budget-checked resident region of one banked array."""
+
+    def __init__(self, spec: Optional[ArraySpec] = None,
+                 reserve_rows: int = 0):
+        self.spec = spec or DEFAULT_SPEC
+        if reserve_rows < 0 or reserve_rows >= self.spec.rows:
+            raise opset.CimOpError(
+                f"reserve_rows must be in [0, {self.spec.rows}), "
+                f"got {reserve_rows}")
+        self.reserve_rows = reserve_rows
+        self._entries: "OrderedDict[Tuple, ResidentEntry]" = OrderedDict()
+        self.pins = 0
+        self.reserves = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.invalidations = 0
+        _ALL_SETS.add(self)
+
+    # -- occupancy ----------------------------------------------------------
+    def rows_per_bank(self) -> Dict[int, int]:
+        out: Dict[int, int] = {}
+        for e in self._entries.values():
+            for b, r in e.rows_by_bank.items():
+                out[b] = out.get(b, 0) + r
+        return out
+
+    @property
+    def resident_rows(self) -> int:
+        """Rows held in the busiest bank."""
+        return max(self.rows_per_bank().values(), default=0)
+
+    @property
+    def budget(self) -> int:
+        return self.spec.rows - self.reserve_rows
+
+    def _rows_for(self, n_bits: int, n_words: int) -> Dict[int, int]:
+        """Per-bank rows of an n_bits pack of n_words (same-bank tiles stack)."""
+        plan = self.spec.plan(n_words)
+        return {b: n_bits * n for (_d, b), n in plan.bank_counts(1).items()}
+
+    def fits(self, rows_by_bank: Dict[int, int]) -> bool:
+        occ = self.rows_per_bank()
+        return all(occ.get(b, 0) + r <= self.budget
+                   for b, r in rows_by_bank.items())
+
+    # -- lifecycle ----------------------------------------------------------
+    def get(self, key: Tuple,
+            fingerprint: Optional[Tuple] = None) -> Optional[ResidentEntry]:
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+            _STATS["resident_misses"] += 1
+            return None
+        if fingerprint is not None and entry.fingerprint != tuple(fingerprint):
+            del self._entries[key]
+            self.invalidations += 1
+            _STATS["resident_invalidations"] += 1
+            self.misses += 1
+            _STATS["resident_misses"] += 1
+            return None
+        entry.hits += 1
+        self.hits += 1
+        _STATS["resident_hits"] += 1
+        self._entries.move_to_end(key)
+        return entry
+
+    def pin(self, key: Tuple, pack, fingerprint: Tuple = (),
+            aux: Any = None) -> ResidentEntry:
+        """Write `pack` into resident rows (evicting LRU pins to fit) and
+        charge the one-time operand load the pin replaces per call."""
+        from .accounting import LEDGER
+
+        if key in self._entries:
+            del self._entries[key]
+        rows = self._rows_for(pack.n_bits, pack.n_words)
+        self._make_room(key, rows)
+        entry = ResidentEntry(key=key, pack=pack, rows_by_bank=rows,
+                              words32=pack.n_words * pack.n_bits / 32.0,
+                              fingerprint=tuple(fingerprint), evictable=True,
+                              aux=aux)
+        self._entries[key] = entry
+        self.pins += 1
+        _STATS["resident_pins"] += 1
+        n_tiles = self.spec.plan(pack.n_words).n_tiles
+        LEDGER.charge_load(pack.n_bits, pack.n_words, n_tiles=n_tiles)
+        return entry
+
+    def reserve(self, key: Tuple, n_rows: int, bank: int = 0,
+                words32: float = 0.0,
+                fingerprint: Tuple = ()) -> ResidentEntry:
+        """Claim `n_rows` on one bank without a pack; never evicted."""
+        if key in self._entries:
+            del self._entries[key]
+        rows = {int(bank) % self.spec.banks: int(n_rows)}
+        self._make_room(key, rows)
+        entry = ResidentEntry(key=key, pack=None, rows_by_bank=rows,
+                              words32=words32, fingerprint=tuple(fingerprint),
+                              evictable=False)
+        self._entries[key] = entry
+        self.reserves += 1
+        _STATS["resident_reserves"] += 1
+        return entry
+
+    def _make_room(self, key: Tuple, rows_by_bank: Dict[int, int]) -> None:
+        if any(r > self.budget for r in rows_by_bank.values()):
+            raise opset.CimOpError(
+                f"resident entry {key!r} needs {max(rows_by_bank.values())} "
+                f"rows on one bank but the resident budget is {self.budget} "
+                f"(rows {self.spec.rows} - reserve {self.reserve_rows})")
+        while not self.fits(rows_by_bank):
+            victim = next((k for k, e in self._entries.items()
+                           if e.evictable), None)
+            if victim is None:
+                raise opset.CimOpError(
+                    f"resident entry {key!r} does not fit: occupancy "
+                    f"{self.rows_per_bank()} of {self.budget} rows/bank is "
+                    f"all reservations")
+            del self._entries[victim]
+            self.evictions += 1
+            _STATS["resident_evictions"] += 1
+
+    def release(self, key: Tuple) -> bool:
+        return self._entries.pop(key, None) is not None
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def stats(self) -> Dict[str, int]:
+        return {"entries": len(self._entries), "pins": self.pins,
+                "reserves": self.reserves, "hits": self.hits,
+                "misses": self.misses, "evictions": self.evictions,
+                "invalidations": self.invalidations,
+                "resident_rows": self.resident_rows}
+
+
+#: every live ResidentSet (weak: test-local sets vanish with their tests)
+_ALL_SETS: "weakref.WeakSet[ResidentSet]" = weakref.WeakSet()
+
+#: process-wide counters surfaced through dispatch.cache_stats()
+_STATS: Dict[str, int] = {}
+
+
+def _reset_stats() -> None:
+    _STATS.update(resident_pins=0, resident_reserves=0, resident_hits=0,
+                  resident_misses=0, resident_evictions=0,
+                  resident_invalidations=0)
+
+
+_reset_stats()
+
+#: process-wide resident set per geometry (shared by weight pins and KV pages)
+_RESIDENT_SETS: Dict[ArraySpec, ResidentSet] = {}
+
+
+def resident_set(spec: Optional[ArraySpec] = None) -> ResidentSet:
+    """The process-wide ResidentSet for `spec` (DEFAULT_SPEC when None),
+    keeping a quarter of the rows as reserve for streamed access planes."""
+    spec = spec or DEFAULT_SPEC
+    rs = _RESIDENT_SETS.get(spec)
+    if rs is None:
+        rs = _RESIDENT_SETS[spec] = ResidentSet(spec,
+                                                reserve_rows=spec.rows // 4)
+    return rs
+
+
+def resident_stats() -> Dict[str, int]:
+    """Aggregated pin/hit/eviction counters across every ResidentSet."""
+    out = dict(_STATS)
+    out["resident_entries"] = sum(len(s) for s in _ALL_SETS)
+    out["resident_rows"] = max((s.resident_rows for s in _ALL_SETS),
+                               default=0)
+    return out
+
+
+def clear_resident() -> None:
+    """Drop every registry ResidentSet and zero the aggregate counters."""
+    for rs in list(_ALL_SETS):
+        rs.clear()
+    _RESIDENT_SETS.clear()
+    _reset_stats()

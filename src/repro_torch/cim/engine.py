@@ -1,0 +1,87 @@
+"""The unified CiM engine: one dispatch point for every ADRA operation.
+
+Port of `repro.cim.engine`: `execute` runs any subset of the op catalogue
+over two PlanePacks in ONE simulated memory access on the selected backend
+and returns PlanePacks, so chained ops stay packed. The fault overlay, the
+unfused near-memory baseline and the integer-level wrappers wait.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from . import opset
+from .accounting import LEDGER
+from .backends import get_backend
+from .planepack import PlanePack
+
+Outputs = Dict[str, PlanePack]
+
+
+def _wrap(op: str, raw: torch.Tensor, n_bits: int,
+          shape: Tuple[int, ...]) -> PlanePack:
+    rows = opset.out_rows(op, n_bits)
+    assert raw.shape[0] == rows, (op, tuple(raw.shape), rows)
+    return PlanePack(planes=raw, n_bits=rows, signed=opset.out_signed(op),
+                     shape=shape)
+
+
+def prepare_operands(a: PlanePack, b: PlanePack, ops: Sequence[str]
+                     ) -> Tuple[PlanePack, PlanePack, Tuple[str, ...]]:
+    """Validate an op request and align its operands in the packed domain."""
+    ops = opset.validate_ops(tuple(ops))
+    if a.shape != b.shape:
+        raise opset.CimOpError(f"operand shapes differ: {a.shape} vs {b.shape}")
+    a, b = a.align(b)
+    if (opset.needs_add_chain(ops) or opset.needs_sub_chain(ops)) \
+            and not (a.signed and b.signed):
+        # the ripple chains read operands as two's complement: widen by one
+        # plane so unsigned magnitudes with the top bit set stay positive
+        n = a.n_bits + 1
+        a, b = a.extend_to(n), b.extend_to(n)
+    return a, b, ops
+
+
+def execute_traced(a: PlanePack, b: PlanePack, ops: Sequence[str],
+                   backend: Optional[str] = None,
+                   charges: Optional[list] = None) -> Outputs:
+    """The side-effect-free inner form of `execute`: no ledger mutation.
+    With `charges`, appends ("access", ops, n_bits, n_words) at the
+    post-alignment width — exactly what `execute` would have charged."""
+    a, b, ops = prepare_operands(a, b, ops)
+    bk = get_backend(backend)
+    raws = bk(a.planes, b.planes, ops)
+    if charges is not None:
+        charges.append(("access", ops, a.n_bits, a.n_words))
+    return {op: _wrap(op, raw, a.n_bits, a.shape)
+            for op, raw in zip(ops, raws)}
+
+
+def execute(a: PlanePack, b: PlanePack, ops: Sequence[str],
+            backend: Optional[str] = None) -> Outputs:
+    """One ADRA access: every requested op from a single streamed pass."""
+    charges: list = []
+    out = execute_traced(a, b, ops, backend=backend, charges=charges)
+    for _, c_ops, n_bits, n_words in charges:
+        LEDGER.charge(c_ops, n_bits, n_words, accesses=1)
+    return out
+
+
+def traffic_model_bytes(n_bits: int, n_words32: int,
+                        ops: Sequence[str] = ("sub", "carry_sub", "lt", "eq"),
+                        baseline_passes: Optional[Sequence[Sequence[str]]] = None,
+                        ) -> Dict[str, float]:
+    """Device-memory bytes of one fused pass vs per-pass baseline re-reads:
+    the baseline re-streams both operand stacks for every pass."""
+    ops = opset.validate_ops(tuple(ops))
+    if baseline_passes is None:
+        baseline_passes = tuple((op,) for op in ops)
+    plane_bytes = 4 * n_words32
+    ops_in = 2 * n_bits * plane_bytes
+    out_bytes = {op: opset.out_rows(op, n_bits) * plane_bytes for op in ops}
+    fused = ops_in + sum(out_bytes.values())
+    baseline = sum(ops_in + sum(out_bytes[o] for o in p)
+                   for p in baseline_passes)
+    return {"fused": float(fused), "baseline": float(baseline),
+            "ratio": baseline / fused}

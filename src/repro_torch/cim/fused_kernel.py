@@ -1,0 +1,211 @@
+"""The fused bit-plane kernel: ANY subset of the CiM op catalogue from ONE
+pass over both plane stacks — the port of `repro.cim.fused_kernel`.
+
+The TPU kernel (`_fused_kernel`, a Pallas grid over 512-lane blocks) is
+replaced by a CUDA kernel written for Hopper, `csrc/fused_planes.cu`: one
+thread per packed column looping over the planes with the carries in
+registers, the op subset as a bitmask, the ragged edge masked in-kernel.
+Its source note says what bounds it and why it is shaped so.
+
+Beside it, `fused_planes_op_ref` is the plain PyTorch version (the port of
+`repro.cim.backends._jnp_boolean_backend`). `fused_planes_op`, the wrapper,
+takes it only for tensors that lie on the CPU; for CUDA tensors it launches
+the kernel or raises — there is no fallback.
+
+Build: at first use `nvcc -gencode arch=compute_90a,code=sm_90a` compiles
+the source into a shared library with a plain C interface under
+`build/repro_torch_kernels/` at the repository root, named by a hash of the
+source, and loads it with ctypes. `build()` does that explicitly.
+
+Planes are int32 tensors holding uint32 bit patterns, [n_bits, W] or, with a
+leading tile axis, [T, n_bits, W]; outputs follow the input layout.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+import torch
+
+from . import opset
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_planes.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_OP_INDEX = {op: i for i, op in enumerate(opset.ALL_OPS)}
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch version (CPU path, and the yardstick on the card)
+# ---------------------------------------------------------------------------
+
+
+def fused_planes_op_ref(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                        ops) -> Tuple[torch.Tensor, ...]:
+    """The kernel's dataflow in plain PyTorch, plane by plane (ideal SAs).
+    Accepts [n_bits, W] or [T, n_bits, W] stacks on any device."""
+    ops = opset.validate_ops(ops)
+    n_bits = a_planes.shape[-2]
+    need_add = opset.needs_add_chain(ops)
+    need_sub = opset.needs_sub_chain(ops)
+    out: Dict[str, List[torch.Tensor]] = {
+        fn: [] for fn in ops if fn in opset.BOOLEAN_OPS}
+    add_planes, sub_planes = [], []
+
+    zeros = torch.zeros_like(a_planes[..., 0, :])
+    carry_a, carry_s, nz = zeros, ~zeros, zeros
+    for i in range(n_bits):
+        a, b = a_planes[..., i, :], b_planes[..., i, :]
+        or_, and_ = a | b, a & b
+        if out:
+            a_rec = opset.oai21_recover_a_planes(or_, and_, b)
+            for fn in out:
+                out[fn].append(opset.boolean_plane(fn, or_, and_, b, a_rec))
+        xor = or_ & ~and_
+        if need_add:
+            add_planes.append(xor ^ carry_a)
+            carry_a = and_ | (carry_a & xor)
+        if need_sub:
+            xnor = ~xor
+            s = xnor ^ carry_s
+            sub_planes.append(s)
+            carry_s = (or_ & ~b) | (carry_s & xnor)
+            nz = nz | s
+
+    a_msb, b_msb = a_planes[..., n_bits - 1, :], b_planes[..., n_bits - 1, :]
+    results: Dict[str, torch.Tensor] = {}
+    row = -2            # stack axis of the [..., rows, W] outputs
+    if need_add:
+        xor = a_msb ^ b_msb
+        add_planes.append(xor ^ carry_a)
+        results["add"] = torch.stack(add_planes, row)
+        results["carry_add"] = ((a_msb & b_msb) | (carry_a & xor)).unsqueeze(row)
+    if need_sub:
+        nb = ~b_msb
+        xnor = a_msb ^ nb
+        s_ext = xnor ^ carry_s
+        sub_planes.append(s_ext)
+        nz = nz | s_ext
+        results["sub"] = torch.stack(sub_planes, row)
+        results["carry_sub"] = ((a_msb & nb) | (carry_s & xnor)).unsqueeze(row)
+        results["lt"] = s_ext.unsqueeze(row)
+        results["eq"] = (~nz).unsqueeze(row)
+        results["gt"] = (~s_ext & nz).unsqueeze(row)
+    for fn, planes in out.items():
+        results[fn] = torch.stack(planes, row)
+    return tuple(results[op] for op in ops)
+
+
+# ---------------------------------------------------------------------------
+# build and binding (route b: nvcc into a shared library, loaded by ctypes)
+# ---------------------------------------------------------------------------
+
+_LIB = None
+_LOCK = threading.Lock()
+BUILD_LOG: Dict[str, str] = {}
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"fused_planes_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernel (if this source hash is not built yet) and load
+    it. Raises with the compiler's output when nvcc fails."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return library_path()
+        path = library_path()
+        if not path.exists():
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True)
+            BUILD_LOG["nvcc"] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
+                    f"{BUILD_LOG['nvcc']}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        lib.fused_planes_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
+        lib.fused_planes_launch.restype = ctypes.c_int
+        _LIB = lib
+        return path
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+
+def fused_planes_op(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                    ops) -> Tuple[torch.Tensor, ...]:
+    """One fused access; returns one plane stack per requested op, in order
+    (arith: n_bits+1 rows, predicates: 1 row, Boolean functions: n_bits).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel on
+    the current stream (or raise); each launch adds one to
+    `fused_planes_op.launches`."""
+    ops = opset.validate_ops(ops)
+    if a_planes.shape != b_planes.shape or a_planes.dim() not in (2, 3):
+        raise opset.CimOpError(
+            f"plane stacks must share a [n_bits, W] or [T, n_bits, W] shape, "
+            f"got {tuple(a_planes.shape)} and {tuple(b_planes.shape)}")
+    if a_planes.device != b_planes.device:
+        raise opset.CimOpError(
+            f"operands on {a_planes.device} and {b_planes.device}")
+    if a_planes.device.type == "cpu":
+        return fused_planes_op_ref(a_planes, b_planes, ops)
+    if a_planes.device.type != "cuda":
+        raise opset.CimOpError(
+            f"no fused kernel for device {a_planes.device.type!r}")
+    for t in (a_planes, b_planes):
+        if t.dtype not in (torch.int32, torch.uint32):
+            raise opset.CimOpError(f"plane stacks must be 32-bit, got {t.dtype}")
+        if not t.is_contiguous():
+            raise opset.CimOpError("plane stacks must be contiguous")
+    tiled = a_planes.dim() == 3
+    n_tiles = a_planes.shape[0] if tiled else 1
+    n_bits, w = a_planes.shape[-2], a_planes.shape[-1]
+    if n_bits < 1 or w < 1 or not 1 <= n_tiles <= 65535:
+        raise opset.CimOpError(
+            f"kernel needs n_bits >= 1, W >= 1 and 1..65535 tiles, got "
+            f"{tuple(a_planes.shape)}")
+    build()
+    lead = (n_tiles,) if tiled else ()
+    outs = [torch.empty(lead + (opset.out_rows(op, n_bits), w),
+                        dtype=a_planes.dtype, device=a_planes.device)
+            for op in ops]
+    ptrs = (ctypes.c_void_p * len(opset.ALL_OPS))()
+    mask = 0
+    for op, o in zip(ops, outs):
+        ptrs[_OP_INDEX[op]] = o.data_ptr()
+        mask |= 1 << _OP_INDEX[op]
+    stream = torch.cuda.current_stream(a_planes.device).cuda_stream
+    with torch.cuda.device(a_planes.device):
+        rc = _LIB.fused_planes_launch(a_planes.data_ptr(), b_planes.data_ptr(),
+                                      n_bits, w, n_tiles, mask,
+                                      ctypes.cast(ptrs, ctypes.c_void_p),
+                                      stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_planes kernel launch failed: cudaError {rc}")
+    fused_planes_op.launches += 1
+    return tuple(outs)
+
+
+fused_planes_op.launches = 0

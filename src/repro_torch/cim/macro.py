@@ -1,0 +1,405 @@
+"""Macro-op executors: multi-access CiM arithmetic over the single-access
+engine, one cached schedule program per schedule.
+
+Port of `repro.cim.macro` (the int8 serve path's macros: multiply, tree
+reduction, matmul and batched matmul, with their resident-rhs forms; the
+select-based macros, popcount and `ChainExecutor` wait). Every macro
+executes a `planner.Schedule` through a cursor that allows exactly the
+planned accesses (same order, same op-sets) and nothing else, so ledger
+accesses == schedule.accesses by construction.
+
+`run_schedule_program` is the eager counterpart of the reference's one
+jitted XLA program per schedule: the first call under a key runs the body
+through a recording cursor, stores the body with its charge-from-plan record
+(`PlannedCharges`) in the dispatch layer's bounded LRU, and every call —
+first or warm — is ONE dispatch whose recorded charges replay into the
+ledger. PyTorch runs eagerly, so each call re-executes the body's accesses
+on the device; what the cache keeps is the program identity, the counters
+and the plan. (CUDA-graph capture of a whole schedule is the later analogue
+of the compiled program.)
+
+Operands, partial products, accumulators and tree levels all stay in the
+PlanePack packed domain; the only codec entries are the entry packs and the
+exit unpack.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import dispatch, engine, planner
+from .accounting import PlannedCharges
+from .backends import get_backend
+from .opset import CimOpError
+from .planepack import PlanePack
+
+
+class ScheduleCursor:
+    """Executes a Schedule one access at a time, refusing to deviate.
+
+    Accesses run through the side-effect-free `engine.execute_traced`; the
+    ledger is never touched here — every planned charge is appended to
+    `charges`, the record `run_schedule_program` replays per call."""
+
+    def __init__(self, schedule: planner.Schedule, backend: Optional[str],
+                 charges: list):
+        self.schedule = schedule
+        self.backend = backend
+        self.charges = charges
+        self._i = 0
+
+    def step(self) -> planner.Step:
+        if self._i >= len(self.schedule.steps):
+            raise CimOpError(
+                f"{self.schedule.macro}: executor exceeded its planned "
+                f"{self.schedule.accesses} accesses")
+        return self.schedule.steps[self._i]
+
+    def execute(self, a: PlanePack, b: PlanePack,
+                ops: Sequence[str]) -> engine.Outputs:
+        step = self.step()
+        if tuple(ops) != step.ops:
+            raise CimOpError(
+                f"{self.schedule.macro}: access {self._i} executes {ops!r} "
+                f"but the plan says {step.ops!r}")
+        self._i += 1
+        return engine.execute_traced(a, b, step.ops, backend=self.backend,
+                                     charges=self.charges)
+
+    def charge_load(self, n_bits: int, n_words: int) -> None:
+        """Operand-load row-writes of one STREAMED entry pack (one load
+        access: the unbanked array holds it in one tile)."""
+        self.charges.append(("load", n_bits, n_words, 1))
+
+    def charge_resident(self, n_bits: int, n_words: int) -> None:
+        """One resident-operand reuse: entry pack (and its loads) skipped."""
+        self.charges.append(("resident", n_bits, n_words))
+
+    def remaining(self) -> Tuple[planner.Step, ...]:
+        return self.schedule.steps[self._i:]
+
+    def finish(self) -> None:
+        if self._i != len(self.schedule.steps):
+            raise CimOpError(
+                f"{self.schedule.macro}: executed {self._i} of "
+                f"{self.schedule.accesses} planned accesses")
+
+
+# ---------------------------------------------------------------------------
+# whole-schedule programs: one dispatch per macro
+# ---------------------------------------------------------------------------
+
+
+class CompiledSchedule:
+    """A cached schedule program plus its charge-from-plan record. Calling
+    it runs the body and then replays the recorded charges: ONE dispatch."""
+
+    __slots__ = ("fn", "charges")
+
+    def __init__(self, fn, charges: PlannedCharges):
+        self.fn = fn
+        self.charges = charges
+
+    def __call__(self, *leaves):
+        # invoke first, account after: a failed invocation must not leave
+        # the ledger charged (or the dispatch counter bumped)
+        out = self.fn(*leaves)
+        self.charges.replay()
+        dispatch.count_dispatch()
+        return out
+
+
+def _leaf_sig(x) -> Tuple:
+    """Cache-key signature of one operand (a tensor or a PlanePack): what
+    a program depends on."""
+    if isinstance(x, PlanePack):
+        return ("pack", x.n_bits, x.signed, x.shape) + _leaf_sig(x.planes)
+    return (tuple(x.shape), str(x.dtype), x.device.type)
+
+
+def run_schedule_program(schedule: planner.Schedule, body, operands,
+                         body_key=(), backend: Optional[str] = None):
+    """Execute `body(cursor, *operands)` as ONE schedule program.
+
+    Cached in the dispatch layer's bounded LRU under the schedule, the body
+    identity (`body_key`), the operand signatures and the backend: a repeat
+    hits (no new program), runs the cached body and replays the charges
+    recorded the first time — accesses == schedule.accesses either way."""
+    bk_name = get_backend(backend).name
+    leaves = tuple(operands)
+    key = ("step-program", schedule, tuple(body_key),
+           tuple(_leaf_sig(x) for x in leaves), bk_name)
+    prog = dispatch.program_cache_get(key)
+    if prog is not None:
+        return prog(*leaves)
+
+    def run(charges: list, *args):
+        cur = ScheduleCursor(schedule, bk_name, charges=charges)
+        out = body(cur, *args)
+        cur.finish()
+        return out
+
+    charges: list = []
+    out = run(charges, *leaves)
+    planned = PlannedCharges(tuple(charges))
+    if planned.accesses != schedule.accesses:   # pragma: no cover
+        raise CimOpError(
+            f"{schedule.macro}: recorded {planned.accesses} accesses but the "
+            f"plan has {schedule.accesses}")
+    dispatch.program_cache_put(
+        key, CompiledSchedule(lambda *args: run([], *args), planned))
+    planned.replay()
+    dispatch.count_dispatch()
+    return out
+
+
+def _plane_mask(bitmap: torch.Tensor, n_bits: int,
+                like: PlanePack) -> PlanePack:
+    """One multiplier-bit bitmap replicated across n_bits planes (the same
+    enable asserted on every plane row — free wiring)."""
+    return PlanePack(planes=bitmap.unsqueeze(0).expand(n_bits, -1),
+                     n_bits=n_bits, signed=True, shape=like.shape)
+
+
+# ---------------------------------------------------------------------------
+# multiply / reduction
+# ---------------------------------------------------------------------------
+
+
+def _multiply_with(cur: ScheduleCursor, a: PlanePack,
+                   b: PlanePack) -> PlanePack:
+    """Shift-and-add over a cursor: one AND access per multiplier bit, one
+    add (sub for a signed multiplier's MSB) per accumulation."""
+    w = a.n_bits + b.n_bits
+    a_ext = a.extend_to(w).as_signed(True)
+    acc: Optional[PlanePack] = None
+    for i in range(b.n_bits):
+        last_signed = b.signed and i == b.n_bits - 1
+        pp = cur.execute(a_ext, _plane_mask(b.planes[i], w, a), ("and",))
+        # AND of a sign-extended word against a replicated enable bit is a
+        # valid two's-complement word; shift = weight 2^i, truncation keeps
+        # the arithmetic modulo 2^w
+        shifted = pp["and"].as_signed(True).truncate_to(w - i).shift_up(i)
+        if acc is None:
+            if last_signed:            # 1-bit signed multiplier: b in {0,-1}
+                zero = PlanePack.zeros_like(shifted)
+                acc = cur.execute(zero, shifted, ("sub",))["sub"]
+            else:
+                acc = shifted
+        else:
+            op = "sub" if last_signed else "add"
+            acc = cur.execute(acc, shifted, (op,))[op]
+        acc = acc.truncate_to(w)
+    return acc.as_signed(a.signed or b.signed)
+
+
+def _reduce_with(cur: ScheduleCursor, acc: PlanePack,
+                 n_steps: Optional[int] = None) -> PlanePack:
+    """Log-stride reduction: each planned step shifts the row buffer by its
+    stride and adds, so element 0 of each segment accumulates the segment
+    sum; exactness relies on the pack's zero padding past the last word."""
+    if not acc.signed:
+        acc = acc.extend_to(acc.n_bits + 1).as_signed(True)
+    steps = cur.remaining()
+    if n_steps is not None:
+        steps = steps[:n_steps]
+    for step in steps:
+        shifted = acc.shift_elements(step.stride)
+        acc = cur.execute(acc, shifted, ("add",))["add"]
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# quantized matmul / batched matmul
+# ---------------------------------------------------------------------------
+
+
+def _expand_rhs(b3: torch.Tensor, m: int, k_pad: int) -> torch.Tensor:
+    """[B, K, N] -> the [B*M, K_pad, N] broadcast layout (zero K padding)."""
+    bf, k, n = b3.shape
+    b_exp = torch.zeros((bf, m, k_pad, n), dtype=torch.int32, device=b3.device)
+    b_exp[:, :, :k, :] = b3.to(torch.int32).unsqueeze(1)
+    return b_exp.reshape(bf * m, k_pad, n)
+
+
+def _expand_lhs(a2: torch.Tensor, k_pad: int, n: int) -> torch.Tensor:
+    """[R, K] -> the [R, K_pad, N] broadcast layout (zero K padding)."""
+    r, k = a2.shape
+    a_exp = torch.zeros((r, k_pad, n), dtype=torch.int32, device=a2.device)
+    a_exp[:, :k, :] = a2.to(torch.int32).unsqueeze(-1)
+    return a_exp
+
+
+def matmul_rhs_pack(b: torch.Tensor, m: int, n_bits: int,
+                    signed: bool = True) -> PlanePack:
+    """The expanded [M, K_pad, N] rhs entry pack of a matmul — the plane
+    stack a ResidentSet pins so warm calls skip building (and loading) it."""
+    if b.dim() != 2:
+        raise CimOpError(f"matmul rhs must be [K, N], got {tuple(b.shape)}")
+    k_pad = 1 << planner._log2_ceil(int(b.shape[0]))
+    return PlanePack.pack(_expand_rhs(b.unsqueeze(0), m, k_pad), n_bits,
+                          signed=signed)
+
+
+def batched_matmul_rhs_pack(b: torch.Tensor, m: int, n_bits: int,
+                            signed: bool = True) -> PlanePack:
+    """The expanded [B_flat * M, K_pad, N] rhs entry pack of a batched
+    matmul ([*B, K, N] rhs broadcast over the lhs's M rows)."""
+    if b.dim() < 3:
+        raise CimOpError(f"batched matmul rhs must be [*B, K, N], "
+                         f"got {tuple(b.shape)}")
+    k, n = int(b.shape[-2]), int(b.shape[-1])
+    k_pad = 1 << planner._log2_ceil(k)
+    return PlanePack.pack(_expand_rhs(b.reshape(-1, k, n), m, k_pad), n_bits,
+                          signed=signed)
+
+
+def _contract_with(cur: ScheduleCursor, a2: torch.Tensor, b3, m: int,
+                   bf: int, n_bits: int, signed: bool,
+                   b_pack: Optional[PlanePack],
+                   out_shape: Tuple[int, ...]) -> PlanePack:
+    """The shared matmul dataflow over an open cursor: broadcast
+    [B_flat * M, K_pad, N] operand layout, ONE shift-and-add multiply, a
+    log2(K_pad) stride-N tree reduction, and the k = 0 slice of every
+    (b, m) block gathered to the result pack. Cross-block partial sums land
+    on discarded k > 0 slots. With `b_pack` the rhs is RESIDENT: its
+    expansion and entry pack are skipped and it charges one zero-load
+    reuse; the streamed lhs pays its load."""
+    k = int(a2.shape[-1])
+    if b_pack is not None:
+        mm, k_pad, n = b_pack.shape
+        if mm != bf * m or k > k_pad:
+            raise CimOpError(
+                f"resident rhs pack {b_pack.shape} does not match lhs "
+                f"[{bf}x{m}, {k}] (expanded for {mm} rows, K_pad={k_pad})")
+        pb = b_pack
+    else:
+        n = int(b3.shape[-1])
+        k_pad = 1 << planner._log2_ceil(k)
+        pb = PlanePack.pack(_expand_rhs(b3, m, k_pad), n_bits, signed=signed)
+        cur.charge_load(n_bits, pb.n_words)
+    pa = PlanePack.pack(_expand_lhs(a2, k_pad, n), n_bits, signed=signed)
+    cur.charge_load(n_bits, pa.n_words)
+    if b_pack is not None:
+        cur.charge_resident(n_bits, pb.n_words)
+
+    prod = _multiply_with(cur, pa, pb)
+    del pa
+    acc = _reduce_with(cur, prod, n_steps=planner._log2_ceil(k_pad))
+    dev = acc.planes.device
+    idx = (torch.arange(bf * m, device=dev)[:, None] * (k_pad * n)
+           + torch.arange(n, device=dev)[None, :])
+    return acc.take_words(idx.reshape(-1), out_shape)
+
+
+def _charge_entry(cur: ScheduleCursor, entry_bits: Optional[int],
+                  *operands: torch.Tensor) -> None:
+    """The region-entry loads of the reference's lowered contraction: its
+    int32 quantized operands enter the region as `entry_bits`-wide packs
+    before the convert to n_bits feeds the dot. The values are unchanged by
+    that round trip, so the port charges the loads and skips the pack."""
+    if entry_bits:
+        for x in operands:
+            cur.charge_load(entry_bits, x.numel())
+
+
+def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
+           n_bits: int = 8, backend: Optional[str] = None,
+           b_pack: Optional[PlanePack] = None,
+           entry_bits: Optional[int] = None) -> torch.Tensor:
+    """Exact intN x intN -> int32 matmul through the CiM array.
+
+    a : int [M, K], b : int [K, N], entries representable in n_bits signed.
+    ONE shift-and-add multiply over the broadcast [M, K_pad, N] layout plus
+    a log2(K_pad) stride-N tree reduction: (2*n_bits - 1) + ceil(log2 K)
+    accesses regardless of M and N.
+
+    With `b_pack` (a pinned `matmul_rhs_pack`; `b` may then be None) the
+    rhs is RESIDENT: the schedule names it so, the program keys on that
+    residency, and only the lhs pays operand loads. `entry_bits` charges
+    the region-entry loads of the reference's lowered form (see
+    `_charge_entry`)."""
+    if a.dim() != 2:
+        raise CimOpError(f"matmul needs [M,K] lhs, got {tuple(a.shape)}")
+    m, k = (int(d) for d in a.shape)
+    if b_pack is not None:
+        m2, k_pad, n = b_pack.shape
+        sched = planner.plan_matmul(k_pad, n, n_bits=n_bits, signed=True,
+                                    resident_rhs=True)
+
+        def body_res(cur, a_, bp):
+            _charge_entry(cur, entry_bits, a_)
+            return _contract_with(cur, a_, None, m, 1, n_bits, True, bp,
+                                  (m, n)).unpack()
+
+        return run_schedule_program(
+            sched, body_res, (a, b_pack),
+            body_key=("matmul", n_bits, entry_bits, "resident"),
+            backend=backend)
+    if b is None or b.dim() != 2 or int(b.shape[0]) != k:
+        raise CimOpError(f"matmul needs [M,K] x [K,N], got {tuple(a.shape)} "
+                         f"{None if b is None else tuple(b.shape)}")
+    n = int(b.shape[1])
+    sched = planner.plan_matmul(k, n, n_bits=n_bits, signed=True)
+
+    def body(cur, a_, b_):
+        _charge_entry(cur, entry_bits, a_, b_)
+        return _contract_with(cur, a_, b_.unsqueeze(0), m, 1, n_bits, True,
+                              None, (m, n)).unpack()
+
+    return run_schedule_program(sched, body, (a, b),
+                                body_key=("matmul", n_bits, entry_bits),
+                                backend=backend)
+
+
+def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
+                   n_bits: int = 8, backend: Optional[str] = None,
+                   b_pack: Optional[PlanePack] = None,
+                   entry_bits: Optional[int] = None) -> torch.Tensor:
+    """Exact batched intN x intN -> int32 contraction through the CiM array.
+
+    a : int [*B, M, K], b : int [*B, K, N]. The batch dims flatten onto the
+    word axis, so every batch element contracts in the SAME
+    (2*n_bits - 1) + ceil(log2 K) accesses as a single 2-D matmul."""
+    if a.dim() < 3:
+        raise CimOpError(f"batched matmul needs [*B, M, K] lhs, "
+                         f"got {tuple(a.shape)}")
+    m, k = int(a.shape[-2]), int(a.shape[-1])
+    bdims = tuple(int(d) for d in a.shape[:-2])
+    bf = 1
+    for d in bdims:
+        bf *= d
+    if b_pack is not None:
+        mm, k_pad, n = b_pack.shape
+        sched = planner.plan_batched_matmul(bf, k_pad, n, n_bits=n_bits,
+                                            signed=True, resident_rhs=True)
+
+        def body_res(cur, a_, bp):
+            _charge_entry(cur, entry_bits, a_)
+            return _contract_with(cur, a_.reshape(bf * m, k), None, m, bf,
+                                  n_bits, True, bp, bdims + (m, n)).unpack()
+
+        return run_schedule_program(
+            sched, body_res, (a, b_pack),
+            body_key=("batched_matmul", n_bits, entry_bits, "resident"),
+            backend=backend)
+    if b is None or b.dim() != a.dim() \
+            or tuple(int(d) for d in b.shape[:-2]) != bdims \
+            or int(b.shape[-2]) != k:
+        raise CimOpError(
+            f"batched matmul needs [*B,M,K] x [*B,K,N], got {tuple(a.shape)} "
+            f"{None if b is None else tuple(b.shape)}")
+    n = int(b.shape[-1])
+    sched = planner.plan_batched_matmul(bf, k, n, n_bits=n_bits, signed=True)
+
+    def body(cur, a_, b_):
+        _charge_entry(cur, entry_bits, a_, b_)
+        return _contract_with(cur, a_.reshape(bf * m, k),
+                              b_.reshape(bf, k, n), m, bf, n_bits, True,
+                              None, bdims + (m, n)).unpack()
+
+    return run_schedule_program(sched, body, (a, b),
+                                body_key=("batched_matmul", n_bits,
+                                          entry_bits),
+                                backend=backend)

@@ -1,0 +1,3 @@
+"""Architecture configurations of the port."""
+from .base import ArchConfig, MLAConfig, MoEConfig  # noqa: F401
+from .registry import ARCH_IDS, GEMMA_2B, get_config, preset_config  # noqa: F401

@@ -1,0 +1,44 @@
+"""Published architecture configurations.
+
+Port of `repro.configs.registry`; this slice carries gemma-2b, the serve
+default (dense GQA/MQA attention, GeGLU). The other families wait.
+"""
+from __future__ import annotations
+
+from .base import ArchConfig
+
+_REGISTRY: dict[str, ArchConfig] = {}
+
+
+def _reg(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+# --- [dense] GeGLU, head_dim=256, MQA [arXiv:2403.08295; hf] ----------------
+GEMMA_2B = _reg(ArchConfig(
+    name="gemma-2b", family="dense",
+    n_layers=18, d_model=2048, n_heads=8, n_kv_heads=1, head_dim=256,
+    d_ff=16384, vocab_size=256000,
+    gating="geglu", tie_embeddings=True,
+    microbatches=2,
+))
+
+ARCH_IDS = tuple(sorted(_REGISTRY))
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    return _REGISTRY[name]
+
+
+def preset_config(name: str, preset: str) -> ArchConfig:
+    """The serve presets of `repro.launch.train.preset_config` that this
+    slice runs: the published config ("full") or its CPU-test reduction."""
+    cfg = get_config(name)
+    if preset == "reduced":
+        return cfg.reduced()
+    if preset == "full":
+        return cfg
+    raise ValueError(f"preset {preset!r} is not ported; use reduced or full")

@@ -1,0 +1,483 @@
+"""Continuous-batching serve engine over the CiM-quantized model.
+
+Port of `repro.launch.serve` (without fault injection, ECC scrubbing, bank
+failover and admission shedding, which wait):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+      --preset full --device cuda --slots 2 --requests 4 --prompt-len 8 \
+      --gen 8 --cim-lower --cim-resident --assert-warm
+
+The engine holds `slots` concurrent sequences in one batched KV cache. Each
+loop iteration admits at most one due request (a batch-1 prefill inserted
+into its slot between decode steps) and then runs ONE full-batch decode
+step for every in-flight sequence; retired sequences free their slot and
+their paged KV blocks at once.
+
+Timing: every prefill and decode step ends in `torch.cuda.synchronize()`
+on the card, so a step's latency is device time. Steady-state tok/s and the
+p50/p99 per-token latencies exclude prefill and the first `--warmup-steps`
+decode steps.
+
+With --cim-lower every decode MLP matmul and attention contraction runs as
+a planned ADRA access schedule whose accesses are launches of the fused
+bit-plane kernel; `accesses` is the compute bill, `load_accesses` the
+streamed-operand row-write bill. The prefill runs eagerly and charges the
+ledger on every call (the reference's jitted prefill charges once, at
+trace time). The bench runs the SAME request schedule twice — streamed
+repack, then resident — and asserts that the resident phase charges the
+same compute accesses per token and strictly fewer total accesses per
+token; --assert-warm replays the resident phase and asserts zero program
+misses and zero new pins.
+
+The resident array is decided in one place, `resident_array_spec`. The
+paper's 1024-word bitlines give 4096-word tiles: a full-width gemma-2b
+decode weight pin (2^26 words at 2 slots) would need 32768 rows per bank
+against a 768-row resident budget, so it would stay streamed (the
+reference's residency planning decides the same) and no slot count or
+prompt length changes that. The serve path therefore widens the bitlines
+until the largest decode weight pin fills one tile (2^24 words per bitline,
+2^26-word tiles, at full width and 2 slots) and keeps the paper's banks,
+subarrays and rows.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json as json_lib
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.cim import accounting, dispatch
+from repro_torch.cim import planner
+from repro_torch.cim.array import (DEFAULT_SPEC, ArraySpec, clear_resident,
+                                   resident_set)
+from repro_torch.configs import preset_config
+from repro_torch.launch.paged_kv import PagedKV
+from repro_torch.models.model import Model, build, with_cim
+from repro_torch.train import greedy_sample, make_decode_step, make_prefill_step
+
+
+@dataclasses.dataclass
+class ServeRequest:
+    """One queued generation job and its measured lifecycle. `prompt`
+    fixes the prompt tokens; without it they are drawn from the engine's
+    seeded generator."""
+
+    rid: int
+    prompt_len: int
+    gen: int                       # tokens to produce (incl. the prefill one)
+    arrival_s: float = 0.0
+    prompt: Optional[List[int]] = None
+    slot: int = -1
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    prefill_ms: float = 0.0
+    first_token_s: float = -1.0
+    done_s: float = -1.0
+    accesses: float = 0.0          # ledger attribution (see module docstring)
+    load_accesses: float = 0.0
+    token_latencies_ms: List[float] = dataclasses.field(default_factory=list)
+
+    @property
+    def done(self) -> bool:
+        return len(self.tokens) >= self.gen
+
+    def report(self) -> Dict[str, Any]:
+        return {
+            "rid": self.rid,
+            "arrival_s": round(self.arrival_s, 6),
+            "first_token_s": round(self.first_token_s, 6),
+            "done_s": round(self.done_s, 6),
+            "prefill_ms": round(self.prefill_ms, 3),
+            "tokens": len(self.tokens),
+            "token_ids": list(self.tokens),
+            "accesses": round(self.accesses, 3),
+            "load_accesses": round(self.load_accesses, 3),
+            "total_accesses": round(self.accesses + self.load_accesses, 3),
+        }
+
+
+def _percentile(xs: List[float], q: float) -> float:
+    if not xs:
+        return 0.0
+    ys = sorted(xs)
+    i = min(len(ys) - 1, max(0, int(round(q / 100.0 * (len(ys) - 1)))))
+    return ys[i]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServeEngine:
+    """Slot-based continuous batching over one batched cache."""
+
+    def __init__(self, model: Model, slots: int, max_len: int,
+                 cim_lower: bool = False, paged: Optional[PagedKV] = None,
+                 warmup_steps: int = 1, seed: int = 0):
+        self.model, self.cfg = model, model.cfg
+        self.device = model.device
+        self.slots, self.max_len = int(slots), int(max_len)
+        self.cim_lower = cim_lower
+        self.paged = paged
+        self.warmup_steps = int(warmup_steps)
+        self.seed = int(seed)
+        self.prefill_fn = make_prefill_step(model, max_len)
+        self.decode_fn = make_decode_step(model)
+
+    def _prompt_inputs(self, req: ServeRequest) -> Dict[str, torch.Tensor]:
+        if req.prompt is not None:
+            toks = torch.tensor([req.prompt], dtype=torch.int64)
+        else:
+            gen = torch.Generator().manual_seed(self.seed * 1_000_003 + req.rid)
+            toks = torch.randint(0, self.cfg.vocab_size, (1, req.prompt_len),
+                                 generator=gen)
+        return {"tokens": toks.to(self.device)}
+
+    def _insert(self, caches, single, slot: int) -> None:
+        """Land a batch-1 prefill cache in slot `slot` (in place: the
+        batched cache belongs to this engine alone)."""
+        for c, s in zip(caches, single):
+            for name in c:
+                c[name][slot] = s[name][0].to(c[name].dtype)
+
+    def run(self, requests: List[ServeRequest]) -> Dict[str, Any]:
+        led = accounting.ledger()
+        pending = deque(sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
+        active: Dict[int, ServeRequest] = {}
+        free = list(range(self.slots))
+        caches = self.model.init_caches(self.slots, self.max_len)
+        tok = torch.zeros((self.slots,), dtype=torch.int64, device=self.device)
+        positions = [0] * self.slots
+        decode_steps = 0
+        steady_tokens = 0
+        steady_time = 0.0
+        token_lat_ms: List[float] = []
+        step_accesses: List[int] = []
+        step_dispatches: List[int] = []
+        t0 = time.perf_counter()
+
+        def now() -> float:
+            return time.perf_counter() - t0
+
+        while pending or active:
+            if pending and free and pending[0].arrival_s <= now():
+                req = pending[0]
+                if self.paged is not None and \
+                        not self.paged.alloc(req.rid, req.prompt_len):
+                    if not active:
+                        raise RuntimeError(
+                            f"request {req.rid}: prompt of {req.prompt_len} "
+                            f"tokens cannot fit the KV block pool even with "
+                            f"every slot idle")
+                else:
+                    pending.popleft()
+                    slot = free.pop(0)
+                    req.slot = slot
+                    ta = time.perf_counter()
+                    l0 = (led.accesses, led.load_accesses)
+                    c1, logits1 = self.prefill_fn(self._prompt_inputs(req))
+                    _sync(self.device)
+                    req.prefill_ms = (time.perf_counter() - ta) * 1e3
+                    req.accesses += led.accesses - l0[0]
+                    req.load_accesses += led.load_accesses - l0[1]
+                    self._insert(caches, c1, slot)
+                    first = int(greedy_sample(logits1)[0])
+                    tok[slot] = first
+                    req.tokens.append(first)
+                    req.first_token_s = now()
+                    positions[slot] = req.prompt_len
+                    active[slot] = req
+                    if req.done:
+                        self._retire(req, free, active, now())
+                    continue                           # admit before decode
+
+            if not active:
+                if pending:
+                    time.sleep(max(0.0, pending[0].arrival_s - now()))
+                continue
+
+            step_in = {"tokens": tok[:, None],
+                       "positions": torch.tensor(positions, dtype=torch.int32,
+                                                 device=self.device)}
+            ts = time.perf_counter()
+            l0 = (led.accesses, led.load_accesses)
+            d0 = dispatch.cache_stats()["dispatches"]
+            caches, logits = self.decode_fn(caches, step_in)
+            _sync(self.device)
+            dt = time.perf_counter() - ts
+            d_acc = led.accesses - l0[0]
+            d_load = led.load_accesses - l0[1]
+            step_accesses.append(d_acc)
+            step_dispatches.append(dispatch.cache_stats()["dispatches"] - d0)
+            tok = greedy_sample(logits).to(torch.int64)
+            tok_host = tok.tolist()
+            n_active = len(active)
+            decode_steps += 1
+            steady = decode_steps > self.warmup_steps
+            if steady:
+                steady_tokens += n_active
+                steady_time += dt
+            for slot, req in list(active.items()):
+                req.tokens.append(int(tok_host[slot]))
+                req.accesses += d_acc / n_active
+                req.load_accesses += d_load / n_active
+                req.token_latencies_ms.append(dt * 1e3)
+                if steady:
+                    token_lat_ms.append(dt * 1e3)
+                positions[slot] += 1
+                if self.paged is not None:
+                    self.paged.extend(req.rid)
+                if req.done:
+                    self._retire(req, free, active, now())
+
+        total_tokens = sum(len(r.tokens) for r in requests)
+        decode_tokens = sum(max(0, len(r.tokens) - 1) for r in requests)
+        report: Dict[str, Any] = {
+            "device": str(self.device),
+            "slots": self.slots,
+            "requests": len(requests),
+            "total_tokens": total_tokens,
+            "decode_tokens": decode_tokens,
+            "decode_steps": decode_steps,
+            "warmup_steps": self.warmup_steps,
+            "wall_s": now(),
+            "tok_s_steady": (steady_tokens / steady_time
+                             if steady_time > 0 else 0.0),
+            "steady_tokens": steady_tokens,
+            "p50_ms": _percentile(token_lat_ms, 50),
+            "p99_ms": _percentile(token_lat_ms, 99),
+            "prefill_ms_mean": (sum(r.prefill_ms for r in requests)
+                                / max(1, len(requests))),
+            "completed": sum(1 for r in requests if r.done),
+            "step_accesses": step_accesses,
+            "step_dispatches": step_dispatches,
+            "per_request": [r.report() for r in requests],
+        }
+        if self.paged is not None:
+            st = self.paged.stats()
+            report["kv"] = {
+                "n_blocks": st.n_blocks, "block_tokens": st.block_tokens,
+                "peak_blocks": st.peak_blocks,
+                "failed_allocs": st.failed_allocs,
+                "utilization_peak": st.peak_blocks / max(1, st.n_blocks),
+            }
+        if self.cim_lower:
+            per_tok = max(1, decode_tokens)
+            report["ledger"] = {
+                "accesses": led.accesses,
+                "load_accesses": led.load_accesses,
+                "total_accesses": led.total_accesses,
+                "resident_reuses": led.resident_reuses,
+            }
+            report["accesses_per_token"] = round(led.accesses / per_tok, 4)
+            report["load_accesses_per_token"] = round(
+                led.load_accesses / per_tok, 4)
+            report["total_accesses_per_token"] = round(
+                led.total_accesses / per_tok, 4)
+        return report
+
+    def _retire(self, req: ServeRequest, free, active, t: float) -> None:
+        req.done_s = t
+        if req.slot in active:
+            del active[req.slot]
+        free.append(req.slot)
+        free.sort()
+        if self.paged is not None:
+            self.paged.free(req.rid)
+
+
+# ---------------------------------------------------------------------------
+# entry point
+# ---------------------------------------------------------------------------
+
+
+def make_requests(args) -> List[ServeRequest]:
+    return [ServeRequest(rid=i, prompt_len=args.prompt_len, gen=args.gen,
+                         arrival_s=i * args.arrival_interval)
+            for i in range(args.requests)]
+
+
+def fresh_cim_state() -> None:
+    accounting.ledger().reset()
+    clear_resident()
+    dispatch.clear_schedule_cache()
+
+
+def resident_array_spec(cfg, slots: int) -> ArraySpec:
+    """The array a --cim-lower run pins weights and KV pages in: the paper's
+    geometry with its bitlines doubled until the largest decode weight pin,
+    an [slots, K_pad, N] broadcast layout, fills one tile (see the module
+    docstring)."""
+    pin_words = slots * max(
+        (1 << planner._log2_ceil(k)) * n
+        for k, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)))
+    words = DEFAULT_SPEC.bitline_words
+    while DEFAULT_SPEC.subarrays * words < pin_words:
+        words *= 2
+    return dataclasses.replace(DEFAULT_SPEC, bitline_words=words)
+
+
+def serve_once(model: Model, args, requests=None) -> Dict[str, Any]:
+    """One pass of the request schedule through a fresh engine."""
+    cfg = model.cfg
+    spec = rs = None
+    if args.cim_lower:
+        spec = resident_array_spec(cfg, args.slots)
+        rs = resident_set(spec)
+        model = model.derive(cfg, resident_spec=spec)
+    max_len = args.prompt_len + args.gen
+    paged = PagedKV.for_model(cfg, spec=spec, slots=args.slots,
+                              max_len=max_len, resident_set=rs)
+    engine = ServeEngine(model, slots=args.slots, max_len=max_len,
+                         cim_lower=args.cim_lower, paged=paged,
+                         warmup_steps=args.warmup_steps, seed=args.seed)
+    return engine.run(requests if requests is not None else make_requests(args))
+
+
+def print_cim_report(tag: str) -> None:
+    led = accounting.ledger()
+    proj = led.projected()
+    hist = ", ".join(f"{k}:{v}" for k, v in sorted(led.per_op.items()))
+    print(f"cim ledger ({tag}): {led.accesses} compute accesses + "
+          f"{led.load_accesses} streamed loads = {led.total_accesses} total, "
+          f"{led.resident_reuses} resident reuses, "
+          f"{led.words32:.0f} word32-ops")
+    print(f"  per-op: {hist}")
+    print(f"  projected: {proj['edp_decrease_pct']:.1f}% EDP decrease, "
+          f"{proj['energy_saved_fj']:.0f} fJ saved vs near-memory "
+          f"(current sensing @1024^2)")
+    cs = dispatch.cache_stats()
+    print(f"  schedule cache: {cs['hits']} hits / {cs['misses']} misses, "
+          f"{cs['dispatches']} dispatches; resident: "
+          f"{cs['resident_pins']} pins / {cs['resident_hits']} hits / "
+          f"{cs['resident_evictions']} evictions, "
+          f"{cs['resident_rows']} rows held")
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--preset", default="reduced", choices=("reduced", "full"))
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    ap.add_argument("--slots", "--batch", type=int, default=4, dest="slots")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="queued requests (default: one per slot)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--arrival-interval", type=float, default=0.0)
+    ap.add_argument("--warmup-steps", type=int, default=1)
+    ap.add_argument("--json", default="")
+    ap.add_argument("--cim-lower", action="store_true",
+                    help="run decode MLPs and attention contractions as CiM "
+                         "schedules and bench repack vs resident phases")
+    ap.add_argument("--cim-bits", type=int, default=8)
+    ap.add_argument("--cim-resident", action="store_true",
+                    help="pin int8 MLP weight planes in array rows")
+    ap.add_argument("--assert-warm", action="store_true",
+                    help="replay the resident phase and fail unless every "
+                         "program and pin stayed warm")
+    args = ap.parse_args(argv)
+    if args.requests <= 0:
+        args.requests = args.slots
+    return args
+
+
+def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
+    """Run the serve bench; returns its report. `model` reuses a built
+    model (its config is re-derived from the arguments)."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = preset_config(args.arch, args.preset)
+    if args.cim_lower:
+        cfg = with_cim(cfg, args.cim_bits)
+    if args.cim_resident and not args.cim_lower:
+        cfg = dataclasses.replace(cfg, cim_resident=True)
+    if model is None:
+        model = build(cfg, device=device, seed=args.seed)
+    else:
+        model = model.derive(cfg)
+
+    out: Dict[str, Any] = {
+        "bench": "serve", "arch": args.arch, "preset": args.preset,
+        "device": str(device), "slots": args.slots,
+        "requests": args.requests, "prompt_len": args.prompt_len,
+        "gen": args.gen,
+        "cim": {"lower": bool(args.cim_lower), "bits": args.cim_bits,
+                "resident": bool(args.cim_resident)},
+    }
+    if args.cim_lower:
+        out["cim"]["array_bitline_words"] = \
+            resident_array_spec(cfg, args.slots).bitline_words
+    if not args.cim_lower:
+        rep = serve_once(model, args)
+        out.update(rep)
+        print(f"served {rep['requests']} requests / {rep['total_tokens']} "
+              f"tokens in {rep['wall_s']:.2f}s: {rep['tok_s_steady']:.1f} "
+              f"tok/s steady, p50 {rep['p50_ms']:.1f} ms, "
+              f"p99 {rep['p99_ms']:.1f} ms")
+    else:
+        model_resident = model.derive(dataclasses.replace(cfg,
+                                                          cim_resident=True))
+        fresh_cim_state()
+        repack = serve_once(model, args)
+        print_cim_report("repack")
+        fresh_cim_state()
+        resident = serve_once(model_resident, args)
+        print_cim_report("resident")
+        assert resident["accesses_per_token"] == repack["accesses_per_token"], \
+            (f"compute accesses/token must not change with residency: "
+             f"{resident['accesses_per_token']} != "
+             f"{repack['accesses_per_token']}")
+        assert resident["total_accesses_per_token"] \
+            < repack["total_accesses_per_token"], \
+            (f"resident serving must charge strictly fewer total "
+             f"accesses/token: {resident['total_accesses_per_token']} !< "
+             f"{repack['total_accesses_per_token']}")
+        assert resident["ledger"]["resident_reuses"] > 0
+        out["phases"] = {"repack": repack, "resident": resident}
+        if args.assert_warm:
+            cs0 = dispatch.cache_stats()
+            warm = serve_once(model_resident, args)
+            cs1 = dispatch.cache_stats()
+            miss_delta = cs1["misses"] - cs0["misses"]
+            pin_delta = cs1["resident_pins"] - cs0["resident_pins"]
+            assert miss_delta == 0, \
+                f"warm replay compiled {miss_delta} new programs"
+            assert pin_delta == 0, \
+                f"warm replay re-pinned {pin_delta} resident operands"
+            assert warm["tok_s_steady"] > 0
+            out["phases"]["warm"] = warm
+            out["warm_replay"] = {
+                "tok_s_steady": warm["tok_s_steady"],
+                "program_cache_miss_delta": miss_delta,
+                "resident_pin_delta": pin_delta,
+            }
+            print(f"warm replay: {warm['tok_s_steady']:.2f} tok/s, "
+                  f"0 new programs, 0 new pins")
+        ratio = resident["tok_s_steady"] / max(1e-9, repack["tok_s_steady"])
+        out["tok_s_resident_vs_repack_ratio"] = ratio
+        for k in ("accesses_per_token", "load_accesses_per_token",
+                  "total_accesses_per_token", "tok_s_steady", "p50_ms",
+                  "p99_ms"):
+            out[k] = resident[k]
+        print(f"resident vs repack: {resident['tok_s_steady']:.2f} vs "
+              f"{repack['tok_s_steady']:.2f} tok/s (x{ratio:.2f}), total "
+              f"accesses/token {resident['total_accesses_per_token']} vs "
+              f"{repack['total_accesses_per_token']}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json_lib.dump(out, f, indent=2, sort_keys=True)
+        print(f"wrote {args.json}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

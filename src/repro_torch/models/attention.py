@@ -1,0 +1,205 @@
+"""Dense GQA/MQA attention with RoPE, prefill/decode caches, and the int8
+CiM decode attention.
+
+Port of the dense path of `repro.models.attention`: `_sdpa`, the quantized
+core and its CiM form, `_attend`, `gqa_prefill`, `gqa_decode` and
+`gqa_decode_cim`. Sequences of `BLOCKWISE_MIN_LEN` tokens or more take the
+reference's blockwise attention, which is not ported yet: they raise. MLA
+and sliding-window attention wait.
+
+`sdpa_cim` runs QK^T and AV as planned batched CiM schedules by calling
+`repro_torch.cim.macro.batched_matmul` directly (two dispatches per call);
+the reference stages the same quantized core through its lowering compiler,
+whose two regions each hold one batched `dot_general`. KV streams into the
+array every decode step, as `gqa_decode_cim` does in the reference: the
+functional cache update makes fresh tensors per token.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from .layers import (
+    _dense_init,
+    apply_rope,
+    cim_batched_matmul,
+    quantized_batched_matmul,
+    rmsnorm,
+    rmsnorm_init,
+)
+
+#: the reference switches to blockwise attention at this length
+BLOCKWISE_MIN_LEN = 1024
+
+Params = Dict[str, Any]
+
+
+def _sdpa(q, k, v, mask, scale) -> torch.Tensor:
+    """[B,Tq,H,D] x [B,Tk,Hkv,D] grouped attention with explicit mask,
+    f32 accumulation, output in q's dtype."""
+    b, tq, hq, d = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    qg = (q * torch.tensor(scale, dtype=q.dtype)).reshape(b, tq, hkv, group, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.tensor(-1e30, dtype=logits.dtype,
+                                      device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, tq, hq, d).to(q.dtype)
+
+
+def _sdpa_quantized_core(qs, k, v, mask, n_bits: int,
+                         bmm=quantized_batched_matmul) -> torch.Tensor:
+    """Quantized SDPA body: both contractions are canonical batched
+    matmuls with batch dims (B, Hkv) and the grouped-query axis folded into
+    M; mask, softmax and the layout transposes are host islands. `bmm`
+    swaps the host twin for the CiM schedule."""
+    b, tq, hq, d = qs.shape
+    tk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = hq // hkv
+    qg = qs.reshape(b, tq, hkv, g, d).permute(0, 2, 3, 1, 4) \
+        .reshape(b, hkv, g * tq, d)
+    kt = k.float().permute(0, 2, 3, 1)                        # [B,Hkv,D,Tk]
+    logits = bmm(qg, kt, n_bits).reshape(b, hkv, g, tq, tk)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.tensor(-1e30, dtype=logits.dtype,
+                                      device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    vt = v.float().permute(0, 2, 1, 3)                        # [B,Hkv,Tk,Dv]
+    out = bmm(probs.reshape(b, hkv, g * tq, tk), vt, n_bits)
+    return out.reshape(b, hkv, g, tq, dv).permute(0, 3, 1, 2, 4) \
+        .reshape(b, tq, hq, dv)
+
+
+def _sdpa_quantized(q, k, v, mask, scale, n_bits: int = 8) -> torch.Tensor:
+    """Plain quantized twin of `_sdpa`: the function `sdpa_cim` must match
+    bit for bit."""
+    qs = q.float() * torch.tensor(scale, dtype=torch.float32)
+    return _sdpa_quantized_core(qs, k, v, mask, n_bits).to(q.dtype)
+
+
+def sdpa_cim(q, k, v, mask, scale, n_bits: int = 8,
+             backend: Optional[str] = None) -> torch.Tensor:
+    """Grouped SDPA with QK^T and AV executed as planned CiM schedules:
+    exactly two dispatches per call, whatever the batch, heads or length."""
+    qs = q.float() * torch.tensor(scale, dtype=torch.float32)
+
+    def bmm(a, b, nb):
+        return cim_batched_matmul(a, b, nb, backend=backend)
+
+    return _sdpa_quantized_core(qs, k, v, mask, n_bits, bmm=bmm).to(q.dtype)
+
+
+def _causal_mask(tq: int, tk: int, device=None) -> torch.Tensor:
+    # query block aligned to the END of the key span
+    m = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    return torch.tril(m, diagonal=tk - tq)[None]
+
+
+# ---------------------------------------------------------------------------
+# GQA / MQA global attention
+# ---------------------------------------------------------------------------
+
+
+def gqa_init(gen, cfg: ArchConfig, dtype, device) -> Params:
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": _dense_init(gen, (d, h, hd), d, dtype, device),
+        "wk": _dense_init(gen, (d, hkv, hd), d, dtype, device),
+        "wv": _dense_init(gen, (d, hkv, hd), d, dtype, device),
+        "wo": _dense_init(gen, (h, hd, d), h * hd, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, device)
+        p["k_norm"] = rmsnorm_init(hd, dtype, device)
+    return p
+
+
+def _proj(x, w) -> torch.Tensor:
+    return torch.einsum("btd,dhk->bthk", x.float(), w.float()).to(x.dtype)
+
+
+def _out_proj(o, wo, dtype) -> torch.Tensor:
+    return torch.einsum("bthk,hkd->btd", o.float(), wo.float()).to(dtype)
+
+
+def _gqa_qkv(p, cfg: ArchConfig, x, positions):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attend(q, k, v, scale):
+    """Dense causal attention (exact) for sequences below the blockwise
+    threshold."""
+    if q.shape[1] >= BLOCKWISE_MIN_LEN:
+        raise NotImplementedError(
+            f"prompts of {q.shape[1]} >= {BLOCKWISE_MIN_LEN} tokens need the "
+            f"blockwise attention, which is not ported yet")
+    return _sdpa(q, k, v, _causal_mask(q.shape[1], k.shape[1], q.device),
+                 scale)
+
+
+def gqa_make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device) -> Params:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_prefill(p, cfg: ArchConfig, x, positions,
+                max_len: int) -> Tuple[torch.Tensor, Params]:
+    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    o = _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5)
+    y = _out_proj(o, p["wo"], x.dtype)
+    t = k.shape[1]
+    cache = gqa_make_cache(cfg, x.shape[0], max_len, x.dtype, x.device)
+    cache["k"][:, :t] = k
+    cache["v"][:, :t] = v
+    return y, cache
+
+
+def _decode_cache(cfg, x, cache, positions, p):
+    q, k, v = _gqa_qkv(p, cfg, x, positions[:, None])
+    bidx = torch.arange(x.shape[0], device=x.device)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    pos = positions.long()
+    ck[bidx, pos] = k[:, 0]
+    cv[bidx, pos] = v[:, 0]
+    t_max = ck.shape[1]
+    valid = torch.arange(t_max, device=x.device)[None, :] <= positions[:, None]
+    return q, ck, cv, valid
+
+
+def gqa_decode(p, cfg: ArchConfig, x, cache: Params,
+               positions) -> Tuple[torch.Tensor, Params]:
+    """x: [B, 1, D]; positions: [B] = index of the new token."""
+    q, ck, cv, valid = _decode_cache(cfg, x, cache, positions, p)
+    o = _sdpa(q, ck, cv, valid[:, None, :], 1.0 / cfg.head_dim ** 0.5)
+    return _out_proj(o, p["wo"], x.dtype), {"k": ck, "v": cv}
+
+
+def gqa_decode_cim(p, cfg: ArchConfig, x, cache: Params, positions,
+                   backend: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, Params]:
+    """`gqa_decode` with QK^T and AV as planned batched CiM schedules at
+    `cfg.cim_attention_bits` (or their host twin with cfg.cim_host_twin);
+    rotary, softmax and the cache update stay on the host."""
+    q, ck, cv, valid = _decode_cache(cfg, x, cache, positions, p)
+    scale = 1.0 / cfg.head_dim ** 0.5
+    if cfg.cim_host_twin:
+        o = _sdpa_quantized(q, ck, cv, valid[:, None, :], scale,
+                            n_bits=cfg.cim_attention_bits)
+    else:
+        o = sdpa_cim(q, ck, cv, valid[:, None, :], scale,
+                     n_bits=cfg.cim_attention_bits, backend=backend)
+    return _out_proj(o, p["wo"], x.dtype), {"k": ck, "v": cv}

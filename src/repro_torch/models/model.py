@@ -1,0 +1,246 @@
+"""Model assembly for the dense attention stack: parameters, caches, and
+the prefill / decode paths.
+
+Port of the dense path of `repro.models.model`. The reference stacks its
+layers per pattern period and scans over them, unrolling the scan for
+serving (`cim_unroll_groups`) and memoizing per-group parameter slices so
+the same arrays reach every call (`Model._group_param_slices`). The port is
+an `nn.Module` with one module per layer, so every layer always receives
+the same parameter tensors; the compute-dtype casts (`_compute_cast`, bf16
+at full width) are memoized per parameter for the same reason — resident
+weight pins are keyed by tensor identity and stay warm across calls.
+
+Differences from the reference: MoE, MLA, local-window, recurrent and xLSTM
+blocks and the train path wait. The prefill runs eagerly, so its CiM MLPs
+charge the ledger on every call (the reference's jitted prefill charges once
+at trace time), and it never pins weights (residency is off under the
+reference's jit tracers too).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.cim.array import ArraySpec
+from repro_torch.configs.base import ArchConfig
+from . import attention as attn
+from .layers import (
+    embed,
+    embed_init,
+    lm_head_init,
+    mlp,
+    mlp_cim,
+    mlp_init,
+    _mlp_quantized,
+    rmsnorm,
+    rmsnorm_init,
+)
+
+Params = Dict[str, Any]
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> Params:
+    """Random parameters with the reference's init distributions, from an
+    explicit generator: {"embed", "layers": [...], "final_norm"[, "lm_head"]}."""
+    dtype = cfg.param_torch_dtype()
+    for kind in cfg.pattern_layers():
+        if kind != "attn" or cfg.moe is not None or cfg.mla is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: only dense attention stacks are ported")
+    params: Params = {}
+    if not cfg.embed_stub:
+        params["embed"] = embed_init(gen, cfg.vocab_padded, cfg.d_model,
+                                     dtype, device)
+    params["layers"] = [{
+        "ln1": rmsnorm_init(cfg.d_model, dtype, device),
+        "attn": attn.gqa_init(gen, cfg, dtype, device),
+        "ln2": rmsnorm_init(cfg.d_model, dtype, device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gating, dtype, device),
+    } for _ in range(cfg.n_layers)]
+    params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, device)
+    if not (cfg.tie_embeddings and not cfg.embed_stub):
+        params["lm_head"] = lm_head_init(gen, cfg.d_model, cfg.vocab_padded,
+                                         dtype, device)
+    return params
+
+
+def _pdict(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        k: v if isinstance(v, nn.Parameter)
+        else nn.Parameter(v, requires_grad=False)
+        for k, v in d.items()})
+
+
+class Layer(nn.Module):
+    """One dense attention + MLP block's parameters."""
+
+    def __init__(self, p: Params):
+        super().__init__()
+        self.ln1 = _pdict(p["ln1"])
+        self.attn = _pdict(p["attn"])
+        self.ln2 = _pdict(p["ln2"])
+        self.mlp = _pdict(p["mlp"])
+
+    def tree(self) -> Params:
+        return {name: dict(getattr(self, name).items())
+                for name in ("ln1", "attn", "ln2", "mlp")}
+
+
+class Model(nn.Module):
+    """The dense decoder for one ArchConfig, its parameters on one device.
+
+    Without `params` it initialises random ones from `seed` on `device`
+    (`cuda` unless the caller passes `device="cpu"`; raises without a GPU).
+    `resident_spec` is the ArraySpec whose registry ResidentSet holds the
+    decode weight pins (None: the paper's DEFAULT_SPEC)."""
+
+    def __init__(self, cfg: ArchConfig, params: Optional[Params] = None,
+                 device=None, seed: int = 0,
+                 resident_spec: Optional[ArraySpec] = None,
+                 _cast_cache: Optional[dict] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.resident_spec = resident_spec
+        if params is None:
+            device = resolve_device(device)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = init_params(cfg, gen, device)
+        if "embed" in params:
+            self.embed = _pdict(params["embed"])
+        self.layers = nn.ModuleList(Layer(p) for p in params["layers"])
+        self.final_norm = _pdict(params["final_norm"])
+        if "lm_head" in params:
+            self.lm_head = _pdict(params["lm_head"])
+        # id(param) -> (param, compute-dtype copy); shared with derived models
+        self._cast_cache = {} if _cast_cache is None else _cast_cache
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm["scale"].device
+
+    def params(self) -> Params:
+        """The parameter tree (the same Parameter objects the model uses)."""
+        out: Params = {"layers": [layer.tree() for layer in self.layers],
+                       "final_norm": dict(self.final_norm.items())}
+        if hasattr(self, "embed"):
+            out["embed"] = dict(self.embed.items())
+        if hasattr(self, "lm_head"):
+            out["lm_head"] = dict(self.lm_head.items())
+        return out
+
+    def derive(self, cfg: ArchConfig,
+               resident_spec: Optional[ArraySpec] = None) -> "Model":
+        """A model under another config (and resident array, else this
+        one's) sharing these very parameters and their memoized casts."""
+        return Model(cfg, params=self.params(),
+                     resident_spec=resident_spec or self.resident_spec,
+                     _cast_cache=self._cast_cache)
+
+    # -- caches / casts -------------------------------------------------------
+
+    def init_caches(self, batch: int, max_len: int) -> List[Params]:
+        cfg = self.cfg
+        return [attn.gqa_make_cache(cfg, batch, max_len,
+                                    cfg.activation_dtype(), self.device)
+                for _ in range(cfg.n_layers)]
+
+    def _cast(self, t: torch.Tensor) -> torch.Tensor:
+        """The reference's `_compute_cast`: f32 weights of rank >= 2 in the
+        activation dtype, memoized so the same tensor comes back each call."""
+        act = self.cfg.activation_dtype()
+        if act == torch.float32 or t.dtype != torch.float32 or t.dim() < 2:
+            return t
+        hit = self._cast_cache.get(id(t))
+        if hit is None or hit[0] is not t:
+            hit = self._cast_cache[id(t)] = (t, t.detach().to(act))
+        return hit[1]
+
+    def _layer_params(self, layer: Layer) -> Params:
+        return {name: {k: self._cast(v) for k, v in sub.items()}
+                for name, sub in layer.tree().items()}
+
+    # -- stack execution ------------------------------------------------------
+
+    def _apply_mlp(self, p: Params, h: torch.Tensor, mode: str) -> torch.Tensor:
+        cfg = self.cfg
+        if not cfg.cim_mlp_bits:
+            return mlp(p, h, cfg.gating)
+        if cfg.cim_host_twin:
+            return _mlp_quantized(p, h, cfg.gating, cfg.cim_mlp_bits)
+        return mlp_cim(p, h, cfg.gating, n_bits=cfg.cim_mlp_bits,
+                       resident=cfg.cim_resident and mode == "decode",
+                       spec=self.resident_spec)
+
+    def _run_stack(self, x, positions, mode, caches=None, max_len=None):
+        cfg = self.cfg
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            p = self._layer_params(layer)
+            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+            if mode == "prefill":
+                y, nc = attn.gqa_prefill(p["attn"], cfg, h, positions, max_len)
+            elif cfg.cim_attention_bits:
+                y, nc = attn.gqa_decode_cim(p["attn"], cfg, h, caches[i],
+                                            positions)
+            else:
+                y, nc = attn.gqa_decode(p["attn"], cfg, h, caches[i],
+                                        positions)
+            x = x + y
+            h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            x = x + self._apply_mlp(p["mlp"], h2, mode)
+            new_caches.append(nc)
+        x = rmsnorm(dict(self.final_norm.items()), x, cfg.norm_eps)
+        return x, new_caches
+
+    def _embed_inputs(self, inputs) -> torch.Tensor:
+        return embed(dict(self.embed.items()),
+                     inputs["tokens"]).to(self.cfg.activation_dtype())
+
+    def _head_weight(self) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return self.embed["table"].t()
+        return self.lm_head["w"]
+
+    def logits(self, x_final: torch.Tensor) -> torch.Tensor:
+        """Full logits over the padded vocab, pad columns masked."""
+        cfg = self.cfg
+        out = torch.matmul(x_final.float(), self._head_weight().float())
+        if cfg.vocab_padded != cfg.vocab_size:
+            pad = torch.arange(cfg.vocab_padded, device=out.device) \
+                >= cfg.vocab_size
+            out = out + pad * (-1e30)
+        return out
+
+    @torch.no_grad()
+    def prefill(self, inputs, max_len: int):
+        """Returns (caches, last_token_logits [B, V])."""
+        x = self._embed_inputs(inputs)
+        b, t = x.shape[0], x.shape[1]
+        positions = torch.arange(t, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, t)
+        x, caches = self._run_stack(x, positions, "prefill", max_len=max_len)
+        return caches, self.logits(x[:, -1:])[:, 0]
+
+    @torch.no_grad()
+    def decode_step(self, caches, inputs):
+        """One token step. inputs: tokens [B,1] + positions [B]."""
+        x = self._embed_inputs(inputs)
+        x, new_caches = self._run_stack(x, inputs["positions"], "decode",
+                                        caches=caches)
+        return new_caches, self.logits(x)[:, 0]
+
+
+def build(cfg: ArchConfig, params: Optional[Params] = None, device=None,
+          seed: int = 0) -> Model:
+    """`Model(cfg, ...)`: random weights on `cuda` unless `device="cpu"`."""
+    return Model(cfg, params=params, device=device, seed=seed)
+
+
+def with_cim(cfg: ArchConfig, bits: int) -> ArchConfig:
+    """The serve engine's --cim-lower config: int8 MLP and decode attention."""
+    return dataclasses.replace(cfg, cim_mlp_bits=bits, cim_attention_bits=bits,
+                               cim_unroll_groups=True)
