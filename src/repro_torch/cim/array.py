@@ -271,14 +271,20 @@ _reset_stats()
 _RESIDENT_SETS: Dict[ArraySpec, ResidentSet] = {}
 
 
+def registry_reserve_rows(spec: ArraySpec) -> int:
+    """Rows per bank the registry ResidentSet of `spec` keeps back for
+    streamed access planes: a quarter of them."""
+    return spec.rows // 4
+
+
 def resident_set(spec: Optional[ArraySpec] = None) -> ResidentSet:
     """The process-wide ResidentSet for `spec` (DEFAULT_SPEC when None),
-    keeping a quarter of the rows as reserve for streamed access planes."""
+    keeping `registry_reserve_rows` as reserve for streamed access planes."""
     spec = spec or DEFAULT_SPEC
     rs = _RESIDENT_SETS.get(spec)
     if rs is None:
-        rs = _RESIDENT_SETS[spec] = ResidentSet(spec,
-                                                reserve_rows=spec.rows // 4)
+        rs = _RESIDENT_SETS[spec] = ResidentSet(
+            spec, reserve_rows=registry_reserve_rows(spec))
     return rs
 
 

@@ -12,10 +12,10 @@ Beside it, `fused_planes_op_ref` is the plain PyTorch version (the port of
 takes it only for tensors that lie on the CPU; for CUDA tensors it launches
 the kernel or raises — there is no fallback.
 
-Build: at first use `nvcc -gencode arch=compute_90a,code=sm_90a` compiles
-the source into a shared library with a plain C interface under
+Build: at first use `repro_torch.kernel_build` compiles the source with
+nvcc for sm_90a into a shared library with a plain C interface under
 `build/repro_torch_kernels/` at the repository root, named by a hash of the
-source, and loads it with ctypes. `build()` does that explicitly.
+source, and loads it with ctypes.
 
 Planes are int32 tensors holding uint32 bit patterns, [n_bits, W] or, with a
 leading tile axis, [T, n_bits, W]; outputs follow the input layout.
@@ -23,22 +23,15 @@ leading tile axis, [T, n_bits, W]; outputs follow the input layout.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch import kernel_build
 from . import opset
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_planes.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _OP_INDEX = {op: i for i, op in enumerate(opset.ALL_OPS)}
 
@@ -105,47 +98,23 @@ def fused_planes_op_ref(a_planes: torch.Tensor, b_planes: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# build and binding (route b: nvcc into a shared library, loaded by ctypes)
+# binding (route b: nvcc into a shared library, loaded by ctypes)
 # ---------------------------------------------------------------------------
 
-_LIB = None
-_LOCK = threading.Lock()
-BUILD_LOG: Dict[str, str] = {}
+_LAUNCH = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"fused_planes_{digest.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernel (if this source hash is not built yet) and load
-    it. Raises with the compiler's output when nvcc fails."""
-    global _LIB
-    with _LOCK:
-        if _LIB is not None:
-            return library_path()
-        path = library_path()
-        if not path.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            BUILD_LOG["nvcc"] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                    f"{BUILD_LOG['nvcc']}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(str(path))
-        lib.fused_planes_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]
-        lib.fused_planes_launch.restype = ctypes.c_int
-        _LIB = lib
-        return path
+def _launcher():
+    """The C launch function, built and bound at first use."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = kernel_build.load(SOURCE).fused_planes_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LAUNCH = fn
+    return _LAUNCH
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +155,7 @@ def fused_planes_op(a_planes: torch.Tensor, b_planes: torch.Tensor,
         raise opset.CimOpError(
             f"kernel needs n_bits >= 1, W >= 1 and 1..65535 tiles, got "
             f"{tuple(a_planes.shape)}")
-    build()
+    launch = _launcher()
     lead = (n_tiles,) if tiled else ()
     outs = [torch.empty(lead + (opset.out_rows(op, n_bits), w),
                         dtype=a_planes.dtype, device=a_planes.device)
@@ -198,10 +167,8 @@ def fused_planes_op(a_planes: torch.Tensor, b_planes: torch.Tensor,
         mask |= 1 << _OP_INDEX[op]
     stream = torch.cuda.current_stream(a_planes.device).cuda_stream
     with torch.cuda.device(a_planes.device):
-        rc = _LIB.fused_planes_launch(a_planes.data_ptr(), b_planes.data_ptr(),
-                                      n_bits, w, n_tiles, mask,
-                                      ctypes.cast(ptrs, ctypes.c_void_p),
-                                      stream)
+        rc = launch(a_planes.data_ptr(), b_planes.data_ptr(), n_bits, w,
+                    n_tiles, mask, ctypes.cast(ptrs, ctypes.c_void_p), stream)
     if rc != 0:
         raise RuntimeError(f"fused_planes kernel launch failed: cudaError {rc}")
     fused_planes_op.launches += 1

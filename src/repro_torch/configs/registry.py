@@ -1,7 +1,9 @@
 """Published architecture configurations.
 
-Port of `repro.configs.registry`; this slice carries gemma-2b, the serve
-default (dense GQA/MQA attention, GeGLU). The other families wait.
+Port of `repro.configs.registry`; it carries the configurations whose
+families are ported: gemma-2b, the serve default (dense GQA/MQA attention,
+GeGLU), and recurrentgemma-9b (hybrid: RG-LRU recurrent blocks and
+sliding-window local attention, 2:1). The other families wait.
 """
 from __future__ import annotations
 
@@ -21,6 +23,18 @@ GEMMA_2B = _reg(ArchConfig(
     n_layers=18, d_model=2048, n_heads=8, n_kv_heads=1, head_dim=256,
     d_ff=16384, vocab_size=256000,
     gating="geglu", tie_embeddings=True,
+    microbatches=2,
+))
+
+# --- [hybrid] RG-LRU + local attn 1:2 [arXiv:2402.19427; unverified] --------
+RECURRENTGEMMA_9B = _reg(ArchConfig(
+    name="recurrentgemma-9b", family="hybrid",
+    n_layers=38, d_model=4096, n_heads=16, n_kv_heads=1, head_dim=256,
+    d_ff=12288, vocab_size=256000,
+    gating="geglu",
+    block_pattern=("rec", "rec", "local"),   # Griffin 2:1 recurrent:local
+    local_window=2048,
+    sub_quadratic=True,
     microbatches=2,
 ))
 

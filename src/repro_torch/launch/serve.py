@@ -1,11 +1,18 @@
 """Continuous-batching serve engine over the CiM-quantized model.
 
 Port of `repro.launch.serve` (without fault injection, ECC scrubbing, bank
-failover and admission shedding, which wait):
+failover and admission shedding, which wait). It serves the dense family
+(gemma-2b) and the hybrid one (recurrentgemma-9b: RG-LRU recurrent blocks,
+each launching the RG-LRU kernel on the card, and sliding-window local
+attention, both float, with int8 CiM MLPs in every layer):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
       --preset full --device cuda --slots 2 --requests 4 --prompt-len 8 \
       --gen 8 --cim-lower --cim-resident --assert-warm
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --preset full --device cuda --slots 2 \
+      --requests 2 --prompt-len 8 --gen 6 --cim-lower --cim-resident \
+      --assert-warm
 
 The engine holds `slots` concurrent sequences in one batched KV cache. Each
 loop iteration admits at most one due request (a batch-1 prefill inserted
@@ -18,9 +25,9 @@ on the card, so a step's latency is device time. Steady-state tok/s and the
 p50/p99 per-token latencies exclude prefill and the first `--warmup-steps`
 decode steps.
 
-With --cim-lower every decode MLP matmul and attention contraction runs as
-a planned ADRA access schedule whose accesses are launches of the fused
-bit-plane kernel; `accesses` is the compute bill, `load_accesses` the
+With --cim-lower every decode MLP matmul and global-attention contraction
+runs as a planned ADRA access schedule whose accesses are launches of the
+fused bit-plane kernel; `accesses` is the compute bill, `load_accesses` the
 streamed-operand row-write bill. The prefill runs eagerly and charges the
 ledger on every call (the reference's jitted prefill charges once, at
 trace time). The bench runs the SAME request schedule twice — streamed
@@ -29,15 +36,20 @@ same compute accesses per token and strictly fewer total accesses per
 token; --assert-warm replays the resident phase and asserts zero program
 misses and zero new pins.
 
-The resident array is decided in one place, `resident_array_spec`. The
-paper's 1024-word bitlines give 4096-word tiles: a full-width gemma-2b
-decode weight pin (2^26 words at 2 slots) would need 32768 rows per bank
-against a 768-row resident budget, so it would stay streamed (the
-reference's residency planning decides the same) and no slot count or
-prompt length changes that. The serve path therefore widens the bitlines
-until the largest decode weight pin fills one tile (2^24 words per bitline,
-2^26-word tiles, at full width and 2 slots) and keeps the paper's banks,
-subarrays and rows.
+The resident array is decided in one place, `resident_array_spec`, and
+printed on the report's `array:` line beside the paper's. The paper's
+1024-word bitlines give 4096-word tiles: a full-width gemma-2b decode
+weight pin (2^26 words at 2 slots) would need 32768 rows per bank against
+a 768-row resident budget, so it would stay streamed (the reference's
+residency planning decides the same) and no slot count or prompt length
+changes that. The serve path therefore widens the bitlines until the
+largest decode weight pin fills one tile (gemma-2b: 2^24 words per
+bitline; recurrentgemma-9b: 2^25). One-tile pins all land on bank 0, so it
+then doubles the rows until bank 0's budget holds every decode weight pin
+and KV reservation: gemma-2b keeps the paper's 1024 rows (448 of 768
+held), recurrentgemma-9b's 114 pins and its KV blocks need 2048 (928 of
+1536). The accesses and dispatches of a decode step are the plan's and do
+not depend on the array.
 """
 from __future__ import annotations
 
@@ -54,7 +66,7 @@ from repro_torch import resolve_device
 from repro_torch.cim import accounting, dispatch
 from repro_torch.cim import planner
 from repro_torch.cim.array import (DEFAULT_SPEC, ArraySpec, clear_resident,
-                                   resident_set)
+                                   registry_reserve_rows, resident_set)
 from repro_torch.configs import preset_config
 from repro_torch.launch.paged_kv import PagedKV
 from repro_torch.models.model import Model, build, with_cim
@@ -308,29 +320,61 @@ def fresh_cim_state() -> None:
     dispatch.clear_schedule_cache()
 
 
-def resident_array_spec(cfg, slots: int) -> ArraySpec:
-    """The array a --cim-lower run pins weights and KV pages in: the paper's
-    geometry with its bitlines doubled until the largest decode weight pin,
-    an [slots, K_pad, N] broadcast layout, fills one tile (see the module
-    docstring)."""
-    pin_words = slots * max(
-        (1 << planner._log2_ceil(k)) * n
-        for k, n in ((cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)))
+def _decode_weight_pins(cfg, slots: int) -> List[int]:
+    """Word counts of the int8 MLP weight pins of one decode step: every
+    layer's [slots, K_pad, N] broadcast layouts (`matmul_rhs_pack`)."""
+    shapes = [(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)]
+    if cfg.gating in ("swiglu", "geglu"):
+        shapes.append((cfg.d_model, cfg.d_ff))
+    per_layer = [slots * (1 << planner._log2_ceil(k)) * n for k, n in shapes]
+    return per_layer * cfg.n_layers
+
+
+def resident_array_spec(cfg, slots: int, max_len: int) -> ArraySpec:
+    """The array a --cim-lower run pins weights and KV pages in (see the
+    module docstring): the paper's geometry with its bitlines doubled until
+    the largest decode weight pin fills one tile, then its rows doubled
+    until the registry ResidentSet's budget on each bank holds every decode
+    weight pin and KV reservation that lands there."""
+    if cfg.cim_mlp_bits < 1:
+        raise ValueError(f"{cfg.name}: resident pins need cim_mlp_bits > 0")
+    pins = _decode_weight_pins(cfg, slots)
     words = DEFAULT_SPEC.bitline_words
-    while DEFAULT_SPEC.subarrays * words < pin_words:
+    while DEFAULT_SPEC.subarrays * words < max(pins):
         words *= 2
-    return dataclasses.replace(DEFAULT_SPEC, bitline_words=words)
+    spec = dataclasses.replace(DEFAULT_SPEC, bitline_words=words)
+    rows_by_bank: Dict[int, int] = {}
+    for n_words in pins:
+        for (_dev, bank), n in spec.plan(n_words).bank_counts(1).items():
+            rows_by_bank[bank] = rows_by_bank.get(bank, 0) \
+                + cfg.cim_mlp_bits * n
+    paged = PagedKV.for_model(cfg, spec=spec, slots=slots, max_len=max_len)
+    for bid in range(paged.n_blocks):
+        bank = paged.bank_of_block(bid)
+        rows_by_bank[bank] = rows_by_bank.get(bank, 0) + paged.kv_bits
+    need = max(rows_by_bank.values())
+    while spec.rows - registry_reserve_rows(spec) < need:
+        spec = dataclasses.replace(spec, rows=2 * spec.rows)
+    return spec
+
+
+def array_line(spec: ArraySpec) -> str:
+    """The serve report's line naming the array used beside the paper's."""
+    return ", ".join(
+        f"{f.replace('_', ' ')} {getattr(spec, f)} "
+        f"(paper {getattr(DEFAULT_SPEC, f)})"
+        for f in ("banks", "subarrays", "rows", "bitline_words"))
 
 
 def serve_once(model: Model, args, requests=None) -> Dict[str, Any]:
     """One pass of the request schedule through a fresh engine."""
     cfg = model.cfg
     spec = rs = None
+    max_len = args.prompt_len + args.gen
     if args.cim_lower:
-        spec = resident_array_spec(cfg, args.slots)
+        spec = resident_array_spec(cfg, args.slots, max_len)
         rs = resident_set(spec)
         model = model.derive(cfg, resident_spec=spec)
-    max_len = args.prompt_len + args.gen
     paged = PagedKV.for_model(cfg, spec=spec, slots=args.slots,
                               max_len=max_len, resident_set=rs)
     engine = ServeEngine(model, slots=args.slots, max_len=max_len,
@@ -414,8 +458,9 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
                 "resident": bool(args.cim_resident)},
     }
     if args.cim_lower:
-        out["cim"]["array_bitline_words"] = \
-            resident_array_spec(cfg, args.slots).bitline_words
+        spec = resident_array_spec(cfg, args.slots, args.prompt_len + args.gen)
+        out["cim"]["array"] = dataclasses.asdict(spec)
+        print(f"array: {array_line(spec)}")
     if not args.cim_lower:
         rep = serve_once(model, args)
         out.update(rep)

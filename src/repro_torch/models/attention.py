@@ -3,9 +3,11 @@ CiM decode attention.
 
 Port of the dense path of `repro.models.attention`: `_sdpa`, the quantized
 core and its CiM form, `_attend`, `gqa_prefill`, `gqa_decode` and
-`gqa_decode_cim`. Sequences of `BLOCKWISE_MIN_LEN` tokens or more take the
-reference's blockwise attention, which is not ported yet: they raise. MLA
-and sliding-window attention wait.
+`gqa_decode_cim`, and the sliding-window local attention with its ring
+buffer (`local_*`; float, as in the reference, which lowers only
+`gqa_decode` to CiM). Sequences of `BLOCKWISE_MIN_LEN` tokens or more take
+the reference's blockwise attention, which is not ported yet: they raise.
+MLA waits.
 
 `sdpa_cim` runs QK^T and AV as planned batched CiM schedules by calling
 `repro_torch.cim.macro.batched_matmul` directly (two dispatches per call);
@@ -138,15 +140,21 @@ def _gqa_qkv(p, cfg: ArchConfig, x, positions):
     return q, k, v
 
 
-def _attend(q, k, v, scale):
+def _attend(q, k, v, scale, window: int = 0):
     """Dense causal attention (exact) for sequences below the blockwise
-    threshold."""
+    threshold; `window` > 0 also masks keys `window` or more positions
+    behind the query (sliding-window local attention)."""
     if q.shape[1] >= BLOCKWISE_MIN_LEN:
         raise NotImplementedError(
             f"prompts of {q.shape[1]} >= {BLOCKWISE_MIN_LEN} tokens need the "
             f"blockwise attention, which is not ported yet")
-    return _sdpa(q, k, v, _causal_mask(q.shape[1], k.shape[1], q.device),
-                 scale)
+    tq, tk = q.shape[1], k.shape[1]
+    mask = _causal_mask(tq, tk, q.device)
+    if window:
+        qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        kpos = torch.arange(tk, device=q.device)[None, :]
+        mask = mask & (qpos - kpos < window)[None]
+    return _sdpa(q, k, v, mask, scale)
 
 
 def gqa_make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -202,4 +210,63 @@ def gqa_decode_cim(p, cfg: ArchConfig, x, cache: Params, positions,
     else:
         o = sdpa_cim(q, ck, cv, valid[:, None, :], scale,
                      n_bits=cfg.cim_attention_bits, backend=backend)
+    return _out_proj(o, p["wo"], x.dtype), {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# Sliding-window local attention with a ring-buffer cache
+# (the cache is O(window), not O(context))
+# ---------------------------------------------------------------------------
+
+
+def local_apply(p, cfg: ArchConfig, x, positions) -> torch.Tensor:
+    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    o = _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5, window=cfg.local_window)
+    return _out_proj(o, p["wo"], x.dtype)
+
+
+def local_make_cache(cfg: ArchConfig, batch: int, dtype, device) -> Params:
+    shape = (batch, cfg.local_window, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def local_prefill(p, cfg: ArchConfig, x,
+                  positions) -> Tuple[torch.Tensor, Params]:
+    """Windowed attention over the prompt, and its last `window` K/V in the
+    ring layout (slot = pos % window). The reference computes the
+    projections twice (once in `local_apply`); they are the same values."""
+    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    w = cfg.local_window
+    o = _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5, window=w)
+    y = _out_proj(o, p["wo"], x.dtype)
+    t = k.shape[1]
+    cache = local_make_cache(cfg, x.shape[0], k.dtype, x.device)
+    if t >= w:
+        slots = torch.arange(t - w, t, device=x.device) % w
+        cache["k"][:, slots] = k[:, t - w:]
+        cache["v"][:, slots] = v[:, t - w:]
+    else:
+        cache["k"][:, :t] = k
+        cache["v"][:, :t] = v
+    return y, cache
+
+
+def local_decode(p, cfg: ArchConfig, x, cache: Params,
+                 positions) -> Tuple[torch.Tensor, Params]:
+    """x: [B, 1, D]; positions: [B] = absolute index of the new token, which
+    lands in slot positions % window. A slot is valid when the absolute
+    position it holds is >= 0 and within the window of `positions`."""
+    q, k, v = _gqa_qkv(p, cfg, x, positions[:, None])
+    w = cfg.local_window
+    slot = (positions % w).long()
+    bidx = torch.arange(x.shape[0], device=x.device)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    ck[bidx, slot] = k[:, 0]
+    cv[bidx, slot] = v[:, 0]
+    slot_ids = torch.arange(w, device=x.device)[None, :]
+    # absolute position held by slot s: positions - ((positions - s) mod w)
+    abs_pos = positions[:, None] - (positions[:, None] - slot_ids) % w
+    valid = (abs_pos >= 0) & (abs_pos >= positions[:, None] - (w - 1))
+    o = _sdpa(q, ck, cv, valid[:, None, :], 1.0 / cfg.head_dim ** 0.5)
     return _out_proj(o, p["wo"], x.dtype), {"k": ck, "v": cv}

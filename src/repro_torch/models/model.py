@@ -1,20 +1,24 @@
-"""Model assembly for the dense attention stack: parameters, caches, and
+"""Model assembly for the dense and hybrid stacks: parameters, caches, and
 the prefill / decode paths.
 
-Port of the dense path of `repro.models.model`. The reference stacks its
-layers per pattern period and scans over them, unrolling the scan for
-serving (`cim_unroll_groups`) and memoizing per-group parameter slices so
-the same arrays reach every call (`Model._group_param_slices`). The port is
-an `nn.Module` with one module per layer, so every layer always receives
-the same parameter tensors; the compute-dtype casts (`_compute_cast`, bf16
-at full width) are memoized per parameter for the same reason — resident
-weight pins are keyed by tensor identity and stay warm across calls.
+Port of `repro.models.model` for layer kinds `attn` (global GQA/MQA
+attention), `local` (sliding-window attention with a ring-buffer cache) and
+`rec` (the Griffin RG-LRU block), each followed by an MLP. The reference
+stacks its layers per pattern period and scans over them, unrolling the
+scan for serving (`cim_unroll_groups`) and memoizing per-group parameter
+slices so the same arrays reach every call (`Model._group_param_slices`).
+The port is an `nn.Module` with one module per layer in the reference's
+stack order (its `StackLayout`: the pattern repeated, then the remainder),
+so every layer always receives the same parameter tensors; the
+compute-dtype casts (`_compute_cast`, bf16 at full width) are memoized per
+parameter for the same reason — resident weight pins are keyed by tensor
+identity and stay warm across calls.
 
-Differences from the reference: MoE, MLA, local-window, recurrent and xLSTM
-blocks and the train path wait. The prefill runs eagerly, so its CiM MLPs
-charge the ledger on every call (the reference's jitted prefill charges once
-at trace time), and it never pins weights (residency is off under the
-reference's jit tracers too).
+Differences from the reference: MoE, MLA and xLSTM blocks and the train
+path wait. The prefill runs eagerly, so its CiM MLPs charge the ledger on
+every call (the reference's jitted prefill charges once at trace time), and
+it never pins weights (residency is off under the reference's jit tracers
+too).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch import resolve_device
 from repro_torch.cim.array import ArraySpec
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn
+from . import recurrent as rec_lib
 from .layers import (
     embed,
     embed_init,
@@ -43,24 +48,37 @@ from .layers import (
 Params = Dict[str, Any]
 
 
+#: the layer kinds this port runs; each is followed by an MLP
+LAYER_KINDS = ("attn", "local", "rec")
+
+
+def _layer_init(gen, cfg: ArchConfig, kind: str, dtype, device) -> Params:
+    p: Params = {"ln1": rmsnorm_init(cfg.d_model, dtype, device)}
+    if kind == "rec":
+        p["rec"] = rec_lib.rglru_block_init(gen, cfg, dtype, device)
+    else:
+        p["attn"] = attn.gqa_init(gen, cfg, dtype, device)
+    p["ln2"] = rmsnorm_init(cfg.d_model, dtype, device)
+    p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gating, dtype, device)
+    return p
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> Params:
     """Random parameters with the reference's init distributions, from an
     explicit generator: {"embed", "layers": [...], "final_norm"[, "lm_head"]}."""
     dtype = cfg.param_torch_dtype()
-    for kind in cfg.pattern_layers():
-        if kind != "attn" or cfg.moe is not None or cfg.mla is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: only dense attention stacks are ported")
+    kinds = cfg.pattern_layers()
+    if cfg.moe is not None or cfg.mla is not None or \
+            any(k not in LAYER_KINDS for k in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: only {LAYER_KINDS} stacks without MoE or MLA are "
+            f"ported")
     params: Params = {}
     if not cfg.embed_stub:
         params["embed"] = embed_init(gen, cfg.vocab_padded, cfg.d_model,
                                      dtype, device)
-    params["layers"] = [{
-        "ln1": rmsnorm_init(cfg.d_model, dtype, device),
-        "attn": attn.gqa_init(gen, cfg, dtype, device),
-        "ln2": rmsnorm_init(cfg.d_model, dtype, device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gating, dtype, device),
-    } for _ in range(cfg.n_layers)]
+    params["layers"] = [_layer_init(gen, cfg, kind, dtype, device)
+                        for kind in kinds]
     params["final_norm"] = rmsnorm_init(cfg.d_model, dtype, device)
     if not (cfg.tie_embeddings and not cfg.embed_stub):
         params["lm_head"] = lm_head_init(gen, cfg.d_model, cfg.vocab_padded,
@@ -76,22 +94,21 @@ def _pdict(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:
 
 
 class Layer(nn.Module):
-    """One dense attention + MLP block's parameters."""
+    """One block's parameters: ln1, its mixer ("attn" or "rec"), ln2, mlp."""
 
     def __init__(self, p: Params):
         super().__init__()
-        self.ln1 = _pdict(p["ln1"])
-        self.attn = _pdict(p["attn"])
-        self.ln2 = _pdict(p["ln2"])
-        self.mlp = _pdict(p["mlp"])
+        self.names = tuple(p)
+        for name in self.names:
+            setattr(self, name, _pdict(p[name]))
 
     def tree(self) -> Params:
         return {name: dict(getattr(self, name).items())
-                for name in ("ln1", "attn", "ln2", "mlp")}
+                for name in self.names}
 
 
 class Model(nn.Module):
-    """The dense decoder for one ArchConfig, its parameters on one device.
+    """The decoder for one ArchConfig, its parameters on one device.
 
     Without `params` it initialises random ones from `seed` on `device`
     (`cuda` unless the caller passes `device="cpu"`; raises without a GPU).
@@ -104,6 +121,7 @@ class Model(nn.Module):
                  _cast_cache: Optional[dict] = None):
         super().__init__()
         self.cfg = cfg
+        self.kinds = cfg.pattern_layers()
         self.resident_spec = resident_spec
         if params is None:
             device = resolve_device(device)
@@ -143,10 +161,17 @@ class Model(nn.Module):
     # -- caches / casts -------------------------------------------------------
 
     def init_caches(self, batch: int, max_len: int) -> List[Params]:
-        cfg = self.cfg
-        return [attn.gqa_make_cache(cfg, batch, max_len,
-                                    cfg.activation_dtype(), self.device)
-                for _ in range(cfg.n_layers)]
+        cfg, dtype, dev = self.cfg, self.cfg.activation_dtype(), self.device
+        out = []
+        for kind in self.kinds:
+            if kind == "rec":
+                out.append(rec_lib.rglru_make_state(cfg, batch, dtype, dev))
+            elif kind == "local":
+                out.append(attn.local_make_cache(cfg, batch, dtype, dev))
+            else:
+                out.append(attn.gqa_make_cache(cfg, batch, max_len, dtype,
+                                               dev))
+        return out
 
     def _cast(self, t: torch.Tensor) -> torch.Tensor:
         """The reference's `_compute_cast`: f32 weights of rank >= 2 in the
@@ -178,17 +203,25 @@ class Model(nn.Module):
     def _run_stack(self, x, positions, mode, caches=None, max_len=None):
         cfg = self.cfg
         new_caches = []
-        for i, layer in enumerate(self.layers):
+        prefill = mode == "prefill"
+        for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
             p = self._layer_params(layer)
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-            if mode == "prefill":
+            cache = None if prefill else caches[i]
+            if kind == "rec":             # prefill starts from a zero state
+                y, nc = rec_lib.rglru_block_apply(p["rec"], cfg, h, cache)
+            elif kind == "local":
+                y, nc = (attn.local_prefill(p["attn"], cfg, h, positions)
+                         if prefill else
+                         attn.local_decode(p["attn"], cfg, h, cache,
+                                           positions))
+            elif prefill:
                 y, nc = attn.gqa_prefill(p["attn"], cfg, h, positions, max_len)
             elif cfg.cim_attention_bits:
-                y, nc = attn.gqa_decode_cim(p["attn"], cfg, h, caches[i],
+                y, nc = attn.gqa_decode_cim(p["attn"], cfg, h, cache,
                                             positions)
             else:
-                y, nc = attn.gqa_decode(p["attn"], cfg, h, caches[i],
-                                        positions)
+                y, nc = attn.gqa_decode(p["attn"], cfg, h, cache, positions)
             x = x + y
             h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
             x = x + self._apply_mlp(p["mlp"], h2, mode)

@@ -17,6 +17,7 @@ from repro.cim import backends as rbk
 from repro.cim import engine as reng
 from repro.cim.fused_kernel import fused_planes_op as r_fused
 from repro.cim.planepack import PlanePack as RPack
+from repro_torch import kernel_build
 from repro_torch.cim import backends as tbk
 from repro_torch.cim import engine as teng
 from repro_torch.cim import fused_kernel as tfk
@@ -102,10 +103,10 @@ def test_wrapper_raises_where_no_kernel_exists():
 
 def test_kernel_source_and_build_location():
     assert tfk.SOURCE.is_file()
-    path = tfk.library_path()
+    path = kernel_build.library_path(tfk.SOURCE)
     assert path.parent.name == "repro_torch_kernels"
     assert path.parent.parent.name == "build"
-    assert "sm_90a" in " ".join(tfk.NVCC_FLAGS)
+    assert "sm_90a" in " ".join(kernel_build.NVCC_FLAGS)
 
 
 def test_backend_registry_resolution(monkeypatch):

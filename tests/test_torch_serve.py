@@ -21,6 +21,7 @@ from repro.cim import dispatch as rdisp
 from repro.cim.accounting import LEDGER as RLEDGER
 from repro.configs.base import ArchConfig as RArch
 from repro.configs.registry import GEMMA_2B as R_GEMMA
+from repro.configs.registry import RECURRENTGEMMA_9B as R_RG
 from repro.launch.paged_kv import PagedKV as RPaged
 from repro.models import attention as rattn
 from repro.models import build as rbuild
@@ -31,6 +32,7 @@ from repro_torch.cim import dispatch as tdisp
 from repro_torch.cim.accounting import LEDGER as TLEDGER
 from repro_torch.configs.base import ArchConfig as TArch
 from repro_torch.configs.registry import GEMMA_2B as T_GEMMA
+from repro_torch.configs.registry import RECURRENTGEMMA_9B as T_RG
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.paged_kv import PagedKV as TPaged
@@ -233,8 +235,9 @@ def test_full_width_residency_bookkeeping():
     path's array (2^24-word bitlines) all 54 pins and the KV blocks fit one
     set and stay pinned."""
     m, k, n = 2, 2048, 16384
-    wide = tserve.resident_array_spec(T_GEMMA, m)
-    assert wide.bitline_words == 1 << 24 and wide.tile_words == m * k * n
+    wide = tserve.resident_array_spec(with_cim(T_GEMMA, 8), m, 16)
+    assert wide == tarray.ArraySpec(bitline_words=1 << 24)   # rows unchanged
+    assert wide.tile_words == m * k * n
     for mod_array, mod_paged, cfg in ((rarray, RPaged, R_GEMMA),
                                       (tarray, TPaged, T_GEMMA)):
         default = mod_array.ResidentSet(mod_array.DEFAULT_SPEC,
@@ -256,6 +259,42 @@ def test_full_width_residency_bookkeeping():
                 rs.pin(("w", layer, j), pack)
         assert rs.evictions == 0 and len(rs) == 54 + 2
         assert rs.rows_per_bank() == {0: 54 * 8 + 16, 1: 16}
+    TLEDGER.reset()
+    RLEDGER.reset()
+
+
+def test_full_width_residency_bookkeeping_hybrid():
+    """recurrentgemma-9b at full width, 2 slots, prompt 8 + gen 6: the
+    widened bitlines (2^25 words) make each of the 114 decode weight pins
+    (38 layers x gate, up, down) one tile, and one-tile pins all land on
+    bank 0. With the paper's 1024 rows the LRU would evict pins before
+    their reuse; `resident_array_spec` doubles the rows until bank 0 holds
+    every pin and its KV block, checked with both packages' own
+    ResidentSet and PagedKV."""
+    m, d, f = 2, 4096, 12288
+    spec_t = tserve.resident_array_spec(with_cim(T_RG, 8), m, 14)
+    assert (spec_t.banks, spec_t.subarrays) == (4, 4)
+    assert spec_t.bitline_words == 1 << 25 and spec_t.rows == 2048
+    pins = [m * d * f, m * d * f, m * 16384 * d] * 38
+    for mod_array, mod_paged, cfg in ((rarray, RPaged, R_RG),
+                                      (tarray, TPaged, T_RG)):
+        for rows, fits in ((1024, False), (spec_t.rows, True)):
+            spec = mod_array.ArraySpec(bitline_words=spec_t.bitline_words,
+                                       rows=rows)
+            rs = mod_array.ResidentSet(spec, reserve_rows=spec.rows // 4)
+            paged = mod_paged.for_model(cfg, spec=spec, slots=2, max_len=14,
+                                        resident_set=rs)
+            assert paged.n_blocks == 2
+            assert paged.alloc(0, 8) and paged.alloc(1, 8)
+            for j, n_words in enumerate(pins):
+                assert spec.plan(n_words).n_tiles == 1
+                rs.pin(("w", j), argparse.Namespace(n_bits=8, n_words=n_words))
+            if fits:
+                assert rs.evictions == 0 and len(rs) == 114 + 2
+                assert rs.rows_per_bank() == {0: 114 * 8 + 16, 1: 16}
+                assert 114 * 8 + 16 <= spec.rows - rs.reserve_rows == 1536
+            else:
+                assert rs.evictions == 114 - (768 - 16) // 8
     TLEDGER.reset()
     RLEDGER.reset()
 
