@@ -4,11 +4,13 @@
     python3 chip_smoke.py            # from the repository root, one H100
 
 Phases, each fatal on failure (nothing is caught):
-  1. build   — compile both kernels from the checkout, one nvcc each, in
-               parallel: the fused bit-plane access
-               (src/repro_torch/cim/csrc/fused_planes.cu) and the RG-LRU
-               recurrence (src/repro_torch/kernels/csrc/rglru.cu), sm_90a;
-               print each build time and the card's name and power limit;
+  1. build   — compile the three kernels from the checkout, one nvcc each,
+               in parallel: the fused bit-plane access
+               (src/repro_torch/cim/csrc/fused_planes.cu), the RG-LRU
+               recurrence (src/repro_torch/kernels/csrc/rglru.cu) and the
+               sLSTM recurrence (src/repro_torch/kernels/csrc/slstm.cu),
+               sm_90a; print each build time and the card's name and power
+               limit;
   2. kernels — hold the fused kernel bit for bit against its plain PyTorch
                version over the op surface (every single op, the full op set
                and random subsets, n_bits 2-33, ragged widths, a tiled
@@ -16,7 +18,13 @@ Phases, each fatal on failure (nothing is caught):
                the RG-LRU kernel against `rglru_ref` at (2,1,4096),
                (1,8,4096), (3,37,1000) and (1,2048,4096) in float32 and
                bfloat16, with and without h0, and time both at the decode
-               shape and at (1,2048,4096);
+               shape and at (1,2048,4096); hold the sLSTM kernel against
+               `slstm_ref` (TF32 off) at (3,32,64), (5,64,128), (2,48,256),
+               (2,1,768), (1,512,768), (1,2048,768), (3,37,1500), (2,9,3000)
+               and (1,5,7000), R and
+               b in float32 and bfloat16, wx in float32 and bfloat16, with
+               the default and a random initial state, and time both at
+               (2,1,768) and (1,2048,768);
   3. gemma   — gemma-2b at full width through the port's serve entry point
                (int8 CiM decode, streamed repack phase, resident phase, warm
                replay), asserting 2214 accesses and 90 dispatches per decode
@@ -26,13 +34,24 @@ Phases, each fatal on failure (nothing is caught):
   4. hybrid  — recurrentgemma-9b at full width the same way: 3154 accesses
                and 114 dispatches per decode step, RG-LRU launches = 26 x
                (decode steps + prefilled requests), tokens equal the host
-               twin's; prints peak device memory and the array used.
+               twin's; prints peak device memory and the array used;
+  5. xlstm   — xlstm-125m at full width through the same entry point on the
+               float path (prompt 512, 16 tokens, 4 requests on 2 slots):
+               every request completes, sLSTM launches = 3 x (decode steps +
+               prefilled requests), the ledger charges 0 accesses and the
+               fused and RG-LRU kernels launch 0 times; prints tok/s,
+               p50/p99, prefill ms and peak device memory;
+  6. agree   — the same xlstm-125m weights in float32 on the card and,
+               copied, on the CPU (the plain versions): one 512-token
+               prompt and 8 greedy decode steps give equal tokens and
+               logits within atol 1e-3.
 The launch counts of each serve path are set to 0 just before it and read
 just after; the kernel checks' own launches are not counted. Earlier lines
 carry the metrics and one JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. `--profile` adds a torch.profiler breakdown of one warm
-resident decode step of each model.
+resident decode step of gemma-2b and recurrentgemma-9b and of one
+xlstm-125m decode step.
 """
 import dataclasses
 import gc
@@ -67,6 +86,18 @@ F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 #: RG-LRU float operations per element (sigmoid x2 at 3 each, the decay
 #: product, exp, a*a, 1-, max, sqrt, gate product, a*h + m*g at 3)
 RGLRU_OPS_PER_ELEMENT = 16
+#: sLSTM float operations per channel and step besides the h R product:
+#: 8 adds for the pre-activations, tanh, log-sigmoid and sigmoid (about 12),
+#: the stabilizer and its two exponentials (6), the c, n, h updates (7)
+SLSTM_GATE_OPS = 33
+#: the xlstm-125m serve of the smoke (the float path: no --cim-lower)
+XLSTM_SERVE = ["--arch", "xlstm-125m", "--preset", "full", "--device",
+               "cuda", "--slots", "2", "--requests", "4", "--prompt-len",
+               "512", "--gen", "16"]
+#: card-vs-CPU logits tolerance of the float32 xlstm-125m agreement: both
+#: compute in float32 and differ only in summation order, which 12 layers
+#: and a 512-step recurrence carry; measured differences are printed
+AGREE_ATOL = 1e-3
 
 
 def smi_line() -> str:
@@ -281,6 +312,159 @@ def phase_rglru(dev) -> dict:
             "bound_by": dec["bound_by"], "shape": [2, 1, 4096], "cases": cases}
 
 
+def slstm_bounds(b: int, t: int, d: int, wx_size: int, r_size: int) -> dict:
+    """Least time of one call: wx, R, b and the initial state read once,
+    y and the final state written once; 2 * 4D^2 operations per row and
+    step for h R plus the gates."""
+    moved = (b * t * 4 * d * wx_size + (4 * d * d + 4 * d) * r_size
+             + 2 * 4 * b * d * 4 + b * t * d * wx_size)
+    ops = b * t * (2 * 4 * d * d + SLSTM_GATE_OPS * d)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": moved, "ops": ops}
+
+
+def phase_slstm(dev) -> dict:
+    """The sLSTM kernel against `slstm_ref` on the card (TF32 off for the
+    plain version's products). R is drawn as the model draws it, N(0, 1/D):
+    with the reference test's N(0, 0.04) at D >= 768 the recurrence is
+    chaotic, and float32 runs that differ only in summation order part
+    within a few dozen steps. Float32 outputs: atol 1e-5 up to T = 64 (the
+    reference's own), 1e-4 at T = 512 and 2048, where the recurrence carries
+    the different summation order of h R. The state is float32 always; a
+    bfloat16 y must lie within one bf16 rounding of the plain version's,
+    |dy| <= 2^-7 |y| + atol.
+
+    The two widest shapes (D = 3000 and 7000, which take 4 and 8 channels
+    per thread) are held to exact arithmetic instead: the kernel's
+    difference from the plain version run in float64 may exceed the float32
+    plain version's own by at most atol. At these widths float32 summation
+    alone moves the state by about 1e-5 (the plain version in float32 against
+    float64, seen on the CPU: up to 1.05e-5 at D = 7000), so two float32
+    summation orders cannot be held within 1e-5 of each other; at D = 3000
+    the kernel's sequential sum differed from the plain version's by
+    1.29e-5 on c (measured on one H100)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ref import slstm_ref
+    from repro_torch.kernels.slstm import slstm
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def inputs(shape, wx_dtype, r_dtype, random_state):
+        b, t, d = shape
+        wx = torch.randn((b, t, 4, d), generator=gen, device=dev)
+        r = torch.randn((d, 4, d), generator=gen, device=dev) / d ** 0.5
+        bg = 0.1 * torch.randn((4, d), generator=gen, device=dev)
+        if random_state:
+            h0, c0, m0 = (torch.randn((b, d), generator=gen, device=dev)
+                          for _ in range(3))
+            n0 = 0.5 + 1.5 * torch.rand((b, d), generator=gen, device=dev)
+        else:
+            h0, c0, m0 = (torch.zeros((b, d), device=dev) for _ in range(3))
+            n0 = torch.ones((b, d), device=dev)
+        return (wx.to(wx_dtype), r.to(r_dtype), bg.to(r_dtype), h0, c0, n0,
+                m0)
+
+    max_err = 0.0
+    max_bf16_dy = 0.0
+    cases = 0
+    # the last three take 2, 4 and 8 channels per thread; D = 7000 needs
+    # more than 48 KB of shared memory; D > 1500 is held to float64
+    for shape in ((3, 32, 64), (5, 64, 128), (2, 48, 256), (2, 1, 768),
+                  (1, 512, 768), (1, 2048, 768), (3, 37, 1500), (2, 9, 3000),
+                  (1, 5, 7000)):
+        atol = 1e-5 if shape[1] <= 64 else 1e-4
+        shape_err = shape_excess = 0.0
+        for wx_dtype, r_dtype in ((f32, f32), (f32, bf16), (bf16, bf16)):
+            for random_state in (False, True):
+                args = inputs(shape, wx_dtype, r_dtype, random_state)
+                y, state = slstm(*args)
+                yp, statep = slstm_ref(*args)
+                torch.cuda.synchronize()
+                assert y.dtype == wx_dtype
+                assert all(a.dtype == f32 for a in state)
+                outs, plain = list(state), list(statep)
+                if wx_dtype == f32:
+                    outs.append(y)
+                    plain.append(yp)
+                diffs = [float((a - p).abs().max())
+                         for a, p in zip(outs, plain)]
+                errs = diffs
+                if shape[2] > 1500:      # against exact arithmetic
+                    ye, exact = slstm_ref(*(a.double() for a in args))
+                    exact = list(exact) + [ye]
+                    errs = [max(0.0, float((a.double() - e).abs().max())
+                                - float((p.double() - e).abs().max()))
+                            for a, p, e in zip(outs, plain, exact)]
+                    shape_excess = max(shape_excess, *errs)
+                y_ok = True
+                if wx_dtype == bf16:
+                    dy = (y.float() - yp.float()).abs()
+                    y_ok = bool((dy <= 2.0 ** -7 * yp.float().abs()
+                                 + atol).all())
+                    max_bf16_dy = max(max_bf16_dy, float(dy.max()))
+                if max(errs) > atol or not y_ok:
+                    raise AssertionError(
+                        f"slstm != plain at {shape} wx {wx_dtype} R "
+                        f"{r_dtype} random_state={random_state}: h, c, n, m"
+                        f"{', y' if wx_dtype == f32 else ''} errors {errs}, "
+                        f"bf16 y within one rounding {y_ok}")
+                shape_err = max(shape_err, *diffs)
+                cases += 1
+        max_err = max(max_err, shape_err)
+        if shape[2] > 1500:
+            print(f"slstm: {shape}: max abs diff {shape_err:.3e}; farther "
+                  f"from float64 than the float32 plain version by at most "
+                  f"{shape_excess:.3e} (bound atol {atol:g})")
+        else:
+            print(f"slstm: {shape}: max abs diff {shape_err:.3e} (bound atol "
+                  f"{atol:g})")
+
+    # the serve path's dtypes: float32 wx and y, bfloat16 R and b
+    timings = {}
+    for shape, random_state in (((2, 1, 768), True), ((1, 2048, 768), False)):
+        args = inputs(shape, f32, bf16, random_state)
+        rounds = sorted(cuda_ms(lambda: slstm(*args), reps=10)
+                        for _ in range(5))
+        plain_reps = 10 if shape[1] == 1 else 2
+        plain = sorted(cuda_ms(lambda: slstm_ref(*args), reps=plain_reps)
+                       for _ in range(5))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                slstm(*args)
+            torch.cuda.synchronize()
+        dev_rows = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and "slstm_kernel" in e.key]
+        device_ms = (sum(e.self_device_time_total for e in dev_rows) / 1e3
+                     / max(1, sum(e.count for e in dev_rows)))
+        bounds = slstm_bounds(*shape, 4, 2)
+        timings[shape] = dict(ms=rounds[2], plain_ms=plain[2],
+                              device_ms=device_ms, **bounds)
+        print(f"slstm: {shape} wx f32, R bf16: median {rounds[2]:.4f} ms "
+              f"(rounds {rounds[0]:.4f}-{rounds[-1]:.4f}), device "
+              f"{device_ms:.4f} ms per launch (profiler), plain median "
+              f"{plain[2]:.4f} ms, bound {bounds['bound_ms']:.6f} ms "
+              f"({bounds['bound_by']}, {bounds['bytes']} B, "
+              f"{bounds['ops']} operations)")
+    print(f"slstm: {cases} cases within tolerance (max abs diff {max_err:.3e}"
+          f" on float32 outputs; bf16 y max diff {max_bf16_dy:.3e})")
+    dec, long = timings[(2, 1, 768)], timings[(1, 2048, 768)]
+    return {"max_abs_err": max_err, "ms": dec["ms"],
+            "device_ms": dec["device_ms"], "plain_ms": dec["plain_ms"],
+            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+            "shape": [2, 1, 768], "cases": cases,
+            "long": {"shape": [1, 2048, 768], **{
+                k: long[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by")}}}
+
+
 def phase_serve(arch: str, dev, profile: bool) -> dict:
     """One model at full width through `serve.main`: repack, resident and
     warm phases with their counts asserted, then the host twin's tokens."""
@@ -288,6 +472,7 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
     from repro_torch.cim import fused_kernel
     from repro_torch.configs import preset_config
     from repro_torch.kernels.rglru import rglru
+    from repro_torch.kernels.slstm import slstm
     from repro_torch.launch import serve
     from repro_torch.models.model import build, with_cim
 
@@ -306,9 +491,11 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
     t = time.perf_counter()
     fused_kernel.fused_planes_op.launches = 0
     rglru.launches = 0
+    slstm.launches = 0
     out = serve.main(argv, model=model)
     fused_launches = fused_kernel.fused_planes_op.launches
     rglru_launches = rglru.launches
+    assert slstm.launches == 0, (arch, slstm.launches)
     times["serve_s"] = time.perf_counter() - t
     reps = out["phases"]
     for name, rep in reps.items():
@@ -349,30 +536,150 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
     print(f"{arch} tokens: CiM phases == host twin: {want}")
     if profile:
         t = time.perf_counter()
-        phase_profile(model, dev, args.prompt_len + args.gen)
+        m = model.derive(
+            dataclasses.replace(model.cfg, cim_resident=True),
+            resident_spec=serve.resident_array_spec(
+                model.cfg, 2, args.prompt_len + args.gen))
+        serve.fresh_cim_state()
+        phase_profile(m, dev, args.prompt_len + args.gen, args.prompt_len)
         times["profile_s"] = time.perf_counter() - t
     serve.fresh_cim_state()
     return {"fused_launches": fused_launches, "rglru_launches": rglru_launches,
             "peak_gib": peak_gib, "times": times}
 
 
-def phase_profile(model, dev, max_len: int) -> None:
-    """One warm resident decode step under torch.profiler: device time by
-    PyTorch op and by ported kernel, and the device's idle share."""
+def phase_xlstm(dev, profile: bool) -> dict:
+    """xlstm-125m at full width through `serve.main` on the float path:
+    every request completes, each sLSTM layer launches its kernel once per
+    prefill and once per decode step, and nothing reaches the CiM ledger,
+    the fused kernel or the RG-LRU kernel."""
+    import torch
+    from repro_torch.cim import accounting, fused_kernel
+    from repro_torch.configs import preset_config
+    from repro_torch.kernels.rglru import rglru
+    from repro_torch.kernels.slstm import slstm
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+
+    args = serve.parse_args(XLSTM_SERVE)
+    times = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    model = build(preset_config(args.arch, args.preset), device=dev,
+                  seed=args.seed)
+    torch.cuda.synchronize()
+    times["init_s"] = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    n_slstm = model.kinds.count("slstm")
+
+    t = time.perf_counter()
+    serve.fresh_cim_state()
+    fused_kernel.fused_planes_op.launches = 0
+    rglru.launches = 0
+    slstm.launches = 0
+    rep = serve.main(XLSTM_SERVE, model=model)
+    slstm_launches = slstm.launches
+    fused_launches = fused_kernel.fused_planes_op.launches
+    rglru_launches = rglru.launches
+    times["serve_s"] = time.perf_counter() - t
+    led = accounting.ledger()
+    assert rep["completed"] == args.requests, rep["completed"]
+    assert all(len(r["token_ids"]) == args.gen for r in rep["per_request"])
+    want = n_slstm * (rep["decode_steps"] + rep["requests"])
+    assert slstm_launches == want > 0, (slstm_launches, want)
+    assert fused_launches == 0 and rglru_launches == 0, \
+        (fused_launches, rglru_launches)
+    assert (led.accesses, led.load_accesses, led.total_accesses) == (0, 0, 0)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"xlstm-125m: {n_params} parameters, {rep['tok_s_steady']:.4f} "
+          f"tok/s steady, p50 {rep['p50_ms']:.3f} ms, p99 "
+          f"{rep['p99_ms']:.3f} ms, prefill {rep['prefill_ms_mean']:.2f} ms "
+          f"mean ({args.prompt_len} tokens), {rep['decode_steps']} decode "
+          f"steps, wall {rep['wall_s']:.2f} s; {slstm_launches} slstm "
+          f"launches = {n_slstm} x ({rep['decode_steps']} decode steps + "
+          f"{rep['requests']} prefills); 0 fused, 0 rglru launches, 0 ledger "
+          f"accesses; peak memory {peak_gib:.2f} GiB")
+    print(f"xlstm-125m tokens: {[r['token_ids'] for r in rep['per_request']]}")
+    if profile:
+        t = time.perf_counter()
+        phase_profile(model, dev, args.prompt_len + args.gen, args.prompt_len)
+        times["profile_s"] = time.perf_counter() - t
+    return {"model": model, "slstm_launches": slstm_launches,
+            "peak_gib": peak_gib, "times": times}
+
+
+def phase_agree(model, dev, prompt_len: int = 512, steps: int = 8) -> dict:
+    """The card's float32 path against the port on the CPU, on the same
+    weights: one prompt, then greedy decode steps on each side. Tokens must
+    be equal; logits within AGREE_ATOL. The CPU side runs on one intra-op
+    thread, as the CPU tests do."""
+    import torch
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(model.cfg, dtype="float32")
+    card = model.derive(cfg)
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.detach().to("cpu", copy=True)
+
+    host = Model(cfg, params=to_cpu(card.params()))
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen)
+
+    def greedy(m):
+        dev_m = m.device
+        caches, logits = m.prefill({"tokens": prompt.to(dev_m)},
+                                   max_len=prompt_len + steps)
+        all_logits, toks = [logits.cpu()], [int(logits.argmax(-1)[0])]
+        for i in range(steps):
+            caches, logits = m.decode_step(caches, {
+                "tokens": torch.tensor([[toks[-1]]], device=dev_m),
+                "positions": torch.tensor([prompt_len + i],
+                                          dtype=torch.int32, device=dev_m)})
+            all_logits.append(logits.cpu())
+            toks.append(int(logits.argmax(-1)[0]))
+        return toks, torch.cat(all_logits)
+
+    t = time.perf_counter()
+    card_toks, card_logits = greedy(card)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t = time.perf_counter()
+    try:
+        host_toks, host_logits = greedy(host)
+    finally:
+        torch.set_num_threads(n_threads)
+    host_s = time.perf_counter() - t
+    err = float((card_logits - host_logits).abs().max())
+    print(f"agree[xlstm-125m f32]: card tokens {card_toks}, cpu tokens "
+          f"{host_toks}; logits max abs diff {err:.3e} (atol {AGREE_ATOL:g});"
+          f" card {card_s:.2f} s, cpu {host_s:.2f} s")
+    assert card_toks == host_toks, (card_toks, host_toks)
+    assert err <= AGREE_ATOL, err
+    return {"max_logit_diff": err, "tokens": card_toks}
+
+
+def phase_profile(m, dev, max_len: int, position: int) -> None:
+    """One decode step at 2 slots under torch.profiler (after one warm-up
+    step, which pins a resident model's weights): device time by PyTorch op
+    and by ported kernel, and the device's idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
 
-    m = model.derive(dataclasses.replace(model.cfg, cim_resident=True),
-                     resident_spec=serve.resident_array_spec(model.cfg, 2,
-                                                             max_len))
-    serve.fresh_cim_state()
     caches = m.init_caches(2, max_len)
     step = {"tokens": torch.tensor([[1], [2]], device=dev),
-            "positions": torch.tensor([8, 8], dtype=torch.int32, device=dev)}
-    m.decode_step(caches, step)                   # pins the weights
+            "positions": torch.tensor([position, position], dtype=torch.int32,
+                                      device=dev)}
+    m.decode_step(caches, step)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -391,12 +698,13 @@ def phase_profile(model, dev, max_len: int) -> None:
            and e.self_device_time_total > 0]
     busy_ms = sum(r[2] for r in kernels)
     custom = [r for r in kernels
-              if "fused_planes_kernel" in r[0] or "rglru_kernel" in r[0]]
-    print(f"profile[{model.cfg.name}]: decode step wall {wall_ms:.1f} ms, "
-          f"device busy {busy_ms:.1f} ms (idle share "
+              if any(k in r[0] for k in ("fused_planes_kernel", "rglru_kernel",
+                                         "slstm_kernel"))]
+    print(f"profile[{m.cfg.name}]: decode step wall {wall_ms:.2f} ms, "
+          f"device busy {busy_ms:.2f} ms (idle share "
           f"{1 - busy_ms / wall_ms:.3f})")
     for name, count, ms in sorted(custom + ops, key=lambda r: -r[2])[:12]:
-        print(f"profile:   {ms:9.2f} ms  x{count:<6d} {name[:90]}")
+        print(f"profile:   {ms:10.3f} ms  x{count:<6d} {name[:90]}")
     serve.fresh_cim_state()
 
 
@@ -408,6 +716,7 @@ def main() -> int:
     from repro_torch import kernel_build
     from repro_torch.cim import fused_kernel
     from repro_torch.kernels import rglru as rglru_mod
+    from repro_torch.kernels import slstm as slstm_mod
 
     profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda", 0)
@@ -416,7 +725,7 @@ def main() -> int:
     phases = {}
 
     t = time.perf_counter()
-    sources = (fused_kernel.SOURCE, rglru_mod.SOURCE)
+    sources = (fused_kernel.SOURCE, rglru_mod.SOURCE, slstm_mod.SOURCE)
     build_s = kernel_build.compile_all(sources)
     for src in sources:
         kernel_build.load(src)
@@ -436,6 +745,9 @@ def main() -> int:
     t = time.perf_counter()
     rg = phase_rglru(dev)
     phases["rglru_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sl = phase_slstm(dev)
+    phases["slstm_s"] = time.perf_counter() - t
 
     runs = {}
     for arch in PATHS:
@@ -447,6 +759,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     assert runs["gemma-2b"]["rglru_launches"] == 0
+    t = time.perf_counter()
+    xl = phase_xlstm(dev, profile)
+    phases["xlstm-125m_s"] = time.perf_counter() - t
+    for k, v in xl["times"].items():
+        phases[f"xlstm-125m_{k}"] = v
+    t = time.perf_counter()
+    agree = phase_agree(xl.pop("model"), dev)
+    phases["agree_s"] = time.perf_counter() - t
 
     print("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
     fused = {"name": "fused_planes", "route": "cuda",
@@ -466,7 +786,17 @@ def main() -> int:
            "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"],
            "library_ms": None, "device_ms": rg["device_ms"],
            "shape": rg["shape"]}
-    print(json.dumps({"kernels": [fused, rec]}))
+    cell = {"name": "slstm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slstm.cu",
+            "replaces": "src/repro/kernels/slstm.py:97",
+            "launches": xl["slstm_launches"],
+            "max_abs_err": sl["max_abs_err"],
+            "ms": sl["ms"], "plain_ms": sl["plain_ms"],
+            "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"],
+            "library_ms": None, "device_ms": sl["device_ms"],
+            "shape": sl["shape"], "long": sl["long"],
+            "agree_max_logit_diff": agree["max_logit_diff"]}
+    print(json.dumps({"kernels": [fused, rec, cell]}))
     print(f"gpu: {smi_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

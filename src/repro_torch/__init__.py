@@ -7,9 +7,10 @@ against. Plane stacks are `torch.int32` tensors holding the uint32 bit
 pattern (PyTorch's CPU build lacks `~`, `<<` and `>>` on `torch.uint32`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; asking
-for `cuda` without a GPU raises. The one kernel of this slice, the fused
-bit-plane access (`repro_torch.cim.fused_kernel`), is CUDA C++ for sm_90a,
-built at first use into `build/repro_torch_kernels/`.
+for `cuda` without a GPU raises. The kernels — the fused bit-plane access
+(`repro_torch.cim.fused_kernel`) and the RG-LRU and sLSTM recurrences
+(`repro_torch.kernels`) — are CUDA C++ for sm_90a, built at first use into
+`build/repro_torch_kernels/`.
 """
 import torch
 

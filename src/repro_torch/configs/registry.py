@@ -2,8 +2,9 @@
 
 Port of `repro.configs.registry`; it carries the configurations whose
 families are ported: gemma-2b, the serve default (dense GQA/MQA attention,
-GeGLU), and recurrentgemma-9b (hybrid: RG-LRU recurrent blocks and
-sliding-window local attention, 2:1). The other families wait.
+GeGLU), recurrentgemma-9b (hybrid: RG-LRU recurrent blocks and
+sliding-window local attention, 2:1) and xlstm-125m (ssm: mLSTM and sLSTM
+blocks, 3:1). The other families wait.
 """
 from __future__ import annotations
 
@@ -36,6 +37,17 @@ RECURRENTGEMMA_9B = _reg(ArchConfig(
     local_window=2048,
     sub_quadratic=True,
     microbatches=2,
+))
+
+# --- [ssm] sLSTM + mLSTM blocks [arXiv:2405.04517; unverified] --------------
+XLSTM_125M = _reg(ArchConfig(
+    name="xlstm-125m", family="ssm",
+    n_layers=12, d_model=768, n_heads=4, n_kv_heads=4, head_dim=192,
+    d_ff=0, vocab_size=50304,
+    gating="none",
+    block_pattern=("mlstm", "mlstm", "mlstm", "slstm"),  # mLSTM-dominant mix
+    sub_quadratic=True,
+    tensor_parallel=False,            # 125M: TP all-reduces would dominate
 ))
 
 ARCH_IDS = tuple(sorted(_REGISTRY))

@@ -2,8 +2,9 @@
 
 Port of `repro.kernels` as far as the serve paths reach it:
   rglru — the RG-LRU recurrence, CUDA C++ for sm_90a (`csrc/rglru.cu`);
-  ref   — the plain versions the tests and `chip_smoke.py` hold it to;
-  ops   — `rglru_scan`: the plain version for CPU tensors, the kernel for
-          CUDA tensors.
-Flash attention and sLSTM wait (ROADMAP B2, B4).
+  slstm — the sLSTM recurrence, CUDA C++ for sm_90a (`csrc/slstm.cu`);
+  ref   — the plain versions the tests and `chip_smoke.py` hold them to;
+  ops   — `rglru_scan`, `slstm_scan`: the plain version for CPU tensors,
+          the kernel for CUDA tensors.
+Flash attention waits (ROADMAP B2).
 """

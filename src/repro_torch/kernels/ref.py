@@ -40,3 +40,43 @@ def rglru_ref(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
         h = a[:, s] * h + mult[:, s] * gated[:, s]
         ys.append(h)
     return torch.stack(ys, 1).to(x.dtype), h
+
+
+def slstm_ref(wx: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor,
+              h0: torch.Tensor, c0: torch.Tensor, n0: torch.Tensor,
+              m0: torch.Tensor):
+    """The sLSTM recurrence, in float32:
+
+        pre = wx_t + h R + b;  z = tanh(pre_0); i = pre_1
+        f = log_sigmoid(pre_2); o = sigmoid(pre_3)
+        m' = max(f + m, i);  c = e^{f+m-m'} c + e^{i-m'} z
+        n = e^{f+m-m'} n + e^{i-m'};  h = o c / max(n, 1e-6)
+
+    wx: [B, T, 4, D] gate pre-activations (gates z, i, f, o); r_gates:
+    [D, 4, D]; b_gates: [4, D] (either may be bfloat16: upcast); states
+    [B, D]. Returns (y [B, T, D] in wx's dtype, (h, c, n, m) in float32).
+    A plain loop over T, as `rglru_ref`. A float64 wx computes (and returns
+    the state) in float64: the card's accuracy check of wide D uses it as
+    the exact value."""
+    b, t, _, d = wx.shape
+    dt = torch.float64 if wx.dtype == torch.float64 else torch.float32
+    r = r_gates.to(dt).reshape(d, 4 * d)
+    bg = b_gates.to(dt)
+    wxf = wx.to(dt)
+    h, c, n, m = (s.to(dt) for s in (h0, c0, n0, m0))
+    ys = []
+    for s in range(t):
+        pre = wxf[:, s] + torch.matmul(h, r).reshape(b, 4, d) + bg
+        z = torch.tanh(pre[:, 0])
+        i_t = pre[:, 1]
+        f_t = torch.nn.functional.logsigmoid(pre[:, 2])
+        o = torch.sigmoid(pre[:, 3])
+        m_new = torch.maximum(f_t + m, i_t)
+        i_eff = torch.exp(i_t - m_new)
+        f_eff = torch.exp(f_t + m - m_new)
+        c = f_eff * c + i_eff * z
+        n = f_eff * n + i_eff
+        h = o * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        ys.append(h)
+    return torch.stack(ys, 1).to(wx.dtype), (h, c, n, m)

@@ -2,9 +2,11 @@
 
 Port of `repro.launch.serve` (without fault injection, ECC scrubbing, bank
 failover and admission shedding, which wait). It serves the dense family
-(gemma-2b) and the hybrid one (recurrentgemma-9b: RG-LRU recurrent blocks,
+(gemma-2b), the hybrid one (recurrentgemma-9b: RG-LRU recurrent blocks,
 each launching the RG-LRU kernel on the card, and sliding-window local
-attention, both float, with int8 CiM MLPs in every layer):
+attention, both float, with int8 CiM MLPs in every layer) and the ssm one
+(xlstm-125m: mLSTM blocks in plain PyTorch and sLSTM blocks, each
+launching the sLSTM kernel on the card, on the float path only):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
       --preset full --device cuda --slots 2 --requests 4 --prompt-len 8 \
@@ -13,6 +15,13 @@ attention, both float, with int8 CiM MLPs in every layer):
       --arch recurrentgemma-9b --preset full --device cuda --slots 2 \
       --requests 2 --prompt-len 8 --gen 6 --cim-lower --cim-resident \
       --assert-warm
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+      --preset full --device cuda --slots 2 --requests 4 --prompt-len 512 \
+      --gen 16
+
+xLSTM layers hold no MLP and no global attention, so nothing in them
+lowers to CiM: with --cim-lower an xLSTM run charges nothing and fails the
+resident-vs-repack assertion below, as the reference's does.
 
 The engine holds `slots` concurrent sequences in one batched KV cache. Each
 loop iteration admits at most one due request (a batch-1 prefill inserted
@@ -69,7 +78,7 @@ from repro_torch.cim.array import (DEFAULT_SPEC, ArraySpec, clear_resident,
                                    registry_reserve_rows, resident_set)
 from repro_torch.configs import preset_config
 from repro_torch.launch.paged_kv import PagedKV
-from repro_torch.models.model import Model, build, with_cim
+from repro_torch.models.model import XLSTM_CELLS, Model, build, with_cim
 from repro_torch.train import greedy_sample, make_decode_step, make_prefill_step
 
 
@@ -321,13 +330,15 @@ def fresh_cim_state() -> None:
 
 
 def _decode_weight_pins(cfg, slots: int) -> List[int]:
-    """Word counts of the int8 MLP weight pins of one decode step: every
-    layer's [slots, K_pad, N] broadcast layouts (`matmul_rhs_pack`)."""
+    """Word counts of the int8 MLP weight pins of one decode step: the
+    [slots, K_pad, N] broadcast layouts (`matmul_rhs_pack`) of every layer
+    that has an MLP (xLSTM layers have none)."""
     shapes = [(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)]
     if cfg.gating in ("swiglu", "geglu"):
         shapes.append((cfg.d_model, cfg.d_ff))
     per_layer = [slots * (1 << planner._log2_ceil(k)) * n for k, n in shapes]
-    return per_layer * cfg.n_layers
+    with_mlp = sum(k not in XLSTM_CELLS for k in cfg.pattern_layers())
+    return per_layer * with_mlp
 
 
 def resident_array_spec(cfg, slots: int, max_len: int) -> ArraySpec:
@@ -340,7 +351,7 @@ def resident_array_spec(cfg, slots: int, max_len: int) -> ArraySpec:
         raise ValueError(f"{cfg.name}: resident pins need cim_mlp_bits > 0")
     pins = _decode_weight_pins(cfg, slots)
     words = DEFAULT_SPEC.bitline_words
-    while DEFAULT_SPEC.subarrays * words < max(pins):
+    while DEFAULT_SPEC.subarrays * words < max(pins, default=0):
         words *= 2
     spec = dataclasses.replace(DEFAULT_SPEC, bitline_words=words)
     rows_by_bank: Dict[int, int] = {}

@@ -1,3 +1,3 @@
-"""Models of the port: the dense and hybrid (RG-LRU + local attention)
-decoder stacks."""
+"""Models of the port: the dense, hybrid (RG-LRU + local attention) and
+xLSTM (mLSTM + sLSTM) decoder stacks."""
 from .model import Model, build  # noqa: F401

@@ -1,9 +1,10 @@
-"""Model assembly for the dense and hybrid stacks: parameters, caches, and
-the prefill / decode paths.
+"""Model assembly for the dense, hybrid and xLSTM stacks: parameters,
+caches, and the prefill / decode paths.
 
 Port of `repro.models.model` for layer kinds `attn` (global GQA/MQA
 attention), `local` (sliding-window attention with a ring-buffer cache) and
-`rec` (the Griffin RG-LRU block), each followed by an MLP. The reference
+`rec` (the Griffin RG-LRU block), each followed by an MLP, and `mlstm` /
+`slstm` (the xLSTM blocks: `x + cell(rmsnorm(x))`, no MLP). The reference
 stacks its layers per pattern period and scans over them, unrolling the
 scan for serving (`cim_unroll_groups`) and memoizing per-group parameter
 slices so the same arrays reach every call (`Model._group_param_slices`).
@@ -14,11 +15,10 @@ compute-dtype casts (`_compute_cast`, bf16 at full width) are memoized per
 parameter for the same reason — resident weight pins are keyed by tensor
 identity and stay warm across calls.
 
-Differences from the reference: MoE, MLA and xLSTM blocks and the train
-path wait. The prefill runs eagerly, so its CiM MLPs charge the ledger on
-every call (the reference's jitted prefill charges once at trace time), and
-it never pins weights (residency is off under the reference's jit tracers
-too).
+Differences from the reference: MoE, MLA and the train path wait. The
+prefill runs eagerly, so its CiM MLPs charge the ledger on every call (the
+reference's jitted prefill charges once at trace time), and it never pins
+weights (residency is off under the reference's jit tracers too).
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from repro_torch.cim.array import ArraySpec
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn
 from . import recurrent as rec_lib
+from . import xlstm as xlstm_lib
 from .layers import (
     embed,
     embed_init,
@@ -48,12 +49,20 @@ from .layers import (
 Params = Dict[str, Any]
 
 
-#: the layer kinds this port runs; each is followed by an MLP
-LAYER_KINDS = ("attn", "local", "rec")
+#: the layer kinds this port runs
+LAYER_KINDS = ("attn", "local", "rec", "mlstm", "slstm")
+#: the xLSTM kinds: one cell after ln1, no ln2 and no MLP
+XLSTM_CELLS = {"mlstm": (xlstm_lib.mlstm_init, xlstm_lib.mlstm_apply,
+                         xlstm_lib.mlstm_make_state),
+               "slstm": (xlstm_lib.slstm_init, xlstm_lib.slstm_apply,
+                         xlstm_lib.slstm_make_state)}
 
 
 def _layer_init(gen, cfg: ArchConfig, kind: str, dtype, device) -> Params:
     p: Params = {"ln1": rmsnorm_init(cfg.d_model, dtype, device)}
+    if kind in XLSTM_CELLS:
+        p["cell"] = XLSTM_CELLS[kind][0](gen, cfg, dtype, device)
+        return p
     if kind == "rec":
         p["rec"] = rec_lib.rglru_block_init(gen, cfg, dtype, device)
     else:
@@ -86,25 +95,39 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device) -> Params:
     return params
 
 
+def _param(v: torch.Tensor) -> nn.Parameter:
+    return v if isinstance(v, nn.Parameter) else \
+        nn.Parameter(v, requires_grad=False)
+
+
 def _pdict(d: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({
-        k: v if isinstance(v, nn.Parameter)
-        else nn.Parameter(v, requires_grad=False)
-        for k, v in d.items()})
+    return nn.ParameterDict({k: _param(v) for k, v in d.items()})
 
 
 class Layer(nn.Module):
-    """One block's parameters: ln1, its mixer ("attn" or "rec"), ln2, mlp."""
+    """One block's parameters: ln1, its mixer ("attn" or "rec"), ln2 and
+    mlp; or ln1 and an xLSTM "cell". A sub-tree of tensors becomes a
+    ParameterDict; one that nests further (the cell's norms) a Layer."""
 
     def __init__(self, p: Params):
         super().__init__()
         self.names = tuple(p)
-        for name in self.names:
-            setattr(self, name, _pdict(p[name]))
+        for name, v in p.items():
+            if not isinstance(v, dict):
+                setattr(self, name, _param(v))
+            elif any(isinstance(x, dict) for x in v.values()):
+                setattr(self, name, Layer(v))
+            else:
+                setattr(self, name, _pdict(v))
 
     def tree(self) -> Params:
-        return {name: dict(getattr(self, name).items())
-                for name in self.names}
+        out: Params = {}
+        for name in self.names:
+            v = getattr(self, name)
+            out[name] = (v.tree() if isinstance(v, Layer) else
+                         dict(v.items()) if isinstance(v, nn.ParameterDict)
+                         else v)
+        return out
 
 
 class Model(nn.Module):
@@ -164,7 +187,9 @@ class Model(nn.Module):
         cfg, dtype, dev = self.cfg, self.cfg.activation_dtype(), self.device
         out = []
         for kind in self.kinds:
-            if kind == "rec":
+            if kind in XLSTM_CELLS:
+                out.append(XLSTM_CELLS[kind][2](cfg, batch, dev))
+            elif kind == "rec":
                 out.append(rec_lib.rglru_make_state(cfg, batch, dtype, dev))
             elif kind == "local":
                 out.append(attn.local_make_cache(cfg, batch, dtype, dev))
@@ -185,8 +210,11 @@ class Model(nn.Module):
         return hit[1]
 
     def _layer_params(self, layer: Layer) -> Params:
-        return {name: {k: self._cast(v) for k, v in sub.items()}
-                for name, sub in layer.tree().items()}
+        def cast(tree):
+            if isinstance(tree, dict):
+                return {k: cast(v) for k, v in tree.items()}
+            return self._cast(tree)
+        return cast(layer.tree())
 
     # -- stack execution ------------------------------------------------------
 
@@ -208,6 +236,11 @@ class Model(nn.Module):
             p = self._layer_params(layer)
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
             cache = None if prefill else caches[i]
+            if kind in XLSTM_CELLS:       # prefill starts from a zero state
+                y, nc = XLSTM_CELLS[kind][1](p["cell"], cfg, h, cache)
+                x = x + y
+                new_caches.append(nc)
+                continue
             if kind == "rec":             # prefill starts from a zero state
                 y, nc = rec_lib.rglru_block_apply(p["rec"], cfg, h, cache)
             elif kind == "local":
