@@ -8,9 +8,10 @@ pattern (PyTorch's CPU build lacks `~`, `<<` and `>>` on `torch.uint32`).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; asking
 for `cuda` without a GPU raises. The kernels — the fused bit-plane access
-(`repro_torch.cim.fused_kernel`) and the RG-LRU and sLSTM recurrences
-(`repro_torch.kernels`) — are CUDA C++ for sm_90a, built at first use into
-`build/repro_torch_kernels/`.
+(`repro_torch.cim.fused_kernel`), the RG-LRU and sLSTM recurrences and
+flash attention (`repro_torch.kernels`) — are CUDA C++ for sm_90a, built
+at first use into `build/repro_torch_kernels/`. The serve entry point is
+`repro_torch.launch.serve`, the train entry point `repro_torch.launch.train`.
 """
 import torch
 

@@ -8,6 +8,8 @@ blocks, 3:1). The other families wait.
 """
 from __future__ import annotations
 
+import dataclasses
+
 from .base import ArchConfig
 
 _REGISTRY: dict[str, ArchConfig] = {}
@@ -60,11 +62,18 @@ def get_config(name: str) -> ArchConfig:
 
 
 def preset_config(name: str, preset: str) -> ArchConfig:
-    """The serve presets of `repro.launch.train.preset_config` that this
-    slice runs: the published config ("full") or its CPU-test reduction."""
+    """`repro.launch.train.preset_config`: the published config ("full"),
+    its CPU-test reduction ("reduced") or a ~100M-parameter same-family
+    variant ("100m")."""
     cfg = get_config(name)
     if preset == "reduced":
         return cfg.reduced()
+    if preset == "100m":
+        return dataclasses.replace(
+            cfg.reduced(), name=cfg.name + "-100m",
+            n_layers=8, d_model=768, n_heads=12,
+            n_kv_heads=min(cfg.n_kv_heads, 4), head_dim=64,
+            d_ff=3072 if cfg.d_ff else 0, vocab_size=32768)
     if preset == "full":
         return cfg
-    raise ValueError(f"preset {preset!r} is not ported; use reduced or full")
+    raise ValueError(f"unknown preset {preset!r}; use reduced, 100m or full")

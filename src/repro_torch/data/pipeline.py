@@ -1,0 +1,57 @@
+"""Deterministic synthetic LM data, restart-exact.
+
+Port of `repro.data.pipeline`'s host part (numpy only, copied so the port
+imports nothing of `repro`): tokens are a stateless function of (seed,
+step, position), so resuming from a checkpoint at step k reproduces batch
+k bit for bit with no iterator state to persist. `sharded_batch` and
+`embed_stub_batch` wait with the mesh (ROADMAP A15); the train driver moves
+the numpy batch to its device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seed: int = 0
+    vocab_size: int = 32000
+    batch: int = 8
+    seq_len: int = 128
+
+
+def _tokens_for(step: int, cfg: DataConfig, start_row: int,
+                n_rows: int) -> np.ndarray:
+    """Stateless token block [n_rows, seq_len+1] for global rows
+    [start_row, start_row+n_rows) of batch `step`."""
+    rows = np.arange(start_row, start_row + n_rows, dtype=np.uint64)[:, None]
+    cols = np.arange(cfg.seq_len + 1, dtype=np.uint64)[None, :]
+    with np.errstate(over="ignore"):  # modular uint64 mixing is intended
+        x = (rows * np.uint64(6364136223846793005)
+             + cols * np.uint64(1442695040888963407)
+             + np.uint64(step) * np.uint64(2862933555777941757)
+             + np.uint64(cfg.seed) * np.uint64(3202034522624059733))
+    # splitmix-style scramble (modular)
+    with np.errstate(over="ignore"):
+        x = (x ^ (x >> np.uint64(33))) * np.uint64(0xFF51AFD7ED558CCD)
+        x = (x ^ (x >> np.uint64(33))) * np.uint64(0xC4CEB9FE1A85EC53)
+        x = x ^ (x >> np.uint64(33))
+    return (x % np.uint64(cfg.vocab_size)).astype(np.int32)
+
+
+def synthetic_batch(step: int, cfg: DataConfig) -> Dict[str, np.ndarray]:
+    """Host-global batch: inputs = block[:, :-1], targets = block[:, 1:]
+    (next-token prediction packing)."""
+    block = _tokens_for(step, cfg, 0, cfg.batch)
+    return {"tokens": block[:, :-1], "targets": block[:, 1:]}
+
+
+def iterator(cfg: DataConfig,
+             start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    step = start_step
+    while True:
+        yield synthetic_batch(step, cfg)
+        step += 1

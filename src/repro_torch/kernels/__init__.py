@@ -1,10 +1,11 @@
 """Kernels of the model families, with their plain PyTorch versions.
 
-Port of `repro.kernels` as far as the serve paths reach it:
+Port of `repro.kernels` as far as the serve and train paths reach it:
+  flash_attention — GQA attention forward, CUDA C++ for sm_90a
+          (`csrc/flash_attention.cu`);
   rglru — the RG-LRU recurrence, CUDA C++ for sm_90a (`csrc/rglru.cu`);
   slstm — the sLSTM recurrence, CUDA C++ for sm_90a (`csrc/slstm.cu`);
   ref   — the plain versions the tests and `chip_smoke.py` hold them to;
-  ops   — `rglru_scan`, `slstm_scan`: the plain version for CPU tensors,
-          the kernel for CUDA tensors.
-Flash attention waits (ROADMAP B2).
+  ops   — `attention`, `rglru_scan`, `slstm_scan`: the plain version for
+          CPU tensors, the kernel for CUDA tensors.
 """

@@ -3,7 +3,7 @@
 Each mirrors one kernel's contract. The tests hold them to the reference's
 oracles on the CPU, and `chip_smoke.py` holds the CUDA kernels to them on
 the card. The CPU path of `ops` uses them too; nothing on the card's serve
-path does.
+or train path does.
 """
 from __future__ import annotations
 
@@ -80,3 +80,35 @@ def slstm_ref(wx: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor,
         m = m_new
         ys.append(h)
     return torch.stack(ys, 1).to(wx.dtype), (h, c, n, m)
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = True, scale: Optional[float] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grouped-query attention in float32 accumulation: q [B, Tq, Hq, D],
+    k and v [B, Tk, Hkv, D], kv heads repeated to q heads (q head h reads
+    kv head h // (Hq / Hkv)), the causal mask `tril(k=Tk-Tq)` (queries
+    aligned to the end of the key span) filled with -1e30.
+
+    Returns (o [B, Tq, Hq, D] in q's dtype, lse [B, Hq, Tq] in float32):
+    lse is the log-sum-exp of the scaled, masked logits, which the backward
+    needs. A float64 q computes (and returns lse) in float64: the card's
+    accuracy check of wide shapes uses it as the exact value."""
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / d ** 0.5 if scale is None else scale
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(dt) * scale
+    kf = k.to(dt).repeat_interleave(group, dim=2)
+    vf = v.to(dt).repeat_interleave(group, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if causal:
+        mask = torch.tril(torch.ones((tq, tk), dtype=torch.bool,
+                                     device=q.device), diagonal=tk - tq)
+        logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=dt,
+                                                        device=q.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    return out.to(q.dtype), lse

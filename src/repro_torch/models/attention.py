@@ -2,12 +2,12 @@
 CiM decode attention.
 
 Port of the dense path of `repro.models.attention`: `_sdpa`, the quantized
-core and its CiM form, `_attend`, `gqa_prefill`, `gqa_decode` and
-`gqa_decode_cim`, and the sliding-window local attention with its ring
-buffer (`local_*`; float, as in the reference, which lowers only
-`gqa_decode` to CiM). Sequences of `BLOCKWISE_MIN_LEN` tokens or more take
-the reference's blockwise attention, which is not ported yet: they raise.
-MLA waits.
+core and its CiM form, `_attend`, `gqa_apply` (the train path's attention),
+`gqa_prefill`, `gqa_decode` and `gqa_decode_cim`, and the sliding-window
+local attention with its ring buffer (`local_*`; float, as in the
+reference, which lowers only `gqa_decode` to CiM). Sequences of
+`BLOCKWISE_MIN_LEN` tokens or more take the blockwise attention
+(`blockwise_attention.py`), as the reference's `_attend` does. MLA waits.
 
 `sdpa_cim` runs QK^T and AV as planned batched CiM schedules by calling
 `repro_torch.cim.macro.batched_matmul` directly (two dispatches per call);
@@ -23,6 +23,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from .blockwise_attention import blockwise_attention
 from .layers import (
     _dense_init,
     apply_rope,
@@ -141,13 +143,12 @@ def _gqa_qkv(p, cfg: ArchConfig, x, positions):
 
 
 def _attend(q, k, v, scale, window: int = 0):
-    """Dense causal attention (exact) for sequences below the blockwise
-    threshold; `window` > 0 also masks keys `window` or more positions
-    behind the query (sliding-window local attention)."""
+    """Causal attention: dense (exact) below the blockwise threshold, the
+    blockwise custom-backward form from it; `window` > 0 also masks keys
+    `window` or more positions behind the query (sliding-window local
+    attention)."""
     if q.shape[1] >= BLOCKWISE_MIN_LEN:
-        raise NotImplementedError(
-            f"prompts of {q.shape[1]} >= {BLOCKWISE_MIN_LEN} tokens need the "
-            f"blockwise attention, which is not ported yet")
+        return blockwise_attention(q, k, v, True, scale, window, 512)
     tq, tk = q.shape[1], k.shape[1]
     mask = _causal_mask(tq, tk, q.device)
     if window:
@@ -155,6 +156,19 @@ def _attend(q, k, v, scale, window: int = 0):
         kpos = torch.arange(tk, device=q.device)[None, :]
         mask = mask & (qpos - kpos < window)[None]
     return _sdpa(q, k, v, mask, scale)
+
+
+def gqa_apply(p, cfg: ArchConfig, x, positions,
+              use_flash: bool = False) -> torch.Tensor:
+    """Full-sequence GQA attention (the train path): with `use_flash` the
+    attention core is `kernels.ops.attention` (the flash kernel on the
+    card, `mha_ref` on the CPU), else `_attend`."""
+    q, k, v = _gqa_qkv(p, cfg, x, positions)
+    if use_flash:
+        o = kops.attention(q, k, v, causal=True)
+    else:
+        o = _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5)
+    return _out_proj(o, p["wo"], x.dtype)
 
 
 def gqa_make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,

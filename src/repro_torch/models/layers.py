@@ -24,6 +24,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.cim import array as array_mod
 from repro_torch.cim import macro
@@ -260,3 +261,55 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_head_init(gen, d_model: int, vocab: int, dtype, device) -> Params:
     return {"w": _dense_init(gen, (d_model, vocab), d_model, dtype, device)}
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def chunked_lm_loss(x: torch.Tensor, w_head: torch.Tensor,
+                    targets: torch.Tensor, real_vocab: int,
+                    chunk: int = 512) -> torch.Tensor:
+    """Mean CE over x [B, S, D] and targets [B, S] without materializing
+    the [B, S, V] logits: sequence chunks of `chunk` tokens (the largest
+    divisor of S not above it), each run under `torch.utils.checkpoint` (the
+    reference's `jax.checkpoint`), so its logits are recomputed in the
+    backward and peak memory is one chunk's logits. Padded vocab columns
+    are masked to -1e30."""
+    b, s, _ = x.shape
+    v = w_head.shape[-1]
+    c = chunk
+    while s % c:
+        c -= 1
+    pad_mask = (torch.arange(v, device=x.device) >= real_vocab) * (-1e30)
+
+    def body(xc, tc):
+        logits = torch.matmul(xc.float(), w_head.float()) + pad_mask
+        return torch.sum(cross_entropy(logits, tc))
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(s // c):
+        total = total + checkpoint(body, x[:, i * c:(i + 1) * c],
+                                   targets[:, i * c:(i + 1) * c],
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
+def cross_entropy(logits_f32: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """Per-position CE, the target logit picked with an iota == target mask
+    as the reference does. As there, the max is detached only inside the
+    exponent and added back undetached, so the gradient carries an extra
+    +1 at each row's argmax (ROADMAP C records it); the port keeps the
+    reference's numbers."""
+    v = logits_f32.shape[-1]
+    m = torch.amax(logits_f32, dim=-1, keepdim=True)
+    shifted = logits_f32 - m.detach()
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    onehot = torch.arange(v, device=logits_f32.device) == targets[..., None]
+    tgt = torch.sum(torch.where(onehot, logits_f32,
+                                torch.zeros((), dtype=logits_f32.dtype,
+                                            device=logits_f32.device)),
+                    dim=-1)
+    return lse - tgt

@@ -1,5 +1,5 @@
 """Model assembly for the dense, hybrid and xLSTM stacks: parameters,
-caches, and the prefill / decode paths.
+caches, and the train, prefill and decode paths.
 
 Port of `repro.models.model` for layer kinds `attn` (global GQA/MQA
 attention), `local` (sliding-window attention with a ring-buffer cache) and
@@ -11,14 +11,28 @@ slices so the same arrays reach every call (`Model._group_param_slices`).
 The port is an `nn.Module` with one module per layer in the reference's
 stack order (its `StackLayout`: the pattern repeated, then the remainder),
 so every layer always receives the same parameter tensors; the
-compute-dtype casts (`_compute_cast`, bf16 at full width) are memoized per
-parameter for the same reason — resident weight pins are keyed by tensor
-identity and stay warm across calls.
+compute-dtype casts of prefill and decode (`_compute_cast`, bf16 at full
+width) are memoized per parameter for the same reason — resident weight
+pins are keyed by tensor identity and stay warm across calls.
 
-Differences from the reference: MoE, MLA and the train path wait. The
-prefill runs eagerly, so its CiM MLPs charge the ledger on every call (the
-reference's jitted prefill charges once at trace time), and it never pins
-weights (residency is off under the reference's jit tracers too).
+The train path (`forward`, `loss`; mode "train" of `_run_stack`) runs
+`attn` stacks. Its compute-dtype cast is a fresh, differentiable
+`t.to(act)` on every call (the memoized casts are detached), and under
+`cfg.remat` each layer runs under `torch.utils.checkpoint`, as the
+reference checkpoints each pattern period (period 1 for gemma). One
+departure: the reference's train forward calls `gqa_apply` without
+`use_flash` (`src/repro/models/model.py:153`), so it attends through the
+dense `_sdpa` or the jnp blockwise form, and its Pallas flash kernel
+covers real-TPU execution; on the card the port plays the TPU's role, so
+its train forward calls `gqa_apply(use_flash=True)`: the CUDA flash kernel
+forward, the blockwise backward. Both compute the same function and are
+held to each other. `rec`, `local`, `mlstm` and `slstm` layers do not
+train yet (ROADMAP A15).
+
+Differences from the reference: MoE and MLA wait. The prefill runs
+eagerly, so its CiM MLPs charge the ledger on every call (the reference's
+jitted prefill charges once at trace time), and it never pins weights
+(residency is off under the reference's jit tracers too).
 """
 from __future__ import annotations
 
@@ -27,6 +41,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.cim.array import ArraySpec
@@ -35,6 +50,7 @@ from . import attention as attn
 from . import recurrent as rec_lib
 from . import xlstm as xlstm_lib
 from .layers import (
+    chunked_lm_loss,
     embed,
     embed_init,
     lm_head_init,
@@ -48,6 +64,13 @@ from .layers import (
 
 Params = Dict[str, Any]
 
+#: layer kinds whose train path waits, with the ROADMAP item that ports it
+TRAIN_WAITS = {
+    "rec": "ROADMAP A15: the hybrid train path (RG-LRU backward)",
+    "local": "ROADMAP A15: the hybrid train path",
+    "mlstm": "ROADMAP A15: the xLSTM train path",
+    "slstm": "ROADMAP A15: the xLSTM train path (sLSTM backward)",
+}
 
 #: the layer kinds this port runs
 LAYER_KINDS = ("attn", "local", "rec", "mlstm", "slstm")
@@ -209,11 +232,21 @@ class Model(nn.Module):
             hit = self._cast_cache[id(t)] = (t, t.detach().to(act))
         return hit[1]
 
-    def _layer_params(self, layer: Layer) -> Params:
+    def _train_cast(self, t: torch.Tensor) -> torch.Tensor:
+        """`_compute_cast` for the train path: a fresh cast on every call,
+        so gradients reach the float32 master weights."""
+        act = self.cfg.activation_dtype()
+        if act == torch.float32 or t.dtype != torch.float32 or t.dim() < 2:
+            return t
+        return t.to(act)
+
+    def _layer_params(self, layer: Layer, train: bool = False) -> Params:
+        one = self._train_cast if train else self._cast
+
         def cast(tree):
             if isinstance(tree, dict):
                 return {k: cast(v) for k, v in tree.items()}
-            return self._cast(tree)
+            return one(tree)
         return cast(layer.tree())
 
     # -- stack execution ------------------------------------------------------
@@ -228,8 +261,31 @@ class Model(nn.Module):
                        resident=cfg.cim_resident and mode == "decode",
                        spec=self.resident_spec)
 
+    def _train_layer(self, i: int, x, positions) -> torch.Tensor:
+        """One `attn` layer of the train path: ln1, flash attention, ln2,
+        MLP, both residuals."""
+        cfg = self.cfg
+        p = self._layer_params(self.layers[i], train=True)
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        x = x + attn.gqa_apply(p["attn"], cfg, h, positions, use_flash=True)
+        h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + self._apply_mlp(p["mlp"], h2, "train")
+
     def _run_stack(self, x, positions, mode, caches=None, max_len=None):
         cfg = self.cfg
+        if mode == "train":
+            for i, kind in enumerate(self.kinds):
+                if kind != "attn":
+                    raise NotImplementedError(
+                        f"{cfg.name}: layer {i} ({kind!r}) has no train "
+                        f"path yet; {TRAIN_WAITS[kind]}")
+                if cfg.remat:
+                    x = checkpoint(self._train_layer, i, x, positions,
+                                   use_reentrant=False)
+                else:
+                    x = self._train_layer(i, x, positions)
+            x = rmsnorm(dict(self.final_norm.items()), x, cfg.norm_eps)
+            return x, []
         new_caches = []
         prefill = mode == "prefill"
         for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
@@ -281,14 +337,36 @@ class Model(nn.Module):
             out = out + pad * (-1e30)
         return out
 
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
+        b, t = x.shape[0], x.shape[1]
+        return torch.arange(t, dtype=torch.int32,
+                            device=x.device)[None].expand(b, t)
+
+    def forward(self, inputs):
+        """Full-sequence forward (train path): (logits_f32 [B, S, V],
+        aux)."""
+        x = self._embed_inputs(inputs)
+        x, _ = self._run_stack(x, self._positions(x), "train")
+        return self.logits(x), torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
+
+    def loss(self, batch):
+        """Chunked-CE loss (never materializes the [B, S, V] logits):
+        (loss, {"ce", "aux"}), loss = ce + 0.01 aux; aux is 0 without
+        MoE."""
+        x = self._embed_inputs(batch)
+        x, _ = self._run_stack(x, self._positions(x), "train")
+        ce = chunked_lm_loss(x, self._head_weight(), batch["targets"],
+                             real_vocab=self.cfg.vocab_size)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
     @torch.no_grad()
     def prefill(self, inputs, max_len: int):
         """Returns (caches, last_token_logits [B, V])."""
         x = self._embed_inputs(inputs)
-        b, t = x.shape[0], x.shape[1]
-        positions = torch.arange(t, dtype=torch.int32,
-                                 device=x.device)[None].expand(b, t)
-        x, caches = self._run_stack(x, positions, "prefill", max_len=max_len)
+        x, caches = self._run_stack(x, self._positions(x), "prefill",
+                                    max_len=max_len)
         return caches, self.logits(x[:, -1:])[:, 0]
 
     @torch.no_grad()
