@@ -1,8 +1,10 @@
 """Kernels of the model families, with their plain PyTorch versions.
 
 Port of `repro.kernels` as far as the serve and train paths reach it:
-  flash_attention — GQA attention forward, CUDA C++ for sm_90a
-          (`csrc/flash_attention.cu`);
+  flash_attention — GQA attention forward, CUDA C++ for sm_90a: bf16 on
+          the tensor cores (`csrc/flash_attention_sm90.cu`, TMA and
+          wgmma), float32 and the rest on `csrc/flash_attention.cu`
+          (SIMT), picked by `flash_attention.route`;
   rglru — the RG-LRU recurrence, CUDA C++ for sm_90a (`csrc/rglru.cu`);
   slstm — the sLSTM recurrence, CUDA C++ for sm_90a (`csrc/slstm.cu`);
   ref   — the plain versions the tests and `chip_smoke.py` hold them to;

@@ -43,8 +43,11 @@
 // the tile holds such a fully masked row; this changes no result, since
 // p = exp(-1e30 - m) = 0 once a row has seen a key.
 //
-// Later work (not here): wgmma / TMA tiles in bf16, and a backward kernel
-// (the backward is the ported blockwise recomputation in plain PyTorch).
+// bf16 calls that TMA can address run on csrc/flash_attention_sm90.cu
+// instead (wgmma / TMA; `repro_torch.kernels.flash_attention.route`); this
+// kernel takes float32 and every other bf16 call. There is no backward
+// kernel: the backward is the ported blockwise recomputation in plain
+// PyTorch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -56,7 +56,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
     """GQA attention, q [B, Tq, Hq, D] over k, v [B, Tk, Hkv, D], scale
     1/sqrt(D): o [B, Tq, Hq, D] in q's dtype. CPU tensors take `mha_ref`,
-    CUDA tensors the flash kernel (one launch per forward)."""
+    CUDA tensors the flash kernel `flash_attention.route` picks (one launch
+    per forward)."""
     return _Attention.apply(q, k, v, causal)
 
 

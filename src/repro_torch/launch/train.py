@@ -35,7 +35,7 @@ from repro_torch import kernel_build, resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import preset_config
 from repro_torch.data import DataConfig, synthetic_batch
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.models.model import Model, build
 from repro_torch.optim import AdamWConfig, cosine_schedule
 from repro_torch.runtime import Supervisor, SupervisorConfig
@@ -117,11 +117,11 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
     ckpt = CheckpointManager(args.ckpt_dir)
     sup = Supervisor(logging_step, make_batch, ckpt,
                      SupervisorConfig(ckpt_every=args.ckpt_every))
-    launches0 = flash_attention.launches
+    launches0 = flash.launches()
     t0 = time.perf_counter()
     state, metrics = sup.run(state, args.steps)
     wall_s = time.perf_counter() - t0
-    flash_launches = flash_attention.launches - launches0
+    flash_launches = flash.launches() - launches0
     steady = records[1:]
     tok_s = (len(steady) * args.batch * args.seq
              / (sum(r["ms"] for r in steady) / 1e3)) if steady else None

@@ -9,8 +9,10 @@ float32, 2e-2 bfloat16) on its four shapes. Gradients are held against
 `jax.grad` of the reference's `blockwise_attention` and `mha_ref`, plus a
 float64 `gradcheck`. `gqa_apply` (with and without flash) and
 `gqa_prefill` are held against the reference at T = 16 (dense) and
-T = 1024 (blockwise). The CUDA kernel runs only on a card: its case
-carries the `cuda` marker and skips here.
+T = 1024 (blockwise). The routing rule that picks the wgmma/TMA kernel
+or the SIMT kernel is a pure function, checked here on CPU tensors. The
+CUDA kernels run only on a card: their case carries the `cuda` marker and
+skips here.
 """
 import jax
 import jax.numpy as jnp
@@ -213,20 +215,102 @@ def test_kernel_source_and_build_location():
     assert 'extern "C" int flash_attention_launch' in src
 
 
+@pytest.mark.parametrize("q_shape,kv_shape,dtype,offset,want", [
+    # gemma-2b's train shape in bf16: the wgmma/TMA kernel
+    ((1, 2048, 8, 256), (1, 2048, 1, 256), torch.bfloat16, 0, "sm90"),
+    # the reference test's shapes in bf16, D = 32 and 64
+    ((1, 64, 4, 32), (1, 192, 2, 32), torch.bfloat16, 0, "sm90"),
+    ((2, 128, 4, 64), (2, 128, 2, 64), torch.bfloat16, 0, "sm90"),
+    # D = 96 and 200: padded to 128 and 256 by the box's zero fill
+    ((1, 37, 4, 96), (1, 60, 2, 96), torch.bfloat16, 0, "sm90"),
+    ((2, 16, 2, 200), (2, 16, 1, 200), torch.bfloat16, 0, "sm90"),
+    # wider than the kernels take
+    ((1, 16, 2, 264), (1, 16, 1, 264), torch.bfloat16, 0, "simt"),
+    # float32 stays on the SIMT kernel
+    ((1, 2048, 8, 256), (1, 2048, 1, 256), torch.float32, 0, "simt"),
+    # Hq * D = 30 and Hkv * D = 10: token strides not 16-byte multiples
+    ((1, 16, 3, 10), (1, 16, 1, 10), torch.bfloat16, 0, "simt"),
+    # Hq * D = 24 is, but the head stride (D = 12) is not
+    ((1, 16, 2, 12), (1, 16, 1, 12), torch.bfloat16, 0, "simt"),
+    # data 2 bytes past a 16-byte boundary
+    ((1, 16, 2, 64), (1, 16, 1, 64), torch.bfloat16, 1, "simt"),
+])
+def test_route_rule(q_shape, kv_shape, dtype, offset, want):
+    """`route` picks the kernel from dtype, shape, strides and alignment:
+    bf16 that TMA can address goes to the wgmma/TMA kernel, the rest to
+    the SIMT kernel."""
+    def make(shape):
+        n = int(np.prod(shape))
+        return torch.zeros(n + 8, dtype=dtype)[offset:offset + n].view(shape)
+    q, k, v = make(q_shape), make(kv_shape), make(kv_shape)
+    assert tflash.route(q, k, v) == want
+    # a non-contiguous view never goes to the TMA kernel
+    assert tflash.route(q.transpose(1, 2), k, v) == "simt"
+
+
+def test_launches_sums_both_kernels_counts():
+    """`launches()` is the sum of the two wrappers' own counts, so a
+    direct call of either kernel moves it as a routed call does."""
+    saved = (tflash.flash_attention_sm90.launches,
+             tflash.flash_attention_simt.launches)
+    try:
+        tflash.flash_attention_sm90.launches = 5
+        tflash.flash_attention_simt.launches = 3
+        assert tflash.launches() == 8
+        tflash.flash_attention_simt.launches += 1
+        assert tflash.launches() == 9
+    finally:
+        (tflash.flash_attention_sm90.launches,
+         tflash.flash_attention_simt.launches) = saved
+
+
+def test_sm90_kernel_source_and_build_location():
+    assert tflash.SOURCE_SM90.is_file()
+    path = kernel_build.library_path(tflash.SOURCE_SM90)
+    assert path.name.startswith("flash_attention_sm90_") and \
+        path.suffix == ".so"
+    assert path.parent == kernel_build.BUILD_DIR
+    src = tflash.SOURCE_SM90.read_text()
+    assert "src/repro/kernels/flash_attention.py::" in src
+    assert "_flash_kernel" in src
+    assert 'extern "C" int flash_attention_sm90_launch' in src
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier"):
+        assert ptx in src
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
-    """The kernel against `mha_ref` on the card, o and lse, on the
-    reference test's shapes plus gemma's head (D = 256) and Tq > Tk."""
+    """Both kernels against `mha_ref` on the card, o and lse, on the
+    reference test's shapes plus gemma's head (D = 256) and Tq > Tk: the
+    routed call (bf16 to the wgmma/TMA kernel, float32 to SIMT, asserted by
+    their launch counts) and the SIMT kernel in bf16; bf16 o also within a
+    relative L2 distance of 1e-2 (chip_smoke.FLASH_BF16_REL_L2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for shape in SHAPES + [(1, 300, 300, 8, 1, 256), (1, 90, 40, 4, 2, 64)]:
+    for shape in SHAPES + [(1, 300, 300, 8, 1, 256), (1, 90, 40, 4, 2, 64),
+                           (1, 70, 130, 4, 2, 96)]:
         for dtype in ("float32", "bfloat16"):
             tt = getattr(torch, dtype)
             q, k, v = (torch.from_numpy(a).to(dev).to(tt) for a in _qkv(shape))
+            kernels = [tflash.flash_attention]
+            if dtype == "bfloat16":
+                kernels.append(tflash.flash_attention_simt)
             for causal in (True, False):
-                o, lse = tflash.flash_attention(q, k, v, causal=causal)
-                op, lsep = tref.mha_ref(q, k, v, causal=causal)
-                _close(o.float().cpu(), op.float().cpu(), TOL[dtype])
-                _close(lse.cpu(), lsep.cpu(), 1e-5)
+                for fn in kernels:
+                    before = (tflash.flash_attention_sm90.launches,
+                              tflash.flash_attention_simt.launches)
+                    o, lse = fn(q, k, v, causal=causal)
+                    moved = (tflash.flash_attention_sm90.launches - before[0],
+                             tflash.flash_attention_simt.launches - before[1])
+                    sm90 = fn is tflash.flash_attention and \
+                        dtype == "bfloat16"
+                    assert moved == ((1, 0) if sm90 else (0, 1)), moved
+                    op, lsep = tref.mha_ref(q, k, v, causal=causal)
+                    _close(o.float().cpu(), op.float().cpu(), TOL[dtype])
+                    _close(lse.cpu(), lsep.cpu(), 1e-5)
+                    if dtype == "bfloat16":
+                        rel = (o.float() - op.float()).norm() / \
+                            op.float().norm()
+                        assert float(rel) <= 1e-2, (shape, causal, float(rel))
