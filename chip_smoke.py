@@ -4,12 +4,13 @@
     python3 chip_smoke.py            # from the repository root, one H100
 
 Phases, each fatal on failure (nothing is caught):
-  1. build   — compile the five kernels from the checkout, one nvcc each,
+  1. build   — compile the six kernels from the checkout, one nvcc each,
                in parallel: the fused bit-plane access
                (src/repro_torch/cim/csrc/fused_planes.cu), the RG-LRU
                recurrence (src/repro_torch/kernels/csrc/rglru.cu), the
-               sLSTM recurrence (src/repro_torch/kernels/csrc/slstm.cu) and
-               flash attention, SIMT (src/repro_torch/kernels/csrc/
+               sLSTM recurrence, persistent grid (src/repro_torch/kernels/
+               csrc/slstm_sm90.cu) and one block per row (csrc/slstm.cu),
+               and flash attention, SIMT (src/repro_torch/kernels/csrc/
                flash_attention.cu) and wgmma/TMA for bf16 (csrc/
                flash_attention_sm90.cu), sm_90a; print each build time, the
                registers and spills nvcc reports, and the card's name and
@@ -21,13 +22,16 @@ Phases, each fatal on failure (nothing is caught):
                the RG-LRU kernel against `rglru_ref` at (2,1,4096),
                (1,8,4096), (3,37,1000) and (1,2048,4096) in float32 and
                bfloat16, with and without h0, and time both at the decode
-               shape and at (1,2048,4096); hold the sLSTM kernel against
-               `slstm_ref` (TF32 off) at (3,32,64), (5,64,128), (2,48,256),
-               (2,1,768), (1,512,768), (1,2048,768), (3,37,1500), (2,9,3000)
-               and (1,5,7000), R and
-               b in float32 and bfloat16, wx in float32 and bfloat16, with
-               the default and a random initial state, and time both at
-               (2,1,768) and (1,2048,768); hold flash attention against
+               shape and at (1,2048,4096); hold the sLSTM kernel that
+               `slstm.route` picks against `slstm_ref` (TF32 off) at
+               (3,32,64), (5,64,128), (2,48,256), (2,1,768), (1,512,768),
+               (1,2048,768), (2,512,768), (4,64,768), (3,37,1500),
+               (2,9,3000) and (1,5,7000), R and b in float32 and bfloat16,
+               wx in float32 and bfloat16, with the default and a random
+               initial state, asserting by the launch counts which kernel
+               ran, and that a grid which cannot be co-resident is refused;
+               time both kernels and the plain version at (2,1,768),
+               (1,512,768) and (1,2048,768); hold flash attention against
                `mha_ref` (TF32 off), o and lse, on the reference test's four
                shapes, (1,2048,2048,8,1,256), (1,1000,1000,8,1,256),
                (2,37,300,4,2,128), (1,200,260,4,2,96) and
@@ -52,7 +56,8 @@ Phases, each fatal on failure (nothing is caught):
   5. xlstm   — xlstm-125m at full width through the same entry point on the
                float path (prompt 512, 16 tokens, 4 requests on 2 slots):
                every request completes, sLSTM launches = 3 x (decode steps +
-               prefilled requests), the ledger charges 0 accesses and the
+               prefilled requests), every one on the persistent-grid
+               kernel, the ledger charges 0 accesses and the
                fused and RG-LRU kernels launch 0 times; prints tok/s,
                p50/p99, prefill ms and peak device memory;
   6. agree   — the same xlstm-125m weights in float32 on the card and,
@@ -77,8 +82,9 @@ it and read just after; the kernel checks' own launches are not counted. Earlier
 carry the metrics and one JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. `--profile` adds a torch.profiler breakdown of one warm
-resident decode step of gemma-2b and recurrentgemma-9b, of one
-xlstm-125m decode step and of one gemma-2b train step.
+resident decode step of gemma-2b and recurrentgemma-9b (with the fused
+kernel's summed byte bound over the step), of one xlstm-125m decode step
+and of one gemma-2b train step.
 """
 import dataclasses
 import gc
@@ -377,15 +383,16 @@ def slstm_bounds(b: int, t: int, d: int, wx_size: int, r_size: int) -> dict:
 
 
 def phase_slstm(dev) -> dict:
-    """The sLSTM kernel against `slstm_ref` on the card (TF32 off for the
-    plain version's products). R is drawn as the model draws it, N(0, 1/D):
-    with the reference test's N(0, 0.04) at D >= 768 the recurrence is
-    chaotic, and float32 runs that differ only in summation order part
-    within a few dozen steps. Float32 outputs: atol 1e-5 up to T = 64 (the
-    reference's own), 1e-4 at T = 512 and 2048, where the recurrence carries
-    the different summation order of h R. The state is float32 always; a
-    bfloat16 y must lie within one bf16 rounding of the plain version's,
-    |dy| <= 2^-7 |y| + atol.
+    """The sLSTM kernels against `slstm_ref` on the card (TF32 off for the
+    plain version's products), each case on the kernel `slstm.route` picks,
+    asserted by the launch counts. R is drawn as the model draws it,
+    N(0, 1/D): with the reference test's N(0, 0.04) at D >= 768 the
+    recurrence is chaotic, and float32 runs that differ only in summation
+    order part within a few dozen steps. Float32 outputs: atol 1e-5 up to
+    T = 64 (the reference's own), 1e-4 at T = 512 and 2048, where the
+    recurrence carries the different summation order of h R. The state is
+    float32 always; a bfloat16 y must lie within one bf16 rounding of the
+    plain version's, |dy| <= 2^-7 |y| + atol.
 
     The two widest shapes (D = 3000 and 7000, which take 4 and 8 channels
     per thread) are held to exact arithmetic instead: the kernel's
@@ -400,11 +407,12 @@ def phase_slstm(dev) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import slstm as sm
     from repro_torch.kernels.ref import slstm_ref
-    from repro_torch.kernels.slstm import slstm
 
     gen = torch.Generator(device=dev).manual_seed(2)
     f32, bf16 = torch.float32, torch.bfloat16
+    kernels = {"sm90": sm.slstm_sm90, "rows": sm.slstm_rows}
 
     def inputs(shape, wx_dtype, r_dtype, random_state):
         b, t, d = shape
@@ -424,19 +432,35 @@ def phase_slstm(dev) -> dict:
     max_err = 0.0
     max_bf16_dy = 0.0
     cases = 0
-    # the last three take 2, 4 and 8 channels per thread; D = 7000 needs
-    # more than 48 KB of shared memory; D > 1500 is held to float64
+    routed = {"sm90": 0, "rows": 0}
+    # (2,512,768) and (4,64,768): several rows share each block's slice of
+    # R across many barriers; (33,8,768) and (40,1,768): xlstm-125m's width
+    # with more rows than the grid takes, on the rows kernel (serve with
+    # more than 32 slots); D = 1500 takes the grid with bf16 R only; the
+    # last two take the rows kernel at 4 and 8 channels per thread (D =
+    # 7000 needs more than 48 KB of shared memory); D > 1500 is held to
+    # float64
     for shape in ((3, 32, 64), (5, 64, 128), (2, 48, 256), (2, 1, 768),
-                  (1, 512, 768), (1, 2048, 768), (3, 37, 1500), (2, 9, 3000),
+                  (1, 512, 768), (1, 2048, 768), (2, 512, 768), (4, 64, 768),
+                  (33, 8, 768), (40, 1, 768), (3, 37, 1500), (2, 9, 3000),
                   (1, 5, 7000)):
         atol = 1e-5 if shape[1] <= 64 else 1e-4
         shape_err = shape_excess = 0.0
+        shape_routes = set()
         for wx_dtype, r_dtype in ((f32, f32), (f32, bf16), (bf16, bf16)):
             for random_state in (False, True):
                 args = inputs(shape, wx_dtype, r_dtype, random_state)
-                y, state = slstm(*args)
+                want = sm.route(args[0], args[1])
+                before = {k: fn.launches for k, fn in kernels.items()}
+                y, state = sm.slstm(*args)
                 yp, statep = slstm_ref(*args)
                 torch.cuda.synchronize()
+                moved = {k: fn.launches - before[k]
+                         for k, fn in kernels.items()}
+                assert moved == {k: int(k == want) for k in kernels}, \
+                    (shape, wx_dtype, r_dtype, want, moved)
+                routed[want] += 1
+                shape_routes.add(f"{want} (R {str(r_dtype)[6:]})")
                 assert y.dtype == wx_dtype
                 assert all(a.dtype == f32 for a in state)
                 outs, plain = list(state), list(statep)
@@ -461,58 +485,138 @@ def phase_slstm(dev) -> dict:
                     max_bf16_dy = max(max_bf16_dy, float(dy.max()))
                 if max(errs) > atol or not y_ok:
                     raise AssertionError(
-                        f"slstm != plain at {shape} wx {wx_dtype} R "
-                        f"{r_dtype} random_state={random_state}: h, c, n, m"
-                        f"{', y' if wx_dtype == f32 else ''} errors {errs}, "
+                        f"slstm ({want}) != plain at {shape} wx {wx_dtype} "
+                        f"R {r_dtype} random_state={random_state}: h, c, n, "
+                        f"m{', y' if wx_dtype == f32 else ''} errors {errs}, "
                         f"bf16 y within one rounding {y_ok}")
                 shape_err = max(shape_err, *diffs)
                 cases += 1
         max_err = max(max_err, shape_err)
+        kinds = ", ".join(sorted(shape_routes))
         if shape[2] > 1500:
-            print(f"slstm: {shape}: max abs diff {shape_err:.3e}; farther "
-                  f"from float64 than the float32 plain version by at most "
-                  f"{shape_excess:.3e} (bound atol {atol:g})")
+            print(f"slstm[{kinds}]: {shape}: max abs diff {shape_err:.3e}; "
+                  f"farther from float64 than the float32 plain version by "
+                  f"at most {shape_excess:.3e} (bound atol {atol:g})")
         else:
-            print(f"slstm: {shape}: max abs diff {shape_err:.3e} (bound atol "
-                  f"{atol:g})")
+            print(f"slstm[{kinds}]: {shape}: max abs diff {shape_err:.3e} "
+                  f"(bound atol {atol:g})")
 
-    # the serve path's dtypes: float32 wx and y, bfloat16 R and b
-    timings = {}
-    for shape, random_state in (((2, 1, 768), True), ((1, 2048, 768), False)):
-        args = inputs(shape, f32, bf16, random_state)
-        rounds = sorted(cuda_ms(lambda: slstm(*args), reps=10)
-                        for _ in range(5))
-        plain_reps = 10 if shape[1] == 1 else 2
-        plain = sorted(cuda_ms(lambda: slstm_ref(*args), reps=plain_reps)
-                       for _ in range(5))
+    # a grid that cannot all be resident is refused, never started: the
+    # sm90 launcher at D = 4096 with one channel a block asks for 4096
+    # blocks of 49 KB (at most 4 a SM by shared memory)
+    d = 4096
+    bufs = [torch.zeros(shape, dtype=dtype, device=dev) for shape, dtype in (
+        ((1, 1, 4, d), f32), ((d, 4, d), bf16), ((4, d), bf16))] + [
+        torch.zeros((1, d), device=dev) for _ in range(9)] + [
+        torch.zeros((2, 1, d), device=dev),
+        torch.zeros(1, dtype=torch.int64, device=dev)]
+    geom = sm.grid_geometry(1, d, bf16, blocks=d)
+    assert geom.channels == 1
+    with torch.cuda.device(dev):
+        rc = sm._launcher(sm.SOURCE_SM90)(
+            *(t.data_ptr() for t in bufs), 1, 1, d, 0, 1, *geom,
+            torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 720, rc             # cudaErrorCooperativeLaunchTooLarge
+    print(f"slstm: a grid of {d} blocks that cannot be co-resident: launch "
+          f"refused (cudaError {rc})")
+    del bufs
+
+    # the serve path's dtypes: float32 wx and y, bfloat16 R and b. Both
+    # kernels in turns (sm90, rows, sm90) on the same inputs: CUDA events
+    # around a round of launches, median of the rounds; the profiler's
+    # device rows give each kernel's own time per launch
+    def device_ms(fn, args, name, reps):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                slstm(*args)
+            for _ in range(reps):
+                fn(*args)
             torch.cuda.synchronize()
-        dev_rows = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and "slstm_kernel" in e.key]
-        device_ms = (sum(e.self_device_time_total for e in dev_rows) / 1e3
-                     / max(1, sum(e.count for e in dev_rows)))
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        return (sum(e.self_device_time_total for e in rows) / 1e3
+                / max(1, sum(e.count for e in rows)))
+
+    timings = {}
+    for shape, random_state in (((2, 1, 768), True), ((1, 512, 768), False),
+                                ((1, 2048, 768), False)):
+        args = inputs(shape, f32, bf16, random_state)
+        assert sm.route(args[0], args[1]) == "sm90", shape
+        t = shape[1]
+        slow = t > 1                       # the rows kernel: 0.1 ms a step
+        rounds = sorted(cuda_ms(lambda: sm.slstm_sm90(*args), reps=10)
+                        for _ in range(5))
+        rows = sorted(cuda_ms(lambda: sm.slstm_rows(*args),
+                              reps=2 if slow else 10)
+                      for _ in range(3 if slow else 5))
+        again = sorted(cuda_ms(lambda: sm.slstm_sm90(*args), reps=10)
+                       for _ in range(5))
+        plain = sorted(cuda_ms(lambda: slstm_ref(*args), reps=2 if slow
+                               else 10) for _ in range(3 if slow else 5))
+        dev_ms = device_ms(sm.slstm_sm90, args, "slstm_grid_kernel", 10)
+        rows_dev = device_ms(sm.slstm_rows, args, "slstm_kernel",
+                             2 if slow else 10)
         bounds = slstm_bounds(*shape, 4, 2)
-        timings[shape] = dict(ms=rounds[2], plain_ms=plain[2],
-                              device_ms=device_ms, **bounds)
-        print(f"slstm: {shape} wx f32, R bf16: median {rounds[2]:.4f} ms "
-              f"(rounds {rounds[0]:.4f}-{rounds[-1]:.4f}), device "
-              f"{device_ms:.4f} ms per launch (profiler), plain median "
-              f"{plain[2]:.4f} ms, bound {bounds['bound_ms']:.6f} ms "
+        timings[shape] = dict(ms=rounds[2], ms_again=again[2],
+                              device_ms=dev_ms, rows_ms=rows[len(rows) // 2],
+                              rows_device_ms=rows_dev,
+                              plain_ms=plain[len(plain) // 2], **bounds)
+        tm = timings[shape]
+        print(f"slstm: {shape} wx f32, R bf16: sm90 median {tm['ms']:.4f} ms "
+              f"(rounds {rounds[0]:.4f}-{rounds[-1]:.4f}; again "
+              f"{tm['ms_again']:.4f}), device {dev_ms:.4f} ms per launch "
+              f"(profiler), {dev_ms / t * 1e3:.3f} us a step; rows kernel "
+              f"median {tm['rows_ms']:.4f} ms, device {rows_dev:.4f} ms "
+              f"({rows_dev / t * 1e3:.3f} us a step); plain median "
+              f"{tm['plain_ms']:.4f} ms; bound {bounds['bound_ms']:.6f} ms "
               f"({bounds['bound_by']}, {bounds['bytes']} B, "
               f"{bounds['ops']} operations)")
-    print(f"slstm: {cases} cases within tolerance (max abs diff {max_err:.3e}"
-          f" on float32 outputs; bf16 y max diff {max_bf16_dy:.3e})")
-    dec, long = timings[(2, 1, 768)], timings[(1, 2048, 768)]
-    return {"max_abs_err": max_err, "ms": dec["ms"],
-            "device_ms": dec["device_ms"], "plain_ms": dec["plain_ms"],
-            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-            "shape": [2, 1, 768], "cases": cases,
-            "long": {"shape": [1, 2048, 768], **{
-                k: long[k] for k in ("ms", "device_ms", "plain_ms",
-                                     "bound_ms", "bound_by")}}}
+    # the grid's size, the sm90 kernel's main tuning choice: the same
+    # inputs on 48, 64, 96 (GRID_BLOCKS) and 128 blocks at D = 768 (16, 12,
+    # 8 and 6 channels a block), 96 again last, each held to the plain
+    # version at the case list's tolerance; CUDA events' median of 5 rounds
+    # (host launch cost included) and the profiler's device time a launch
+    sweep = {}
+    for shape, random_state in (((2, 1, 768), True), ((1, 512, 768), False),
+                                ((1, 2048, 768), False)):
+        args = inputs(shape, f32, bf16, random_state)
+        dims = sm._check_all(*args)
+        yp, statep = slstm_ref(*args)
+        atol = 1e-5 if shape[1] <= 64 else 1e-4
+        row = []
+        for blocks in (48, 64, 96, 128, 96):
+            geom = sm.grid_geometry(shape[0], shape[2], bf16, blocks=blocks)
+
+            def call(*_):
+                return sm._launch(sm.SOURCE_SM90, dims, *args, geom=geom)
+            y, state = call()
+            err = max(float((a - p).abs().max())
+                      for a, p in zip([*state, y], [*statep, yp]))
+            assert err <= atol, (shape, blocks, err)
+            row.append({"blocks": -(-shape[2] // geom.channels),
+                        "ms": sorted(cuda_ms(call, reps=10)
+                                     for _ in range(5))[2],
+                        "device_ms": device_ms(call, (), "slstm_grid_kernel",
+                                               10),
+                        "max_abs_err": err})
+        sweep[str(list(shape))] = row
+        print(f"slstm: grid sweep {shape} wx f32, R bf16 (blocks: median ms "
+              f"/ device ms a launch): " + ", ".join(
+                  f"{r['blocks']}: {r['ms']:.4f} / {r['device_ms']:.4f}"
+                  for r in row)
+              + f"; all within atol {atol:g} of the plain version")
+    print(f"slstm: {cases} cases within tolerance ({routed['sm90']} on the "
+          f"sm90 kernel, {routed['rows']} on the rows kernel; max abs diff "
+          f"{max_err:.3e} on float32 outputs; bf16 y max diff "
+          f"{max_bf16_dy:.3e})")
+    keys = ("ms", "ms_again", "device_ms", "rows_ms", "rows_device_ms",
+            "plain_ms", "bound_ms", "bound_by")
+    dec = timings[(2, 1, 768)]
+    return {"max_abs_err": max_err, **{k: dec[k] for k in keys},
+            "shape": [2, 1, 768], "cases": cases, "routed": routed,
+            "grid_sweep_ms": sweep,
+            "long": [{"shape": list(shape), **{k: timings[shape][k]
+                                               for k in keys}}
+                     for shape in ((1, 512, 768), (1, 2048, 768))]}
 
 
 def flash_bounds(b: int, tq: int, tk: int, hq: int, d: int, itemsize: int,
@@ -696,8 +800,8 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
     import torch
     from repro_torch.cim import fused_kernel
     from repro_torch.configs import preset_config
+    from repro_torch.kernels import slstm as sm
     from repro_torch.kernels.rglru import rglru
-    from repro_torch.kernels.slstm import slstm
     from repro_torch.launch import serve
     from repro_torch.models.model import build, with_cim
 
@@ -716,11 +820,11 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
     t = time.perf_counter()
     fused_kernel.fused_planes_op.launches = 0
     rglru.launches = 0
-    slstm.launches = 0
+    sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
     out = serve.main(argv, model=model)
     fused_launches = fused_kernel.fused_planes_op.launches
     rglru_launches = rglru.launches
-    assert slstm.launches == 0, (arch, slstm.launches)
+    assert sm.launches() == 0, (arch, sm.launches())
     times["serve_s"] = time.perf_counter() - t
     reps = out["phases"]
     for name, rep in reps.items():
@@ -776,13 +880,14 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
 def phase_xlstm(dev, profile: bool) -> dict:
     """xlstm-125m at full width through `serve.main` on the float path:
     every request completes, each sLSTM layer launches its kernel once per
-    prefill and once per decode step, and nothing reaches the CiM ledger,
-    the fused kernel or the RG-LRU kernel."""
+    prefill and once per decode step, every launch on the persistent-grid
+    kernel, and nothing reaches the CiM ledger, the fused kernel or the
+    RG-LRU kernel."""
     import torch
     from repro_torch.cim import accounting, fused_kernel
     from repro_torch.configs import preset_config
+    from repro_torch.kernels import slstm as sm
     from repro_torch.kernels.rglru import rglru
-    from repro_torch.kernels.slstm import slstm
     from repro_torch.launch import serve
     from repro_torch.models.model import build
 
@@ -801,9 +906,10 @@ def phase_xlstm(dev, profile: bool) -> dict:
     serve.fresh_cim_state()
     fused_kernel.fused_planes_op.launches = 0
     rglru.launches = 0
-    slstm.launches = 0
+    sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
     rep = serve.main(XLSTM_SERVE, model=model)
-    slstm_launches = slstm.launches
+    slstm_launches = sm.launches()
+    sm90_launches = sm.slstm_sm90.launches
     fused_launches = fused_kernel.fused_planes_op.launches
     rglru_launches = rglru.launches
     times["serve_s"] = time.perf_counter() - t
@@ -812,6 +918,7 @@ def phase_xlstm(dev, profile: bool) -> dict:
     assert all(len(r["token_ids"]) == args.gen for r in rep["per_request"])
     want = n_slstm * (rep["decode_steps"] + rep["requests"])
     assert slstm_launches == want > 0, (slstm_launches, want)
+    assert sm90_launches == slstm_launches, (sm90_launches, slstm_launches)
     assert fused_launches == 0 and rglru_launches == 0, \
         (fused_launches, rglru_launches)
     assert (led.accesses, led.load_accesses, led.total_accesses) == (0, 0, 0)
@@ -822,7 +929,8 @@ def phase_xlstm(dev, profile: bool) -> dict:
           f"mean ({args.prompt_len} tokens), {rep['decode_steps']} decode "
           f"steps, wall {rep['wall_s']:.2f} s; {slstm_launches} slstm "
           f"launches = {n_slstm} x ({rep['decode_steps']} decode steps + "
-          f"{rep['requests']} prefills); 0 fused, 0 rglru launches, 0 ledger "
+          f"{rep['requests']} prefills), {sm90_launches} on the sm90 "
+          f"kernel; 0 fused, 0 rglru launches, 0 ledger "
           f"accesses; peak memory {peak_gib:.2f} GiB")
     print(f"xlstm-125m tokens: {[r['token_ids'] for r in rep['per_request']]}")
     if profile:
@@ -830,6 +938,9 @@ def phase_xlstm(dev, profile: bool) -> dict:
         phase_profile(model, dev, args.prompt_len + args.gen, args.prompt_len)
         times["profile_s"] = time.perf_counter() - t
     return {"model": model, "slstm_launches": slstm_launches,
+            "sm90_launches": sm90_launches,
+            "prefill_ms": rep["prefill_ms_mean"],
+            "tok_s_steady": rep["tok_s_steady"],
             "peak_gib": peak_gib, "times": times}
 
 
@@ -904,8 +1015,8 @@ def phase_train(dev, profile: bool) -> dict:
     from repro_torch.cim import fused_kernel
     from repro_torch.configs import preset_config
     from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels import slstm as sm
     from repro_torch.kernels.rglru import rglru
-    from repro_torch.kernels.slstm import slstm
     from repro_torch.launch import train
     from repro_torch.models.model import build
 
@@ -920,7 +1031,7 @@ def phase_train(dev, profile: bool) -> dict:
     model = build(cfg, device=dev, seed=args.seed)
     fused_kernel.fused_planes_op.launches = 0
     rglru.launches = 0
-    slstm.launches = 0
+    sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
     fm.flash_attention_sm90.launches = 0
     fm.flash_attention_simt.launches = 0
     rep = train.main(TRAIN, model=model)
@@ -928,7 +1039,7 @@ def phase_train(dev, profile: bool) -> dict:
     sm90_launches = fm.flash_attention_sm90.launches
     simt_launches = fm.flash_attention_simt.launches
     other = (fused_kernel.fused_planes_op.launches, rglru.launches,
-             slstm.launches)
+             sm.launches())
     losses = [r["loss"] for r in rep["records"]]
     assert len(losses) == args.steps and rep["restarts"] == 0, rep
     assert all(math.isfinite(x) for x in losses), losses
@@ -1118,6 +1229,7 @@ def phase_profile(m, dev, max_len: int, position: int) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.cim import fused_kernel
     from repro_torch.launch import serve
 
     caches = m.init_caches(2, max_len)
@@ -1126,12 +1238,16 @@ def phase_profile(m, dev, max_len: int, position: int) -> None:
                                       device=dev)}
     m.decode_step(caches, step)
     torch.cuda.synchronize()
+    fused = fused_kernel.fused_planes_op
+    launches0, bytes0 = fused.launches, fused.bytes
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         m.decode_step(caches, step)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    fused_launches = fused.launches - launches0
+    fused_bytes = fused.bytes - bytes0
     # key_averages() holds each kernel twice, as its own device row and in
     # the self device time of the PyTorch op that launched it; busy time
     # sums the device rows only (the ctypes kernels have no op above them)
@@ -1144,10 +1260,19 @@ def phase_profile(m, dev, max_len: int, position: int) -> None:
     busy_ms = sum(r[2] for r in kernels)
     custom = [r for r in kernels
               if any(k in r[0] for k in ("fused_planes_kernel", "rglru_kernel",
-                                         "slstm_kernel"))]
+                                         "slstm_kernel", "slstm_grid_kernel"))]
     print(f"profile[{m.cfg.name}]: decode step wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms (idle share "
           f"{1 - busy_ms / wall_ms:.3f})")
+    if fused_launches:
+        # each launch's bytes (both stacks read, every output plane written)
+        # over the memory rate, summed over the step
+        fused_ms = sum(r[2] for r in kernels if "fused_planes_kernel" in r[0])
+        bound_ms = fused_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"profile[{m.cfg.name}]: fused kernel {fused_ms:.2f} ms for "
+              f"{fused_launches} launches against a summed byte bound of "
+              f"{bound_ms:.2f} ms ({fused_bytes} B; {bound_ms / fused_ms:.3f}"
+              f" of the bound's speed)")
     for name, count, ms in sorted(custom + ops, key=lambda r: -r[2])[:12]:
         print(f"profile:   {ms:10.3f} ms  x{count:<6d} {name[:90]}")
     serve.fresh_cim_state()
@@ -1171,8 +1296,8 @@ def main() -> int:
     phases = {}
 
     t = time.perf_counter()
-    sources = (fused_kernel.SOURCE, rglru_mod.SOURCE, slstm_mod.SOURCE,
-               flash_mod.SOURCE, flash_mod.SOURCE_SM90)
+    sources = (fused_kernel.SOURCE, rglru_mod.SOURCE, slstm_mod.SOURCE_SM90,
+               slstm_mod.SOURCE, flash_mod.SOURCE, flash_mod.SOURCE_SM90)
     build_s = kernel_build.compile_all(sources)
     for src in sources:
         kernel_build.load(src)
@@ -1243,14 +1368,25 @@ def main() -> int:
            "library_ms": None, "device_ms": rg["device_ms"],
            "shape": rg["shape"]}
     cell = {"name": "slstm", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/slstm.cu",
+            "source": "src/repro_torch/kernels/csrc/slstm_sm90.cu",
             "replaces": "src/repro/kernels/slstm.py:97",
+            "variant": "sm90: persistent cooperative grid, R slices in "
+                       "shared memory, one grid barrier a step; wider D and "
+                       "B > 32 on the one-block-per-row kernel",
+            "rows_source": "src/repro_torch/kernels/csrc/slstm.cu",
             "launches": xl["slstm_launches"],
+            "launches_sm90": xl["sm90_launches"],
+            "launches_rows": xl["slstm_launches"] - xl["sm90_launches"],
             "max_abs_err": sl["max_abs_err"],
-            "ms": sl["ms"], "plain_ms": sl["plain_ms"],
+            "ms": sl["ms"], "ms_again": sl["ms_again"],
+            "plain_ms": sl["plain_ms"],
             "bound_ms": sl["bound_ms"], "bound_by": sl["bound_by"],
             "library_ms": None, "device_ms": sl["device_ms"],
-            "shape": sl["shape"], "long": sl["long"],
+            "rows_ms": sl["rows_ms"], "rows_device_ms": sl["rows_device_ms"],
+            "shape": sl["shape"], "long": sl["long"], "cases": sl["cases"],
+            "routed": sl["routed"], "grid_sweep": sl["grid_sweep_ms"],
+            "xlstm_prefill_ms": xl["prefill_ms"],
+            "xlstm_tok_s_steady": xl["tok_s_steady"],
             "agree_max_logit_diff": agree["max_logit_diff"]}
     flash = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",

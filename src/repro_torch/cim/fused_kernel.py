@@ -129,7 +129,9 @@ def fused_planes_op(a_planes: torch.Tensor, b_planes: torch.Tensor,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on
     the current stream (or raise); each launch adds one to
-    `fused_planes_op.launches`."""
+    `fused_planes_op.launches` and the bytes it must move to
+    `fused_planes_op.bytes`: both stacks read once and every output plane
+    written once, (2 n_bits + output rows) x W x 4 bytes a tile."""
     ops = opset.validate_ops(ops)
     if a_planes.shape != b_planes.shape or a_planes.dim() not in (2, 3):
         raise opset.CimOpError(
@@ -172,7 +174,10 @@ def fused_planes_op(a_planes: torch.Tensor, b_planes: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"fused_planes kernel launch failed: cudaError {rc}")
     fused_planes_op.launches += 1
+    fused_planes_op.bytes += (2 * n_bits + sum(o.shape[-2] for o in outs)) \
+        * w * 4 * n_tiles
     return tuple(outs)
 
 
 fused_planes_op.launches = 0
+fused_planes_op.bytes = 0

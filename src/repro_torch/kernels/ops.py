@@ -74,7 +74,8 @@ def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor,
                h0: torch.Tensor, c0: torch.Tensor, n0: torch.Tensor,
                m0: torch.Tensor):
     """sLSTM over wx [B, T, 4, D]: returns (y [B, T, D] in wx's dtype,
-    (h, c, n, m) [B, D] in float32)."""
+    (h, c, n, m) [B, D] in float32). CPU tensors take `slstm_ref`, CUDA
+    tensors the kernel `slstm.route` picks (one launch)."""
     if wx.device.type == "cpu":
         return ref.slstm_ref(wx, r_gates, b_gates, h0, c0, n0, m0)
     return slstm(wx, r_gates, b_gates, h0, c0, n0, m0)

@@ -89,6 +89,27 @@ def test_cpu_wrapper_uses_plain_version_and_never_counts_a_launch():
     assert tfk.fused_planes_op.launches == before
 
 
+def test_cpu_wrapper_counts_no_bytes():
+    a, b = _planes(9, 4, 33)
+    before = tfk.fused_planes_op.bytes
+    tfk.fused_planes_op(_t(a), _t(b), ("add", "lt", "xor"))
+    assert tfk.fused_planes_op.bytes == before
+
+
+@pytest.mark.cuda
+def test_launch_counts_the_bytes_it_must_move():
+    """Each launch adds (2 n_bits + output rows) x W x 4 bytes per tile:
+    both stacks read once, every output plane written once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    a, b = (_t(x).cuda() for x in _planes(9, 3 * 5, 33))
+    a, b = a.view(3, 5, 33), b.view(3, 5, 33)
+    before = tfk.fused_planes_op.bytes
+    tfk.fused_planes_op(a, b, ("add", "lt", "xor"))
+    assert tfk.fused_planes_op.bytes - before == \
+        (2 * 5 + (5 + 1) + 1 + 5) * 33 * 4 * 3
+
+
 def test_wrapper_raises_where_no_kernel_exists():
     a = torch.zeros((4, 8), dtype=torch.int32, device="meta")
     with pytest.raises(opset.CimOpError):

@@ -5,8 +5,9 @@ On the CPU `repro_torch.kernels.ops.slstm_scan` takes the plain version
 `repro.kernels.slstm.slstm_scan` run in interpret mode at the reference's
 own tolerance (atol 1e-5), on the reference test's shapes plus T = 1,
 B = 5 (the reference pads the batch to its block) and a nonzero initial
-state. The CUDA kernel runs only on a card: its case carries the `cuda`
-marker and skips here.
+state. The CUDA kernels run only on a card: their cases carry the `cuda`
+marker and skip here. The routing rule between the two kernels is a pure
+function of dtype and shape, checked here on meta and CPU tensors.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -133,3 +134,96 @@ def test_cuda_kernel_matches_plain_version():
             torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
         dy = (y.float() - yp.float()).abs()
         assert bool((dy <= 2.0 ** -7 * yp.float().abs() + 1e-5).all())
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("b,d,wx_dtype,r_dtype,want", [
+    (2, 768, F32, F32, "sm90"), (2, 768, F32, BF16, "sm90"),
+    (1, 768, F32, BF16, "sm90"), (4, 768, BF16, BF16, "sm90"),
+    (32, 768, F32, F32, "sm90"), (33, 768, F32, BF16, "rows"),
+    (3, 64, F32, F32, "sm90"), (5, 128, BF16, BF16, "sm90"),
+    (3, 1500, F32, BF16, "sm90"), (3, 1500, F32, F32, "rows"),
+    (2, 3000, F32, BF16, "rows"), (1, 7000, F32, F32, "rows"),
+    (1, 1152, F32, F32, "sm90"), (1, 1160, F32, F32, "rows"),
+    (1, 1536, F32, BF16, "sm90"), (1, 1540, F32, BF16, "rows")])
+def test_route(b, d, wx_dtype, r_dtype, want):
+    """xlstm-125m's D = 768 takes the persistent grid with R in float32 or
+    bfloat16, up to 32 rows; slices that do not fit 227 KB of shared memory
+    and wider batches take the one-block-per-row kernel. Meta and CPU
+    tensors of one dtype and shape route alike."""
+    for device in ("meta", "cpu"):
+        wx = torch.empty((b, 2, 4, d), dtype=wx_dtype, device=device)
+        r = torch.empty((d, 4, d), dtype=r_dtype, device=device)
+        assert tslstm.route(wx, r) == want
+
+
+@pytest.mark.parametrize("b,d,r_dtype,want", [
+    (2, 768, BF16, (8, 2, 768, 772, 8 * 4 * 772 * 2 + 2 * 768 * 4)),
+    (1, 768, F32, (8, 1, 768, 772, 8 * 4 * 772 * 4 + 768 * 4)),
+    (3, 1500, BF16, (16, 4, 1500, 1504, 16 * 4 * 1504 * 2 + 4 * 1500 * 4)),
+    (5, 63, F32, (1, 4, 64, 68, 4 * 68 * 4 + 8 * 64 * 4))])
+def test_grid_geometry(b, d, r_dtype, want):
+    """The geometry the wrapper passes to the kernel: channels per block,
+    batch tile (1, 2 or 4 rows), h's and R's row strides (D rounded up to 4,
+    plus 4 for R) and shared bytes per block (R's slice in R's dtype, then
+    h for B rounded up to the tile in float32); at most 96 blocks."""
+    g = tslstm.grid_geometry(b, d, r_dtype)
+    assert tuple(g) == want
+    assert -(-d // g.channels) <= tslstm.GRID_BLOCKS
+    assert tslstm.grid_geometry(b, d, r_dtype, blocks=128).channels == \
+        -(-d // 128)
+
+
+def test_sm90_source_and_build_location():
+    assert tslstm.SOURCE_SM90.is_file()
+    path = kernel_build.library_path(tslstm.SOURCE_SM90)
+    assert path.name.startswith("slstm_sm90_") and path.suffix == ".so"
+    assert path.parent == kernel_build.BUILD_DIR
+    src = tslstm.SOURCE_SM90.read_text()
+    assert "src/repro/kernels/slstm.py::_slstm_kernel" in src
+    assert 'extern "C" int slstm_sm90_launch' in src
+    assert "cudaLaunchCooperativeKernel" in src
+    for lib in ("cublas", "cudnn", "matmul"):
+        assert lib not in src.lower()
+
+
+@pytest.mark.parametrize("name", ["slstm_sm90", "slstm_rows", "slstm"])
+def test_each_wrapper_takes_only_cuda_tensors(name):
+    args = [torch.from_numpy(a) for a in _inputs(1, 1, 2, 8, False)]
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(tslstm, name)(*args)
+
+
+def test_cpu_path_counts_no_launch():
+    """`launches()` sums the two kernels' own counts; the plain version on
+    CPU tensors adds to neither."""
+    before = (tslstm.slstm_sm90.launches, tslstm.slstm_rows.launches)
+    assert tslstm.launches() == sum(before)
+    tops.slstm_scan(*(torch.from_numpy(a)
+                      for a in _inputs(2, 2, 3, 16, True)))
+    assert (tslstm.slstm_sm90.launches, tslstm.slstm_rows.launches) == before
+
+
+@pytest.mark.cuda
+def test_sm90_kernel_matches_plain_version():
+    """The persistent-grid kernel alone, by its launch count, at the decode
+    shape, a long prompt and several rows sharing each block's slice of R
+    across barriers; tolerances as `test_cuda_kernel_matches_plain_version`
+    (1e-4 past T = 64, as `chip_smoke.py::phase_slstm`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for b, t, d in ((2, 1, 768), (1, 512, 768), (4, 64, 768)):
+        args = [torch.from_numpy(a).to(dev)
+                for a in _inputs(4, b, t, d, True, r_scale=d ** -0.5)]
+        r, bg = args[1].to(torch.bfloat16), args[2].to(torch.bfloat16)
+        assert tslstm.route(args[0], r) == "sm90"
+        before = tslstm.slstm_sm90.launches
+        y, state = tops.slstm_scan(args[0], r, bg, *args[3:])
+        assert tslstm.slstm_sm90.launches == before + 1
+        yp, statep = tref.slstm_ref(args[0], r, bg, *args[3:])
+        atol = 1e-5 if t <= 64 else 1e-4
+        for got, want in zip([*state, y], [*statep, yp]):
+            torch.testing.assert_close(got, want, atol=atol, rtol=0)
