@@ -4,10 +4,11 @@
     python3 chip_smoke.py            # from the repository root, one H100
 
 Phases, each fatal on failure (nothing is caught):
-  1. build   — compile the six kernels from the checkout, one nvcc each,
+  1. build   — compile the seven kernels from the checkout, one nvcc each,
                in parallel: the fused bit-plane access
                (src/repro_torch/cim/csrc/fused_planes.cu), the RG-LRU
-               recurrence (src/repro_torch/kernels/csrc/rglru.cu), the
+               recurrence, TMA channel tiles (src/repro_torch/kernels/csrc/
+               rglru_sm90.cu) and one thread per channel (csrc/rglru.cu), the
                sLSTM recurrence, persistent grid (src/repro_torch/kernels/
                csrc/slstm_sm90.cu) and one block per row (csrc/slstm.cu),
                and flash attention, SIMT (src/repro_torch/kernels/csrc/
@@ -19,10 +20,16 @@ Phases, each fatal on failure (nothing is caught):
                version over the op surface (every single op, the full op set
                and random subsets, n_bits 2-33, ragged widths, a tiled
                stack) and time both at the main path's largest access; hold
-               the RG-LRU kernel against `rglru_ref` at (2,1,4096),
-               (1,8,4096), (3,37,1000) and (1,2048,4096) in float32 and
-               bfloat16, with and without h0, and time both at the decode
-               shape and at (1,2048,4096); hold the sLSTM kernel that
+               both RG-LRU kernels against `rglru_ref` at (2,1,4096),
+               (1,8,4096), (3,37,1000), (1,2048,4096), (1,2040,4096),
+               (2,2048,4096), (3,1000,1000), T at the routing threshold and
+               at a tile edge +- 1, and a D that TMA cannot address, in
+               float32 and bfloat16, with and without h0: the TMA kernel
+               equal to the bit to the rows kernel, every routed call on
+               the kernel `rglru.route` names by the launch counts; time both
+               kernels and the plain version at the prefill and decode
+               shapes, sweep the TMA kernel's channels, ring depth and gate
+               warps, and both kernels over T; hold the sLSTM kernel that
                `slstm.route` picks against `slstm_ref` (TF32 off) at
                (3,32,64), (5,64,128), (2,48,256), (2,1,768), (1,512,768),
                (1,2048,768), (2,512,768), (4,64,768), (3,37,1500),
@@ -51,8 +58,16 @@ Phases, each fatal on failure (nothing is caught):
                must give identical greedy tokens;
   4. hybrid  — recurrentgemma-9b at full width the same way: 3154 accesses
                and 114 dispatches per decode step, RG-LRU launches = 26 x
-               (decode steps + prefilled requests), tokens equal the host
-               twin's; prints peak device memory and the array used;
+               (decode steps + prefilled requests), each on the kernel
+               `rglru.route` names, tokens equal the host twin's; prints
+               peak device memory and the array used;
+  4b. hybrid-prefill — the same model on the float path (no --cim-lower):
+               2 requests of prompt 2040 + gen 8 (the 2048-token window) on
+               2 slots: 26 x 2 prefill calls at (1,2040,4096) on the TMA
+               RG-LRU kernel, decode calls on the kernel `rglru.route`
+               names, nothing on the ledger; prints prefill ms, tok/s, peak
+               memory, and one profiled prefill's RG-LRU device ms beside
+               its wall time;
   5. xlstm   — xlstm-125m at full width through the same entry point on the
                float path (prompt 512, 16 tokens, 4 requests on 2 slots):
                every request completes, sLSTM launches = 3 x (decode steps +
@@ -119,6 +134,24 @@ F32_OPS_PER_S = 67e12            # H100 SXM float32 rate outside tensor cores
 #: RG-LRU float operations per element (sigmoid x2 at 3 each, the decay
 #: product, exp, a*a, 1-, max, sqrt, gate product, a*h + m*g at 3)
 RGLRU_OPS_PER_ELEMENT = 16
+#: RG-LRU special-function operations per element (3 exponentials, 2
+#: reciprocals, 1 square root) at the H100's 16 a clock per SM on 132 SMs,
+#: times the card's `clocks.max.sm` from nvidia-smi
+RGLRU_SFU_PER_ELEMENT = 6
+SFU_PER_CLOCK_SM = 16
+H100_SMS = 132
+#: RG-LRU cases (B, T, D) held on both kernels: decode, the CiM hybrid's
+#: prefill at 8, a ragged one, the model's prefill at 2048 and at 2040 (the
+#: float prefill phase's), two rows, ragged T and D at once, T at the
+#: routing threshold (8) and at a tile edge (64) +- 1, and D = 1001 (whose
+#: float32 and bf16 rows TMA cannot address: the rows kernel only)
+RGLRU_CASES = [(2, 1, 4096), (1, 8, 4096), (3, 37, 1000), (1, 2048, 4096),
+               (1, 2040, 4096), (2, 2048, 4096), (3, 1000, 1000),
+               (2, 7, 512), (2, 8, 512), (2, 9, 512), (1, 63, 1024),
+               (1, 64, 1024), (1, 65, 1024), (2, 40, 1001)]
+#: the RG-LRU shapes timed (bf16; h0 at decode only, as the model calls)
+RGLRU_TIMED = [((1, 2048, 4096), False), ((1, 2040, 4096), False),
+               ((2, 2048, 4096), False), ((2, 1, 4096), True)]
 #: sLSTM float operations per channel and step besides the h R product:
 #: 8 adds for the pre-activations, tanh, log-sigmoid and sigmoid (about 12),
 #: the stabilizer and its two exponentials (6), the c, n, h updates (7)
@@ -145,6 +178,10 @@ FLASH_BF16_REL_L2 = 1e-2
 XLSTM_SERVE = ["--arch", "xlstm-125m", "--preset", "full", "--device",
                "cuda", "--slots", "2", "--requests", "4", "--prompt-len",
                "512", "--gen", "16"]
+#: the hybrid's float-path prefill: prompt + gen = the 2048-token window
+HYBRID_PREFILL = ["--arch", "recurrentgemma-9b", "--preset", "full",
+                  "--device", "cuda", "--slots", "2", "--requests", "2",
+                  "--prompt-len", "2040", "--gen", "8"]
 #: the train phase: gemma-2b at full width, microbatches 2 and remat from
 #: its config; a checkpoint (40 GB) never falls due
 TRAIN = ["--arch", "gemma-2b", "--preset", "full", "--device", "cuda",
@@ -156,10 +193,9 @@ TRAIN = ["--arch", "gemma-2b", "--preset", "full", "--device", "cuda",
 AGREE_ATOL = 1e-3
 
 
-def smi_line() -> str:
+def smi_line(fields: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
 
 
@@ -274,32 +310,62 @@ def phase_kernel(dev) -> dict:
             "shape": [n_bits, w, list(ops)], "cases": cases}
 
 
-def rglru_bounds(b: int, t: int, d: int, itemsize: int, h0: bool) -> dict:
+def rglru_bounds(b: int, t: int, d: int, itemsize: int, h0: bool,
+                 sm_mhz: float) -> dict:
+    """Least time of one call, the larger of three: x, r, i read and y
+    written once (plus log_lambda, h0, h_T) over 3.35 TB/s; the float
+    operations over 67 TFLOP/s; the special-function operations over the
+    SFU rate at the card's maximum SM clock (`sm_mhz`)."""
     moved = 4 * b * t * d * itemsize + 4 * b * d * (2 if h0 else 1) + 4 * d
-    ops = RGLRU_OPS_PER_ELEMENT * b * t * d
+    n = b * t * d
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": moved}
+    t_ops = RGLRU_OPS_PER_ELEMENT * n / F32_OPS_PER_S * 1e3
+    t_sfu = (RGLRU_SFU_PER_ELEMENT * n
+             / (SFU_PER_CLOCK_SM * H100_SMS * sm_mhz * 1e6) * 1e3)
+    return {"bound_ms": max(t_bytes, t_ops, t_sfu),
+            "bound_by": "bytes" if t_bytes >= max(t_ops, t_sfu)
+            else "operations",
+            "bytes": moved, "bytes_ms": t_bytes, "ops_ms": t_ops,
+            "sfu_ms": t_sfu}
 
 
-def phase_rglru(dev) -> dict:
-    """The RG-LRU kernel against `rglru_ref` on the card. float32: y and h_T
-    at atol 1e-5 (the reference's own tolerance). bfloat16 inputs: h_T at
-    atol 1e-5 (both compute in float32); y within one bf16 rounding of the
-    plain version's y, |dy| <= 2^-7 |y| + 1e-5 (the two float32 values,
-    rounded to nearest even, can land on neighbouring bf16 values)."""
+def device_ms(fn, args, name: str, reps: int) -> float:
+    """The device time per launch of the kernels whose name holds `name`,
+    from torch.profiler over `reps` calls of fn(*args)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    return (sum(e.self_device_time_total for e in rows) / 1e3
+            / max(1, sum(e.count for e in rows)))
 
+
+def phase_rglru(dev, sm_mhz: float) -> dict:
+    """Both RG-LRU kernels against `rglru_ref` on the card, every case of
+    RGLRU_CASES in float32 and bfloat16, with and without h0. float32: y
+    and h_T at atol 1e-5 (the reference's own tolerance). bfloat16 inputs:
+    h_T at atol 1e-5 (both compute in float32); y within one bf16 rounding
+    of the plain version's y, |dy| <= 2^-7 |y| + 1e-5 (the two float32
+    values, rounded to nearest even, can land on neighbouring bf16 values).
+    The TMA kernel repeats the rows kernel's arithmetic, so wherever it
+    takes the input their y and h_T must be equal to the bit; every routed
+    call must launch the kernel `rglru.route` names, by the counts."""
+    import torch
+
+    from repro_torch.kernels import rglru as rg
     from repro_torch.kernels.ref import rglru_ref
-    from repro_torch.kernels.rglru import rglru
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    max_err = 0.0
+    kernels = {"sm90": rg.rglru_sm90, "rows": rg.rglru_rows}
+    names = {"sm90": "rglru_tile_kernel", "rows": "rglru_kernel"}
+    max_err = {"sm90": 0.0, "rows": 0.0}
     cases = 0
+    routed = {"sm90": 0, "rows": 0}
 
     def inputs(shape, dtype, with_h0):
         b, _, d = shape
@@ -310,62 +376,150 @@ def phase_rglru(dev) -> dict:
               if with_h0 else None)
         return x, r, i, ll, h0
 
-    for shape in ((2, 1, 4096), (1, 8, 4096), (3, 37, 1000), (1, 2048, 4096)):
+    def check(what, y, h, yp, hp, dtype):
+        assert y.dtype == dtype and h.dtype == torch.float32, what
+        h_err = float((h - hp).abs().max())
+        dy = (y.float() - yp.float()).abs()
+        y_err = float(dy.max())
+        if dtype == torch.float32:
+            ok = y_err <= 1e-5
+        else:
+            ok = bool((dy <= 2.0 ** -7 * yp.float().abs() + 1e-5).all())
+        if h_err > 1e-5 or not ok:
+            raise AssertionError(f"rglru {what} != plain: y {y_err}, h_T "
+                                 f"{h_err}")
+        return max(h_err, y_err)
+
+    for shape in RGLRU_CASES:
+        shape_routes = set()
         for dtype in (torch.float32, torch.bfloat16):
             for with_h0 in (False, True):
                 args = inputs(shape, dtype, with_h0)
-                y, h = rglru(*args)
-                yp, hp = rglru_ref(*args)
+                what = f"at {shape} {str(dtype)[6:]} h0={with_h0}"
+                want = rg.route(*args[:3])
+                before = {k: fn.launches for k, fn in kernels.items()}
+                y, h = rg.rglru(*args)
                 torch.cuda.synchronize()
-                assert y.dtype == dtype and h.dtype == torch.float32
-                h_err = float((h - hp).abs().max())
-                dy = (y.float() - yp.float()).abs()
-                y_err = float(dy.max())
-                if dtype == torch.float32:
-                    ok = y_err <= 1e-5
-                else:
-                    ok = bool((dy <= 2.0 ** -7 * yp.float().abs()
-                               + 1e-5).all())
-                if h_err > 1e-5 or not ok:
-                    raise AssertionError(
-                        f"rglru != plain at {shape} {dtype} h0={with_h0}: "
-                        f"y {y_err}, h_T {h_err}")
-                max_err = max(max_err, h_err, y_err)
+                moved = {k: fn.launches - before[k]
+                         for k, fn in kernels.items()}
+                assert moved == {k: int(k == want) for k in kernels}, \
+                    (what, want, moved)
+                routed[want] += 1
+                shape_routes.add(want)
+                yp, hp = rglru_ref(*args)
+                outs = {want: (y, h)}
+                other = "rows" if want == "sm90" else "sm90"
+                if other == "rows" or rg.sm90_takes(*args[:3]):
+                    outs[other] = kernels[other](*args)
+                for k, (yk, hk) in outs.items():
+                    err = check(f"{k} {what}", yk, hk, yp, hp, dtype)
+                    max_err[k] = max(max_err[k], err)
+                if len(outs) == 2:
+                    (ya, ha), (yb, hb) = outs["sm90"], outs["rows"]
+                    if not (torch.equal(ya, yb) and torch.equal(ha, hb)):
+                        raise AssertionError(
+                            f"rglru sm90 != rows to the bit {what}: y "
+                            f"{float((ya.float() - yb.float()).abs().max())}"
+                            f", h_T {float((ha - hb).abs().max())}")
                 cases += 1
+        print(f"rglru[{', '.join(sorted(shape_routes))}]: {shape}: within "
+              f"tolerance in float32 and bf16, with and without h0"
+              f"{'; sm90 == rows to the bit' if rg.sm90_takes(*args[:3]) else '; rows only (TMA cannot address D)'}")
 
-    # CUDA events around 10 launches time what a caller pays per call
-    # (at the decode shape mostly the host's launch path); the profiler's
-    # device rows give the kernel's own time per launch
+    # the prefill and decode shapes: the TMA kernel, the rows kernel, the
+    # TMA kernel again and the plain version in turns; CUDA events around
+    # rounds of launches (median of 5) time a call as a caller pays it, the
+    # profiler's device rows each kernel's own time per launch
     timings = {}
-    for shape, with_h0 in (((2, 1, 4096), True), ((1, 2048, 4096), False)):
+    for shape, with_h0 in RGLRU_TIMED:
         args = inputs(shape, torch.bfloat16, with_h0)
-        rounds = sorted(cuda_ms(lambda: rglru(*args), reps=10)
-                        for _ in range(5))
-        plain = sorted(cuda_ms(lambda: rglru_ref(*args), reps=2)
-                       for _ in range(5))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                rglru(*args)
-            torch.cuda.synchronize()
-        dev_rows = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and "rglru_kernel" in e.key]
-        device_ms = (sum(e.self_device_time_total for e in dev_rows) / 1e3
-                     / max(1, sum(e.count for e in dev_rows)))
-        bounds = rglru_bounds(*shape, 2, with_h0)
-        timings[shape] = dict(ms=rounds[2], plain_ms=plain[2],
-                              device_ms=device_ms, **bounds)
-        print(f"rglru: {shape} bf16 h0={with_h0}: median {rounds[2]:.4f} ms "
-              f"(rounds {rounds[0]:.4f}-{rounds[-1]:.4f}), device "
-              f"{device_ms:.4f} ms per launch (profiler), plain median "
-              f"{plain[2]:.4f} ms, bound {bounds['bound_ms']:.6f} ms "
-              f"({bounds['bound_by']}, {bounds['bytes']} B)")
-    print(f"rglru: {cases} cases within tolerance (max abs diff {max_err})")
-    dec = timings[(2, 1, 4096)]
-    return {"max_abs_err": max_err, "ms": dec["ms"],
-            "device_ms": dec["device_ms"],
-            "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-            "bound_by": dec["bound_by"], "shape": [2, 1, 4096], "cases": cases}
+        slow = shape[1] > 1
+        row = {"route": rg.route(*args[:3])}
+        for key, k in (("sm90", "sm90"), ("rows", "rows"),
+                       ("sm90_again", "sm90")):
+            fn = kernels[k]
+            reps = 2 if (k == "rows" and slow) else 10
+            row[f"{key}_call_ms"] = sorted(
+                cuda_ms(lambda: fn(*args), reps=reps) for _ in range(5))[2]
+            row[f"{key}_ms"] = device_ms(fn, args, names[k], reps)
+        row["plain_ms"] = sorted(cuda_ms(lambda: rglru_ref(*args),
+                                         reps=2 if slow else 10)
+                                 for _ in range(3))[1]
+        row.update(rglru_bounds(*shape, 2, with_h0, sm_mhz))
+        timings[shape] = row
+        print(f"rglru: {shape} bf16 h0={with_h0} (route {row['route']}): "
+              f"device ms a launch sm90 {row['sm90_ms']:.4f} (again "
+              f"{row['sm90_again_ms']:.4f}), rows {row['rows_ms']:.4f}; call "
+              f"median sm90 {row['sm90_call_ms']:.4f}, rows "
+              f"{row['rows_call_ms']:.4f}; plain median "
+              f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}: bytes {row['bytes_ms']:.6f}, float ops "
+              f"{row['ops_ms']:.6f}, SFU {row['sfu_ms']:.6f} at {sm_mhz:g} "
+              f"MHz; {row['bytes']} B)")
+
+    # the TMA kernel's geometry: channels a block x input ring depth at the
+    # default warps, then 8 to 32 warps a block at the default C and ring;
+    # each launch held to the rows kernel's output to the bit
+    sweep = {}
+    for shape in ((1, 2048, 4096), (2, 2048, 4096)):
+        args = inputs(shape, torch.bfloat16, False)
+        dims = rg._check_all(*args)
+        yr, hr = rg.rglru_rows(*args)
+        geoms = [rg.tile_geometry(*shape, torch.bfloat16, channels=c,
+                                  stages=s)
+                 for c in (16, 32) for s in (2, 3, 4)]
+        geoms += [rg.tile_geometry(*shape, torch.bfloat16, warps=w)
+                  for w in (8, 12, 16, 20, 24, 28, 32)]
+        row = []
+        for geom in geoms:
+            def call(*_):
+                return rg._launch(rg.SOURCE_SM90, dims, *args, 8.0, geom)
+            y, h = call()
+            assert torch.equal(y, yr) and torch.equal(h, hr), (shape, geom)
+            row.append({"channels": geom.channels, "stages": geom.stages,
+                        "warps": geom.warps,
+                        "blocks": geom.blocks, "smem": geom.smem,
+                        "device_ms": device_ms(call, (), names["sm90"], 10)})
+        sweep[str(list(shape))] = row
+        default = rg.tile_geometry(*shape, torch.bfloat16)
+        print(f"rglru: sm90 sweep {shape} bf16 (C / stages / warps: device "
+              f"ms a launch; default C {default.channels}, {default.stages} "
+              f"stages, {default.warps} warps): "
+              + ", ".join(f"{r['channels']}/{r['stages']}/{r['warps']}"
+                          f": {r['device_ms']:.4f}" for r in row)
+              + "; each equal to the bit to the rows kernel")
+
+    # both kernels over T, for the routing threshold: device time a launch
+    # and call median (CUDA events, 5 rounds of 10)
+    t_sweep = []
+    for b in (1, 2):
+        for t in (1, 2, 4, 8, 12, 16, 24, 32, 64, 128):
+            args = inputs((b, t, 4096), torch.bfloat16, False)
+            row = {"shape": [b, t, 4096], "route": rg.route(*args[:3])}
+            for k, fn in kernels.items():
+                row[f"{k}_ms"] = device_ms(fn, args, names[k], 10)
+                row[f"{k}_call_ms"] = sorted(
+                    cuda_ms(lambda: fn(*args), reps=10) for _ in range(5))[2]
+            t_sweep.append(row)
+        print(f"rglru: T sweep (B {b}, D 4096, bf16; T: sm90 / rows device ms"
+              f" a launch, call medians): " + ", ".join(
+                  f"{r['shape'][1]}: {r['sm90_ms']:.4f} / {r['rows_ms']:.4f}"
+                  f" ({r['sm90_call_ms']:.4f} / {r['rows_call_ms']:.4f})"
+                  for r in t_sweep if r["shape"][0] == b)
+              + f"; route sends T >= {rg.SM90_MIN_T} to sm90")
+    print(f"rglru: {cases} routed cases within tolerance ({routed['sm90']} "
+          f"on the sm90 kernel, {routed['rows']} on the rows kernel; max abs "
+          f"diff sm90 {max_err['sm90']:.3e}, rows {max_err['rows']:.3e})")
+    main = timings[(1, 2048, 4096)]
+    return {"max_abs_err": max(max_err.values()),
+            "max_abs_err_rows": max_err["rows"], "cases": cases,
+            "routed": routed, "ms": main["sm90_ms"],
+            "call_ms": main["sm90_call_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "shape": [1, 2048, 4096],
+            "timings": [{"shape": list(s), **timings[s]}
+                        for s, _ in RGLRU_TIMED],
+            "sweep": sweep, "t_sweep": t_sweep}
 
 
 def slstm_bounds(b: int, t: int, d: int, wx_size: int, r_size: int) -> dict:
@@ -404,8 +558,6 @@ def phase_slstm(dev) -> dict:
     the kernel's sequential sum differed from the plain version's by
     1.29e-5 on c (measured on one H100)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import slstm as sm
     from repro_torch.kernels.ref import slstm_ref
@@ -526,16 +678,6 @@ def phase_slstm(dev) -> dict:
     # kernels in turns (sm90, rows, sm90) on the same inputs: CUDA events
     # around a round of launches, median of the rounds; the profiler's
     # device rows give each kernel's own time per launch
-    def device_ms(fn, args, name, reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn(*args)
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and name in e.key]
-        return (sum(e.self_device_time_total for e in rows) / 1e3
-                / max(1, sum(e.count for e in rows)))
-
     timings = {}
     for shape, random_state in (((2, 1, 768), True), ((1, 512, 768), False),
                                 ((1, 2048, 768), False)):
@@ -794,14 +936,32 @@ def phase_flash(dev) -> dict:
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
+def rglru_expected(model, slots: int, prompt_len: int, prefills: int,
+                   decode_steps: int) -> dict:
+    """The RG-LRU launches a serve run makes on each kernel: one per rec
+    layer for every prefill ([1, prompt, D]) and every decode step ([slots,
+    1, D]), each on the kernel `rglru.route` names for that shape."""
+    import torch
+    from repro_torch.kernels import rglru as rg
+    n_rec = model.kinds.count("rec")
+    d, dtype = model.cfg.d_model, model.cfg.activation_dtype()
+    want = {"sm90": 0, "rows": 0}
+    for shape, calls in (((1, prompt_len, d), prefills),
+                         ((slots, 1, d), decode_steps)):
+        x = torch.empty(shape, dtype=dtype, device="meta")
+        want[rg.route(x)] += n_rec * calls
+    return want
+
+
 def phase_serve(arch: str, dev, profile: bool) -> dict:
     """One model at full width through `serve.main`: repack, resident and
-    warm phases with their counts asserted, then the host twin's tokens."""
+    warm phases with their counts asserted, then the host twin's tokens.
+    Returns the model too, for the float prefill phase."""
     import torch
     from repro_torch.cim import fused_kernel
     from repro_torch.configs import preset_config
+    from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import slstm as sm
-    from repro_torch.kernels.rglru import rglru
     from repro_torch.launch import serve
     from repro_torch.models.model import build, with_cim
 
@@ -815,15 +975,15 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
                   device=dev, seed=args.seed)
     torch.cuda.synchronize()
     times["init_s"] = time.perf_counter() - t
-    n_rec = model.kinds.count("rec")
 
     t = time.perf_counter()
     fused_kernel.fused_planes_op.launches = 0
-    rglru.launches = 0
+    rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
     sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
     out = serve.main(argv, model=model)
     fused_launches = fused_kernel.fused_planes_op.launches
-    rglru_launches = rglru.launches
+    rglru_launches = {"sm90": rg.rglru_sm90.launches,
+                      "rows": rg.rglru_rows.launches}
     assert sm.launches() == 0, (arch, sm.launches())
     times["serve_s"] = time.perf_counter() - t
     reps = out["phases"]
@@ -836,8 +996,10 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
     charged = reps["repack"]["ledger"]["accesses"] \
         + reps["warm"]["ledger"]["accesses"]
     assert fused_launches >= charged > 0, (arch, fused_launches, charged)
-    rglru_want = n_rec * sum(rep["decode_steps"] + rep["requests"]
-                             for rep in reps.values())
+    rglru_want = rglru_expected(
+        model, args.slots, args.prompt_len,
+        sum(rep["requests"] for rep in reps.values()),
+        sum(rep["decode_steps"] for rep in reps.values()))
     assert rglru_launches == rglru_want, (arch, rglru_launches, rglru_want)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     for name, rep in reps.items():
@@ -850,7 +1012,8 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
     print(f"{arch}: {spec['step_accesses']} accesses and "
           f"{spec['step_dispatches']} dispatches every decode step; "
           f"{fused_launches} fused launches for {charged} ledger accesses; "
-          f"{rglru_launches} rglru launches; peak memory {peak_gib:.2f} GiB")
+          f"rglru launches {rglru_launches} (sm90 / rows, each where "
+          f"rglru.route names it); peak memory {peak_gib:.2f} GiB")
 
     t = time.perf_counter()
     twin = model.derive(dataclasses.replace(model.cfg, cim_host_twin=True))
@@ -873,8 +1036,121 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
         phase_profile(m, dev, args.prompt_len + args.gen, args.prompt_len)
         times["profile_s"] = time.perf_counter() - t
     serve.fresh_cim_state()
-    return {"fused_launches": fused_launches, "rglru_launches": rglru_launches,
-            "peak_gib": peak_gib, "times": times}
+    return {"model": model, "fused_launches": fused_launches,
+            "rglru_launches": rglru_launches, "peak_gib": peak_gib,
+            "times": times}
+
+
+def phase_hybrid_prefill(model, dev) -> dict:
+    """The hybrid phase's recurrentgemma-9b model (weights and compute
+    casts reused) through `serve.main` on the float path: 2 requests of a
+    2040-token prompt and 8 tokens each, prompt + gen = the model's
+    2048-token window. Every request completes; the 26 RG-LRU layers launch
+    once per prefill at (1, 2040, 4096), on the TMA kernel, and once per
+    decode step, on the kernel `rglru.route` names; nothing reaches the
+    ledger, the fused kernel or the sLSTM kernels. Then one more prefill
+    under torch.profiler (its RG-LRU device time beside its wall time),
+    and single prefills in turns, the TMA kernel's and, with the routing
+    threshold raised past the prompt, the one-thread-per-channel
+    kernel's: tiles, rows, tiles, rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cim import accounting, fused_kernel
+    from repro_torch.configs import preset_config
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import slstm as sm
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(HYBRID_PREFILL)
+    n_rec = model.kinds.count("rec")
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve.fresh_cim_state()
+    fused_kernel.fused_planes_op.launches = 0
+    rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
+    sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
+    t = time.perf_counter()
+    rep = serve.main(HYBRID_PREFILL, model=model)
+    serve_s = time.perf_counter() - t
+    launches = {"sm90": rg.rglru_sm90.launches,
+                "rows": rg.rglru_rows.launches}
+    other = (fused_kernel.fused_planes_op.launches, sm.launches())
+    led = accounting.ledger()
+    assert rep["completed"] == args.requests, rep["completed"]
+    assert all(len(r["token_ids"]) == args.gen for r in rep["per_request"])
+    want = rglru_expected(model, args.slots, args.prompt_len,
+                          rep["requests"], rep["decode_steps"])
+    assert launches == want, (launches, want)
+    assert launches["sm90"] >= n_rec * args.requests, launches
+    assert other == (0, 0), other
+    assert (led.accesses, led.load_accesses, led.total_accesses) == (0, 0, 0)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    prefill_ms = [r["prefill_ms"] for r in rep["per_request"]]
+    print(f"hybrid-prefill[recurrentgemma-9b float, prompt "
+          f"{args.prompt_len} + gen {args.gen}]: prefill ms {prefill_ms} "
+          f"(mean {rep['prefill_ms_mean']:.2f}), {rep['tok_s_steady']:.4f} "
+          f"tok/s steady, p50 {rep['p50_ms']:.2f} ms, {rep['decode_steps']} "
+          f"decode steps, wall {rep['wall_s']:.2f} s; rglru launches "
+          f"{launches} = {n_rec} x {rep['requests']} prefills on sm90 + "
+          f"{n_rec} x {rep['decode_steps']} decode steps; 0 fused, 0 slstm "
+          f"launches, 0 ledger accesses; peak memory {peak_gib:.2f} GiB")
+
+    fm = model.derive(preset_config(args.arch, args.preset))
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, fm.cfg.vocab_size, (1, args.prompt_len),
+                         generator=gen).to(dev)
+    max_len = args.prompt_len + args.gen
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fm.prefill({"tokens": toks}, max_len=max_len)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(r[2] for r in kernels)
+    rec = [r for r in kernels if "rglru" in r[0]]
+    rglru_ms = sum(r[2] for r in rec)
+    print(f"hybrid-prefill: one profiled prefill of {args.prompt_len} "
+          f"tokens: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms; "
+          f"RG-LRU {rglru_ms:.4f} ms device in "
+          f"{sum(r[1] for r in rec)} launches ({rglru_ms / wall_ms:.5f} of "
+          f"the wall) {[r[0][:60] for r in rec]}")
+    for name, count, ms in sorted(kernels, key=lambda r: -r[2])[:6]:
+        print(f"profile:   {ms:10.3f} ms  x{count:<6d} {name[:90]}")
+
+    def one_prefill() -> float:
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        fm.prefill({"tokens": toks}, max_len=max_len)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t) * 1e3
+
+    turns = {"sm90": [], "rows": []}
+    min_t = rg.SM90_MIN_T
+    try:
+        for kernel in ("sm90", "rows", "sm90", "rows"):
+            rg.SM90_MIN_T = min_t if kernel == "sm90" else args.prompt_len + 1
+            before = rg.launches()
+            rows0 = rg.rglru_rows.launches
+            turns[kernel].append(one_prefill())
+            moved = (rg.launches() - before, rg.rglru_rows.launches - rows0)
+            assert moved == (n_rec, n_rec if kernel == "rows" else 0), moved
+    finally:
+        rg.SM90_MIN_T = min_t
+    gain = (sum(turns["rows"]) - sum(turns["sm90"])) / 2
+    print(f"hybrid-prefill: single prefills in turns, RG-LRU on the TMA "
+          f"kernel {turns['sm90']} ms, on the rows kernel {turns['rows']} "
+          f"ms: {gain:.2f} ms less a prefill on the TMA kernel")
+    return {"launches": launches, "prefill_ms": prefill_ms,
+            "prefill_ms_mean": rep["prefill_ms_mean"],
+            "tok_s_steady": rep["tok_s_steady"], "peak_gib": peak_gib,
+            "profiled_wall_ms": wall_ms, "profiled_busy_ms": busy_ms,
+            "profiled_rglru_ms": rglru_ms, "serve_s": serve_s,
+            "prefill_turns_ms": turns, "prefill_gain_ms": gain}
 
 
 def phase_xlstm(dev, profile: bool) -> dict:
@@ -886,8 +1162,8 @@ def phase_xlstm(dev, profile: bool) -> dict:
     import torch
     from repro_torch.cim import accounting, fused_kernel
     from repro_torch.configs import preset_config
+    from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import slstm as sm
-    from repro_torch.kernels.rglru import rglru
     from repro_torch.launch import serve
     from repro_torch.models.model import build
 
@@ -905,13 +1181,13 @@ def phase_xlstm(dev, profile: bool) -> dict:
     t = time.perf_counter()
     serve.fresh_cim_state()
     fused_kernel.fused_planes_op.launches = 0
-    rglru.launches = 0
+    rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
     sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
     rep = serve.main(XLSTM_SERVE, model=model)
     slstm_launches = sm.launches()
     sm90_launches = sm.slstm_sm90.launches
     fused_launches = fused_kernel.fused_planes_op.launches
-    rglru_launches = rglru.launches
+    rglru_launches = rg.launches()
     times["serve_s"] = time.perf_counter() - t
     led = accounting.ledger()
     assert rep["completed"] == args.requests, rep["completed"]
@@ -1015,8 +1291,8 @@ def phase_train(dev, profile: bool) -> dict:
     from repro_torch.cim import fused_kernel
     from repro_torch.configs import preset_config
     from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels import rglru as rg
     from repro_torch.kernels import slstm as sm
-    from repro_torch.kernels.rglru import rglru
     from repro_torch.launch import train
     from repro_torch.models.model import build
 
@@ -1030,7 +1306,7 @@ def phase_train(dev, profile: bool) -> dict:
     per_step = cfg.n_layers * cfg.microbatches * (2 if cfg.remat else 1)
     model = build(cfg, device=dev, seed=args.seed)
     fused_kernel.fused_planes_op.launches = 0
-    rglru.launches = 0
+    rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
     sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
     fm.flash_attention_sm90.launches = 0
     fm.flash_attention_simt.launches = 0
@@ -1038,7 +1314,7 @@ def phase_train(dev, profile: bool) -> dict:
     flash_launches = fm.launches()
     sm90_launches = fm.flash_attention_sm90.launches
     simt_launches = fm.flash_attention_simt.launches
-    other = (fused_kernel.fused_planes_op.launches, rglru.launches,
+    other = (fused_kernel.fused_planes_op.launches, rg.launches(),
              sm.launches())
     losses = [r["loss"] for r in rep["records"]]
     assert len(losses) == args.steps and rep["restarts"] == 0, rep
@@ -1259,8 +1535,9 @@ def phase_profile(m, dev, max_len: int, position: int) -> None:
            and e.self_device_time_total > 0]
     busy_ms = sum(r[2] for r in kernels)
     custom = [r for r in kernels
-              if any(k in r[0] for k in ("fused_planes_kernel", "rglru_kernel",
-                                         "slstm_kernel", "slstm_grid_kernel"))]
+              if any(k in r[0] for k in (
+                  "fused_planes_kernel", "rglru_kernel", "rglru_tile_kernel",
+                  "slstm_kernel", "slstm_grid_kernel"))]
     print(f"profile[{m.cfg.name}]: decode step wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms (idle share "
           f"{1 - busy_ms / wall_ms:.3f})")
@@ -1296,8 +1573,9 @@ def main() -> int:
     phases = {}
 
     t = time.perf_counter()
-    sources = (fused_kernel.SOURCE, rglru_mod.SOURCE, slstm_mod.SOURCE_SM90,
-               slstm_mod.SOURCE, flash_mod.SOURCE, flash_mod.SOURCE_SM90)
+    sources = (fused_kernel.SOURCE, rglru_mod.SOURCE_SM90, rglru_mod.SOURCE,
+               slstm_mod.SOURCE_SM90, slstm_mod.SOURCE, flash_mod.SOURCE,
+               flash_mod.SOURCE_SM90)
     build_s = kernel_build.compile_all(sources)
     for src in sources:
         kernel_build.load(src)
@@ -1310,12 +1588,15 @@ def main() -> int:
               f"{build_s[src.stem]:.2f} s")
     smi = smi_line()
     print(f"gpu: {smi}")
+    # the first GPU's maximum SM clock, for the RG-LRU's SFU bound
+    sm_mhz = float(smi_line("clocks.max.sm").splitlines()[0].split()[0])
+    print(f"gpu: clocks.max.sm {sm_mhz:g} MHz")
 
     t = time.perf_counter()
     kern = phase_kernel(dev)
     phases["kernel_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    rg = phase_rglru(dev)
+    rg = phase_rglru(dev, sm_mhz)
     phases["rglru_s"] = time.perf_counter() - t
     t = time.perf_counter()
     sl = phase_slstm(dev)
@@ -1331,9 +1612,15 @@ def main() -> int:
         phases[f"{arch}_s"] = time.perf_counter() - t
         for k, v in runs[arch]["times"].items():
             phases[f"{arch}_{k}"] = v
+        model = runs[arch].pop("model")
+        if arch == "recurrentgemma-9b":
+            t = time.perf_counter()
+            pre = phase_hybrid_prefill(model, dev)
+            phases["hybrid_prefill_s"] = time.perf_counter() - t
+        del model
         gc.collect()
         torch.cuda.empty_cache()
-    assert runs["gemma-2b"]["rglru_launches"] == 0
+    assert sum(runs["gemma-2b"]["rglru_launches"].values()) == 0
     t = time.perf_counter()
     xl = phase_xlstm(dev, profile)
     phases["xlstm-125m_s"] = time.perf_counter() - t
@@ -1358,15 +1645,34 @@ def main() -> int:
              "ms": kern["ms"], "plain_ms": kern["plain_ms"],
              "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
              "library_ms": None}
+    # the main path's RG-LRU launches: the hybrid's CiM serve and its float
+    # prefill phase, per kernel
+    rec_launches = {k: runs["recurrentgemma-9b"]["rglru_launches"][k]
+                    + pre["launches"][k] for k in ("sm90", "rows")}
     rec = {"name": "rglru", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/rglru.cu",
+           "source": "src/repro_torch/kernels/csrc/rglru_sm90.cu",
            "replaces": "src/repro/kernels/rglru.py:79",
-           "launches": sum(r["rglru_launches"] for r in runs.values()),
+           "variant": "sm90: C-channel tiles of one batch row per block, "
+                      "TMA ring of x, r, i time tiles, gate warps, one scan "
+                      "warp; T < 8 (decode) and TMA-unaddressable D on the "
+                      "one-thread-per-channel kernel",
+           "rows_source": "src/repro_torch/kernels/csrc/rglru.cu",
+           "launches": sum(rec_launches.values()),
+           "launches_sm90": rec_launches["sm90"],
+           "launches_rows": rec_launches["rows"],
            "max_abs_err": rg["max_abs_err"],
-           "ms": rg["ms"], "plain_ms": rg["plain_ms"],
+           "max_abs_err_rows": rg["max_abs_err_rows"],
+           "ms": rg["ms"], "call_ms": rg["call_ms"],
+           "plain_ms": rg["plain_ms"],
            "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"],
-           "library_ms": None, "device_ms": rg["device_ms"],
-           "shape": rg["shape"]}
+           "library_ms": None, "shape": rg["shape"], "dtype": "bfloat16",
+           "cases": rg["cases"], "routed": rg["routed"],
+           "timings": rg["timings"], "sweep": rg["sweep"],
+           "t_sweep": rg["t_sweep"],
+           "hybrid_prefill": {k: pre[k] for k in (
+               "prefill_ms", "prefill_ms_mean", "tok_s_steady", "peak_gib",
+               "profiled_wall_ms", "profiled_rglru_ms", "prefill_turns_ms",
+               "prefill_gain_ms")}}
     cell = {"name": "slstm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/slstm_sm90.cu",
             "replaces": "src/repro/kernels/slstm.py:97",

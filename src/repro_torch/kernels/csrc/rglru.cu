@@ -25,9 +25,11 @@
 // blocks and no shared memory is needed. Neighbouring threads own
 // neighbouring d, so each time step's loads of x, r, i and the store of y
 // are coalesced. Any T >= 1 and any D are taken (the ragged last block is
-// masked); there are no block_t / block_d divisibility rules. Long prompts
-// run T steps in one thread per channel: a chunked parallel scan over time
-// is later work.
+// masked); there are no block_t / block_d divisibility rules. It keeps
+// decode and T below repro_torch/kernels/rglru.py::SM90_MIN_T, where its
+// few steps cost less than a pipeline start; longer T goes to
+// csrc/rglru_sm90.cu (channel tiles on every SM), which repeats this
+// kernel's arithmetic to the bit.
 //
 // Rounding: each product and sum is rounded on its own (__fmul_rn,
 // __fadd_rn: nvcc never fuses them into an FMA), in the plain version's

@@ -64,7 +64,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def rglru_scan(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
                log_lambda: torch.Tensor, h0: Optional[torch.Tensor] = None,
                c: float = 8.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RG-LRU over [B, T, D]: returns (y in x's dtype, h_T in float32)."""
+    """RG-LRU over [B, T, D]: returns (y in x's dtype, h_T in float32).
+    CPU tensors take `rglru_ref`, CUDA tensors the kernel `rglru.route`
+    picks (one launch)."""
     if x.device.type == "cpu":
         return ref.rglru_ref(x, r, i, log_lambda, h0=h0, c=c)
     return rglru(x, r, i, log_lambda, h0=h0, c=c)
