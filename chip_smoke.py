@@ -50,6 +50,26 @@ Phases, each fatal on failure (nothing is caught):
                version and PyTorch's scaled_dot_product_attention (the
                library yardstick, never on the path) at gemma-2b's train
                shape;
+  2b. banked — gemma-2b's decode contractions at full width (2 slots:
+               the GeGLU MLP, d_model 2048 x 16384, through `mlp_cim`;
+               QK^T and AV of 8x1 heads of 256 over 16 cached positions
+               through `sdpa_cim`) on the paper's array (DEFAULT_SPEC: 4
+               banks of 4 x 1024-word subarrays), cold and warm, against
+               the same calls unbanked: outputs equal to the bit, words32
+               equal, accesses and per-bank activations equal to the
+               plan's closed form (planner steps x spec.plan(n).n_tiles,
+               tiles dealt round-robin), warm dispatches equal, one kernel
+               launch per logical access; the bank report printed; the same
+               MLP under `set_current_spec(DEFAULT_SPEC.disable_bank(1))`
+               with spec=None: bank 1 never charged, output unchanged; one
+               access of 2^28 words (65536 tiles, the 8-token prefill
+               up-projection's size) split over two launches, equal to the
+               unbanked access; multiply, abs, relu, minimum, maximum,
+               popcount, reduce_sum, dot and select at 2^24 words on the
+               banked array against torch's integer ops and their plans;
+               the largest decode access timed unbanked and banked (the
+               kernel alone by CUDA events, in turns; the whole call under
+               the profiler, with the tile/untile glue's share);
   3. gemma   — gemma-2b at full width through the port's serve entry point
                (int8 CiM decode, streamed repack phase, resident phase, warm
                replay), asserting 2214 accesses and 90 dispatches per decode
@@ -92,8 +112,9 @@ Phases, each fatal on failure (nothing is caught):
                4096, float32 (so the SIMT flash kernel): the first batch's
                gradients and 2 train steps on the card and on the CPU from
                the same weights.
-The launch counts of each serve and train path are set to 0 just before
-it and read just after; the kernel checks' own launches are not counted. Earlier lines
+The launch counts of each serve, banked and train path are set to 0 just
+before it and read just after; the kernel checks' and timings' own
+launches are not counted. Earlier lines
 carry the metrics and one JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. `--profile` adds a torch.profiler breakdown of one warm
@@ -187,6 +208,8 @@ HYBRID_PREFILL = ["--arch", "recurrentgemma-9b", "--preset", "full",
 TRAIN = ["--arch", "gemma-2b", "--preset", "full", "--device", "cuda",
          "--steps", "4", "--batch", "2", "--seq", "2048", "--ckpt-every",
          "1000", "--log-every", "1"]
+#: words each of the remaining macros runs on in the banked phase
+BANKED_MACRO_WORDS = 1 << 24
 #: card-vs-CPU logits tolerance of the float32 xlstm-125m agreement: both
 #: compute in float32 and differ only in summation order, which 12 layers
 #: and a 512-step recurrence carry; measured differences are printed
@@ -308,6 +331,289 @@ def phase_kernel(dev) -> dict:
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bounds["bound_ms"], "bound_by": bounds["bound_by"],
             "shape": [n_bits, w, list(ops)], "cases": cases}
+
+
+def bank_closed_form(n_tiles: int, live) -> dict:
+    """Activations per physical bank of one access of `n_tiles` tiles dealt
+    round-robin over the live banks: slot s takes the tiles t % n == s."""
+    n = len(live)
+    return {b: (n_tiles - s + n - 1) // n for s, b in enumerate(live)
+            if (n_tiles - s + n - 1) // n}
+
+
+def phase_banked(dev) -> dict:
+    """gemma-2b's decode contractions at full width on the paper's banked
+    array, against the same calls unbanked: outputs to the bit, ledger
+    counts against the plan's closed form, warm dispatches and kernel
+    launches; a degraded spec installed process-wide; one access over the
+    65535-tile launch limit; the remaining macros at 2^24 words; the
+    largest decode access timed banked and unbanked."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.cim import array, dispatch, engine, fused_kernel, macro
+    from repro_torch.cim import planner
+    from repro_torch.cim.accounting import LEDGER
+    from repro_torch.cim.planepack import PlanePack
+    from repro_torch.configs import preset_config
+    from repro_torch.models import attention, layers
+
+    cfg = preset_config("gemma-2b", "full")
+    spec = array.DEFAULT_SPEC
+    fused = fused_kernel.fused_planes_op
+    gen = torch.Generator(device=dev).manual_seed(0)
+    act = cfg.activation_dtype()
+    p = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gating, act, dev)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen, device=dev).to(act)
+    slots, t_max = 2, 16
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((slots, 1, hq, hd), generator=gen, device=dev).to(act)
+    k = torch.randn((slots, t_max, hkv, hd), generator=gen, device=dev).to(act)
+    v = torch.randn((slots, t_max, hkv, hd), generator=gen, device=dev).to(act)
+    pos = torch.tensor([7, 12], device=dev)
+    mask = (torch.arange(t_max, device=dev)[None, :] <= pos[:, None])[:, None]
+    scale = 1.0 / hd ** 0.5
+
+    def kpad(n):
+        return 1 << planner._log2_ceil(n)
+
+    # (logical steps, words) of every schedule, from the planner alone
+    g = hq // hkv
+    mlp_plans = [(planner.plan_matmul(kk, nn).accesses, slots * kpad(kk) * nn)
+                 for kk, nn in ((cfg.d_model, cfg.d_ff),
+                                (cfg.d_model, cfg.d_ff),
+                                (cfg.d_ff, cfg.d_model))]
+    attn_plans = [(planner.plan_batched_matmul(slots * hkv, kk, nn).accesses,
+                   slots * hkv * g * kpad(kk) * nn)
+                  for kk, nn in ((hd, t_max), (t_max, hd))]
+    out = {"launches": 0, "cases": {}}
+
+    def run(name, fn, plans, banked_spec, live):
+        """fn() twice (cold, warm) with its ledger, dispatches and launches;
+        asserts the closed forms when placed on `banked_spec`."""
+        res = []
+        for _ in range(2):
+            LEDGER.reset()
+            d0 = dispatch.cache_stats()["dispatches"]
+            fused.launches = 0
+            y = fn()
+            torch.cuda.synchronize()
+            res.append({"y": y, "launches": fused.launches,
+                        "dispatches": dispatch.cache_stats()["dispatches"]
+                        - d0, "accesses": LEDGER.accesses,
+                        "words32": LEDGER.words32,
+                        "banks": dict(LEDGER.bank_accesses)})
+        steps = sum(a for a, _ in plans)
+        if banked_spec is not None:
+            want = sum(a * banked_spec.plan(nw).n_tiles for a, nw in plans)
+            want_banks: dict = {}
+            for a, nw in plans:
+                tiles = banked_spec.plan(nw).n_tiles
+                for b, c in bank_closed_form(tiles, live).items():
+                    want_banks[(0, b)] = want_banks.get((0, b), 0) + a * c
+            for r in res:
+                assert r["accesses"] == want, (name, r["accesses"], want)
+                assert r["banks"] == want_banks, (name, r["banks"])
+            # one launch per logical access below the launch's tile limit
+            want_launches = sum(
+                a * -(-banked_spec.plan(nw).n_tiles
+                      // fused_kernel.MAX_TILES_PER_LAUNCH) for a, nw in plans)
+        else:
+            want = want_launches = steps
+            for r in res:
+                assert r["accesses"] == want and \
+                    r["banks"] == {(0, 0): want}, (name, r)
+        for r in res:
+            assert r["launches"] == want_launches, (name, r["launches"])
+        assert torch.equal(res[0]["y"], res[1]["y"]), name
+        return res
+
+    t = time.perf_counter()
+    flat_mlp = run("mlp unbanked", lambda: layers.mlp_cim(
+        p, x, cfg.gating), mlp_plans, None, None)
+    bank_mlp = run("mlp banked", lambda: layers.mlp_cim(
+        p, x, cfg.gating, spec=spec), mlp_plans, spec, spec.enabled_banks)
+    flat_att = run("sdpa unbanked", lambda: attention.sdpa_cim(
+        q, k, v, mask, scale, n_bits=8), attn_plans, None, None)
+    bank_att = run("sdpa banked", lambda: attention.sdpa_cim(
+        q, k, v, mask, scale, n_bits=8, spec=spec), attn_plans, spec,
+        spec.enabled_banks)
+    for flat, bank, name in ((flat_mlp, bank_mlp, "mlp"),
+                             (flat_att, bank_att, "sdpa")):
+        assert torch.equal(bank[0]["y"], flat[0]["y"]), name
+        assert torch.isfinite(bank[0]["y"].float()).all(), name
+        assert bank[0]["words32"] == flat[0]["words32"], name
+        assert bank[1]["dispatches"] == flat[1]["dispatches"], name
+        out["launches"] += bank[0]["launches"] + bank[1]["launches"]
+        out["cases"][name] = {
+            "accesses": bank[0]["accesses"], "launches": bank[0]["launches"],
+            "warm_dispatches": bank[1]["dispatches"],
+            "unbanked_accesses": flat[0]["accesses"]}
+        print(f"banked[{name}]: output equal to the unbanked call's; "
+              f"{bank[0]['accesses']} accesses (unbanked "
+              f"{flat[0]['accesses']}), per bank "
+              f"{sorted(bank[0]['banks'].items())}, words32 "
+              f"{bank[0]['words32']}, {bank[0]['launches']} launches, warm "
+              f"dispatches {bank[1]['dispatches']}")
+    LEDGER.reset()
+    layers.mlp_cim(p, x, cfg.gating, spec=spec)
+    print(f"banked[mlp]: bank_report {json.dumps(LEDGER.bank_report(spec))}")
+    out["mlp_s"] = time.perf_counter() - t
+
+    # a degraded array installed process-wide: spec=None follows it
+    dead = spec.disable_bank(1)
+    array.set_current_spec(dead)
+    try:
+        deg = run("mlp degraded", lambda: layers.mlp_cim(p, x, cfg.gating),
+                  mlp_plans, dead, dead.enabled_banks)
+    finally:
+        array.set_current_spec(None)
+    assert all(b != 1 for _d, b in deg[0]["banks"]), deg[0]["banks"]
+    assert torch.equal(deg[0]["y"], flat_mlp[0]["y"])
+    out["launches"] += deg[0]["launches"] + deg[1]["launches"]
+    print(f"banked[degraded, bank 1 dead]: output unchanged; per bank "
+          f"{sorted(deg[0]['banks'].items())}")
+
+    # one access over the launch's tile limit: the 8-token prefill
+    # up-projection's size, 8 x 2048 x 16384 = 2^28 words, 65536 tiles
+    n_words = 8 * cfg.d_model * cfg.d_ff
+    big = [PlanePack(planes=torch.randint(
+        -2 ** 31, 2 ** 31, (16, n_words // 32), dtype=torch.int32,
+        device=dev, generator=gen), n_bits=16, signed=True,
+        shape=(n_words,)) for _ in range(2)]
+    tiles = spec.plan(n_words).n_tiles
+    assert tiles > fused_kernel.MAX_TILES_PER_LAUNCH, tiles
+    want = engine.execute(big[0], big[1], ("add", "lt"))
+    fused.launches = 0
+    LEDGER.reset()
+    got = dispatch.execute_tiled(big[0], big[1], ("add", "lt"), spec=spec)
+    torch.cuda.synchronize()
+    split = fused.launches
+    assert split == -(-tiles // fused_kernel.MAX_TILES_PER_LAUNCH), split
+    assert LEDGER.accesses == tiles
+    for op in ("add", "lt"):
+        assert torch.equal(got[op].planes, want[op].planes), op
+    out["launches"] += split
+    out["cap"] = {"words": n_words, "tiles": tiles, "launches": split}
+    print(f"banked[cap]: {n_words} words, {tiles} tiles in {split} launches, "
+          f"equal to the unbanked access")
+    del big, want, got
+
+    # the remaining macros at 2^24 words on the banked spec
+    n = BANKED_MACRO_WORDS
+    xi = torch.randint(-128, 128, (n,), dtype=torch.int32, device=dev,
+                       generator=gen)
+    yi = torch.randint(-128, 128, (n,), dtype=torch.int32, device=dev,
+                       generator=gen)
+    si = torch.randint(-8, 8, (n,), dtype=torch.int32, device=dev,
+                       generator=gen)
+    px, py = PlanePack.pack(xi, 8), PlanePack.pack(yi, 8)
+    bits = sum(((xi >> i) & 1) for i in range(8))
+    pred = engine.execute(px, py, ("lt",))["lt"]
+    cases = [
+        ("multiply", lambda: macro.multiply(px, py, spec=spec).unpack(),
+         xi * yi, planner.plan_multiply(8, 8), n),
+        ("abs_", lambda: macro.abs_(px, spec=spec).unpack(), xi.abs(),
+         planner.plan_abs(8), n),
+        ("relu", lambda: macro.relu(px, spec=spec).unpack(),
+         xi.clamp(min=0), planner.plan_relu(8), n),
+        ("minimum", lambda: macro.minimum(px, py, spec=spec).unpack(),
+         torch.minimum(xi, yi), planner.plan_minimum(8), n),
+        ("maximum", lambda: macro.maximum(px, py, spec=spec).unpack(),
+         torch.maximum(xi, yi), planner.plan_maximum(8), n),
+        ("popcount", lambda: macro.popcount(px, spec=spec).unpack(), bits,
+         planner.plan_popcount(8), n),
+        ("reduce_sum", lambda: macro.reduce_sum(px, spec=spec).unpack(),
+         xi.sum(), planner.plan_reduce_sum(n, n_bits=8), n),
+        ("dot", lambda: macro.dot(si, si.flip(0), spec=spec),
+         (si.long() * si.flip(0).long()).sum(), planner.plan_dot(n), n),
+        ("select", lambda: macro.select(pred, px, py).unpack(),
+         torch.where(xi < yi, xi, yi), None, n),
+    ]
+    for name, fn, want_v, plan, nw in cases:
+        LEDGER.reset()
+        fused.launches = 0
+        got_v = fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got_v.long(), want_v.long()), name
+        want_acc = 0 if plan is None else plan.placed(spec, nw).placed_accesses
+        assert LEDGER.accesses == want_acc, (name, LEDGER.accesses, want_acc)
+        out["launches"] += fused.launches
+        out["cases"][name] = {"accesses": LEDGER.accesses,
+                              "launches": fused.launches}
+    print("banked[macros, 2^24 words]: " + ", ".join(
+        f"{c[0]} {out['cases'][c[0]]['accesses']}" for c in cases)
+        + " accesses, each equal to torch's integer op and to its plan")
+    del px, py, xi, yi, si, bits, pred
+
+    # the largest decode access, [2, 16384, 2048] words at 29 planes
+    n_bits, w, ops = 29, (2 * cfg.d_ff * cfg.d_model) // 32, ("add",)
+    pa, pb = (PlanePack(planes=torch.randint(
+        -2 ** 31, 2 ** 31, (n_bits, w), dtype=torch.int32, device=dev,
+        generator=gen), n_bits=n_bits, signed=True, shape=(32 * w,))
+        for _ in range(2))
+    plan = spec.plan(32 * w)
+    ta, tb = dispatch._tile(pa.planes, plan), dispatch._tile(pb.planes, plan)
+    lanes = plan.lanes_per_tile
+
+    def median_ms(fn):
+        return sorted(cuda_ms(fn, reps=10) for _ in range(5))[2]
+
+    times = {}                  # in turns: unbanked, banked, banked, unbanked
+    for name, fn in (("unbanked", lambda: fused(pa.planes, pb.planes, ops)),
+                     ("banked", lambda: fused(ta, tb, ops)),
+                     ("banked_again", lambda: fused(ta, tb, ops)),
+                     ("unbanked_again",
+                      lambda: fused(pa.planes, pb.planes, ops))):
+        times[name] = median_ms(fn)
+    assert torch.equal(dispatch._untile(fused(ta, tb, ops)[0], w),
+                       fused(pa.planes, pb.planes, ops)[0])
+
+    def profiled(fn):
+        """Per-call device ms (median of 5 profiled calls): the fused
+        kernel and everything the call ran on the device."""
+        kern, busy = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            rows = [(e.key, e.self_device_time_total / 1e3)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            kern.append(sum(ms for key, ms in rows
+                            if "fused_planes_kernel" in key))
+            busy.append(sum(ms for _, ms in rows))
+        return statistics.median(kern), statistics.median(busy)
+
+    flat_k, flat_b = profiled(lambda: engine.execute(pa, pb, ops))
+    bank_k, bank_b = profiled(lambda: dispatch.execute_tiled(pa, pb, ops,
+                                                             spec=spec))
+    bounds = kernel_bounds(n_bits, w, ops)
+    out["timing"] = {"shape": [n_bits, w, list(ops)], "tiles": plan.n_tiles,
+                     "lanes_per_tile": lanes, "events_ms": times,
+                     "profiled_unbanked_kernel_ms": flat_k,
+                     "profiled_unbanked_busy_ms": flat_b,
+                     "profiled_banked_kernel_ms": bank_k,
+                     "profiled_banked_busy_ms": bank_b,
+                     "banked_glue_share": 1 - bank_k / bank_b,
+                     "bound_ms": bounds["bound_ms"]}
+    print(f"banked[time]: largest decode access ({n_bits} planes, {32 * w} "
+          f"words, {plan.n_tiles} tiles of {lanes} lanes), kernel median "
+          f"ms: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f"; bound {bounds['bound_ms']:.4f}")
+    print(f"banked[time]: profiled call, device ms (median of 5): unbanked "
+          f"kernel {flat_k:.4f} of {flat_b:.4f} busy; banked kernel "
+          f"{bank_k:.4f} of {bank_b:.4f} busy, tile/untile glue share "
+          f"{1 - bank_k / bank_b:.3f}")
+    del pa, pb, ta, tb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def rglru_bounds(b: int, t: int, d: int, itemsize: int, h0: bool,
@@ -1596,6 +1902,9 @@ def main() -> int:
     kern = phase_kernel(dev)
     phases["kernel_s"] = time.perf_counter() - t
     t = time.perf_counter()
+    banked = phase_banked(dev)
+    phases["banked_s"] = time.perf_counter() - t
+    t = time.perf_counter()
     rg = phase_rglru(dev, sm_mhz)
     phases["rglru_s"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -1640,11 +1949,14 @@ def main() -> int:
     fused = {"name": "fused_planes", "route": "cuda",
              "source": "src/repro_torch/cim/csrc/fused_planes.cu",
              "replaces": "src/repro/cim/fused_kernel.py:137",
-             "launches": sum(r["fused_launches"] for r in runs.values()),
+             "launches": sum(r["fused_launches"] for r in runs.values())
+             + banked["launches"],
+             "launches_banked": banked["launches"],
              "max_abs_err": kern["max_abs_err"],
              "ms": kern["ms"], "plain_ms": kern["plain_ms"],
              "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-             "library_ms": None}
+             "library_ms": None, "banked": {k: banked[k] for k in (
+                 "timing", "cap", "cases", "mlp_s")}}
     # the main path's RG-LRU launches: the hybrid's CiM serve and its float
     # prefill phase, per kernel
     rec_launches = {k: runs["recurrentgemma-9b"]["rglru_launches"][k]

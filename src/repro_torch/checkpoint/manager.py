@@ -8,7 +8,7 @@ Port of `repro.checkpoint.manager` with the reference's on-disk layout:
       host_0.npz             the state's leaves by path ("params::layers::0::...")
   <dir>/LATEST               committed step pointer (written last => atomic)
 
-One process, one card: there is no mesh to reshard across (ROADMAP A15).
+One process, one card: there is no mesh to reshard across (ROADMAP A12).
 The async save copies every tensor to host numpy on the caller's thread
 (the reference's `device_get` in `_flatten`) before the writer thread
 starts, so training may update the tensors in place while it writes.

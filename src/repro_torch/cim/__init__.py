@@ -5,12 +5,22 @@
   fused_kernel — the fused single-pass kernel (CUDA, sm_90a) and its plain
                  PyTorch version
   backends     — registry: fused / torch-boolean
-  engine       — execute / execute_traced + the traffic model
-  accounting   — the access ledger and its energy projection
-  array        — ArraySpec, TilePlan, ResidentSet (pinned operands)
-  dispatch     — the bounded program cache and dispatch counters
-  planner      — access Schedules for multiply, reduce, matmul
-  macro        — schedule executors: matmul / batched matmul, resident rhs
+  engine       — execute / execute_unfused, the integer-level add, sub,
+                 compare and boolean wrappers, the traffic model
+  accounting   — the access ledger: per-(device, bank) activations,
+                 inter-bank reduction words, the contention-adjusted bank
+                 report and the energy projection
+  array        — ArraySpec (banks x subarrays x rows x bitline words, dead
+                 banks), TilePlan placement, ResidentSet (pinned operands),
+                 the process-wide spec override
+  dispatch     — the tiling dispatcher (`execute_tiled`), the bounded
+                 program cache and dispatch counters
+  planner      — access Schedules for every macro, region concatenation,
+                 the schedule traffic model
+  macro        — schedule executors: multiply, abs/relu/min/max, popcount,
+                 reduce_sum, dot/matmul/batched matmul (resident rhs too),
+                 each one dispatch, unbanked or placed on a banked spec;
+                 ChainExecutor for fused regions
 """
 from . import (  # noqa: F401
     accounting,
@@ -30,8 +40,75 @@ from .array import (  # noqa: F401
     ResidentSet,
     TilePlan,
     clear_resident,
+    current_spec,
     resident_set,
     resident_stats,
+    set_current_spec,
 )
-from .dispatch import cache_stats, clear_schedule_cache  # noqa: F401
-from .planepack import PlanePack  # noqa: F401
+from .backends import (  # noqa: F401
+    available_backends,
+    default_backend_name,
+    get_backend,
+    register_backend,
+)
+from .dispatch import (  # noqa: F401
+    BoundedLRU,
+    cache_stats,
+    clear_schedule_cache,
+    execute_tiled,
+    set_schedule_cache_capacity,
+)
+from .engine import (  # noqa: F401
+    CmpOut,
+    add,
+    boolean,
+    compare,
+    execute,
+    execute_unfused,
+    measured_traffic_bytes,
+    sub,
+    traffic_model_bytes,
+)
+from .fused_kernel import fused_planes_op  # noqa: F401
+from .macro import (  # noqa: F401
+    ChainExecutor,
+    CompiledSchedule,
+    ScheduleCursor,
+    abs_,
+    dot,
+    matmul,
+    matmul_rhs_pack,
+    maximum,
+    minimum,
+    multiply,
+    popcount,
+    reduce_sum,
+    relu,
+    run_schedule_program,
+    select,
+)
+from .opset import (  # noqa: F401
+    ALL_OPS,
+    ARITH_OPS,
+    BOOLEAN_OPS,
+    PREDICATE_OPS,
+    CimOpError,
+)
+from .planepack import PlanePack, mask_to_ints  # noqa: F401
+from .planner import (  # noqa: F401
+    Schedule,
+    Step,
+    concat_schedules,
+    plan_abs,
+    plan_dot,
+    plan_elementwise,
+    plan_matmul,
+    plan_maximum,
+    plan_minimum,
+    plan_multiply,
+    plan_neg,
+    plan_popcount,
+    plan_reduce_sum,
+    plan_relu,
+    schedule_traffic_bytes,
+)

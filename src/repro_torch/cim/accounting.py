@@ -4,11 +4,14 @@ repro_torch.core.energy.
 Port of `repro.cim.accounting` (pure Python, no tensors): every engine
 execution charges a ledger with the ADRA memory accesses and 32-bit-word
 operations it represents, and the ledger projects array-level
-energy/latency/EDP through the calibrated paper model (the banked
-activation and reduction charges wait for the tiled dispatcher). The fused
-engine
+energy/latency/EDP through the calibrated paper model. The fused engine
 charges ONE access per op-set; streamed operands charge their row-write
-loads, resident operands a zero-load reuse. Schedules executed through
+loads, resident operands a zero-load reuse. On a banked array
+`charge_banked` attributes one activation per tile to its (device, bank)
+slot and counts the last tile's idle columns as activated words,
+`charge_reduction` counts the words a cross-tile reduction step moves
+between banks, and `bank_report` turns both into a contention-adjusted EDP
+projection. Schedules executed through
 `repro_torch.cim.macro.run_schedule_program` record their charges once, as a
 `PlannedCharges` object, and replay it on every invocation. The fault and
 ECC fields exist so ledgers compare field for field with the reference's;
@@ -20,6 +23,11 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 from repro_torch.core import energy
+
+#: modeled interconnect cost of moving one 32-bit word between banks during
+#: a cross-tile reduction step (fractions of one standard 1024-row read)
+E_HOP_WORD32 = 0.05
+T_HOP_WORD32 = 0.01
 
 
 @dataclasses.dataclass
@@ -91,6 +99,28 @@ class Ledger:
         for op in ops:
             self.per_op[op] = self.per_op.get(op, 0) + 1
 
+    def charge_banked(self, ops: Tuple[str, ...], n_bits: int, n_words: int,
+                      plan, n_devices: int = 1) -> None:
+        """One logical op executed as `plan.n_tiles` bank activations: the
+        word-work is charged once, the activations land on their (device,
+        bank) slots and the last tile's idle columns count as activated."""
+        if not self.enabled:
+            return
+        self.accesses += plan.n_tiles
+        self.words32 += n_words * n_bits / 32.0
+        self.activated_words32 += \
+            plan.n_tiles * plan.tile_words * n_bits / 32.0
+        for slot, n in plan.bank_counts(n_devices).items():
+            self.bank_accesses[slot] = self.bank_accesses.get(slot, 0) + n
+        for op in ops:
+            self.per_op[op] = self.per_op.get(op, 0) + 1
+
+    def charge_reduction(self, words32: float) -> None:
+        """Inter-bank traffic of a cross-tile reduction step."""
+        if not self.enabled:
+            return
+        self.inter_bank_words32 += words32
+
     def charge_load(self, n_bits: int, n_words: int,
                     n_tiles: int = 1) -> None:
         """Row-writes driving one STREAMED operand entry pack into the
@@ -123,9 +153,58 @@ class Ledger:
             else:
                 setattr(self, f.name, f.default_factory())
 
+    def per_device(self) -> Dict[int, int]:
+        """Activations per device (sum of that device's bank slots)."""
+        out: Dict[int, int] = {}
+        for (dev, _bank), n in self.bank_accesses.items():
+            out[dev] = out.get(dev, 0) + n
+        return out
+
     def projected(self, scheme: str = "current", rows: int = 1024) -> Dict[str, float]:
         """Array-level projection of the charged work through the paper model."""
         return project_savings(self.words32, scheme=scheme, rows=rows)
+
+    def bank_report(self, spec, scheme: str = "current",
+                    rows: int = 1024) -> Dict[str, float]:
+        """Contention-adjusted EDP projection of the charged bank traffic.
+
+        Energy follows ACTIVATED words (idle columns of a partial tile burn
+        bitline energy too) plus E_HOP_WORD32 per inter-bank word; latency
+        follows the busiest slot's wave count (banks run concurrently,
+        waves serialize) plus the hops spread over the slots. The baseline
+        is the same word-work through the two-access near-memory path."""
+        res = _SCHEMES[scheme](rows)
+        total = sum(self.bank_accesses.values()) or 1
+        waves = max(self.bank_accesses.values(), default=1)
+        devices = 1 + max((d for d, _ in self.bank_accesses), default=0)
+        slots = spec.banks * devices
+        ideal_waves = -(-total // slots)
+
+        e_cim = res.cim.energy * self.activated_words32 \
+            + E_HOP_WORD32 * self.inter_bank_words32
+        t_cim = res.cim.latency * waves \
+            + T_HOP_WORD32 * self.inter_bank_words32 / max(1, slots)
+        e_base = res.baseline.energy * self.activated_words32
+        t_base = res.baseline.latency * waves
+        base_edp = e_base * t_base
+        return {
+            "banks": float(spec.banks),
+            "devices": float(devices),
+            "activations": float(total),
+            "waves": float(waves),
+            "ideal_waves": float(ideal_waves),
+            "contention_factor": waves / max(1, ideal_waves),
+            "utilization": self.words32 / max(1e-12, self.activated_words32),
+            "words_per_access": self.activated_words32 / total,
+            "inter_bank_words32": self.inter_bank_words32,
+            "cim_energy": e_cim,
+            "cim_latency": t_cim,
+            "cim_edp": e_cim * t_cim,
+            "baseline_edp": base_edp,
+            # 0.0 on an empty ledger (no charged work, no saving)
+            "edp_decrease_pct": (100.0 * (1.0 - (e_cim * t_cim) / base_edp)
+                                 if base_edp else 0.0),
+        }
 
 
 #: process-wide ledger the engine charges into
@@ -137,10 +216,12 @@ class PlannedCharges:
     """The ledger record of ONE schedule execution, computed from the plan.
 
     While a schedule program first runs, each planned access appends one
-    entry — ("access", ops, n_bits, n_words), ("load", n_bits, n_words,
-    n_tiles) for a streamed operand's row-writes, ("resident", n_bits,
-    n_words) for a resident-operand reuse — and `replay()` applies the
-    whole record to the ledger on every invocation. Because the
+    entry — ("access", ops, n_bits, n_words) for the unbanked engine,
+    ("banked", ops, n_bits, n_words, plan, n_devices) for the tiling
+    dispatcher, ("reduction", words32) for inter-bank reduction traffic,
+    ("load", n_bits, n_words, n_tiles) for a streamed operand's row-writes,
+    ("resident", n_bits, n_words) for a resident-operand reuse — and
+    `replay()` applies the whole record to the ledger on every invocation. Because the
     ScheduleCursor refuses any access its plan does not contain, the record
     matches both the plan and the execution: accesses == schedule.accesses.
     """
@@ -150,7 +231,7 @@ class PlannedCharges:
     @property
     def accesses(self) -> int:
         """Array accesses one replay charges (logical, not per-tile)."""
-        return sum(1 for e in self.entries if e[0] == "access")
+        return sum(1 for e in self.entries if e[0] in ("access", "banked"))
 
     def replay(self, ledger: Optional["Ledger"] = None) -> None:
         led = LEDGER if ledger is None else ledger
@@ -159,6 +240,12 @@ class PlannedCharges:
             if kind == "access":
                 _, ops, n_bits, n_words = entry
                 led.charge(ops, n_bits, n_words)
+            elif kind == "banked":
+                _, ops, n_bits, n_words, plan, n_devices = entry
+                led.charge_banked(ops, n_bits, n_words, plan,
+                                  n_devices=n_devices)
+            elif kind == "reduction":
+                led.charge_reduction(entry[1])
             elif kind == "load":
                 _, n_bits, n_words, n_tiles = entry
                 led.charge_load(n_bits, n_words, n_tiles=n_tiles)

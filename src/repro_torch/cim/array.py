@@ -1,21 +1,32 @@
 """Banked CiM array substrate: physical geometry, tile placement, residency.
 
 Port of `repro.cim.array` without the fault layer (ECC-protected pins,
-disabled banks and failover wait). An `ArraySpec` describes the physical
-array — banks of subarrays of rows x bitline words — and its `plan()` turns
-an operand word count into a `TilePlan`. A `ResidentSet` tracks plane
-stacks pinned in bank rows across calls (the paper's stored-operand
-assumption): every pin charges the ledger its operand-load accesses once,
-every reuse charges none, pins are LRU-evicted under row pressure, and
-`reserve()` row claims (paged KV blocks) are never evicted. Counters
-aggregate process-wide into `dispatch.cache_stats()`.
+`scrub` and `_verify`). An `ArraySpec` describes the physical array — banks
+of subarrays of rows x bitline words, with whole banks optionally taken out
+of service — and its `plan()` turns an operand word count into a
+`TilePlan`: which words go to which bank activation, round-robin over the
+live banks. The tiling dispatcher (`repro_torch.cim.dispatch`) executes
+that plan and the ledger charges it per (device, bank).
+
+A `ResidentSet` tracks plane stacks pinned in bank rows across calls (the
+paper's stored-operand assumption): every pin charges the ledger its
+operand-load accesses once, every reuse charges none, pins are LRU-evicted
+under row pressure, and `reserve()` row claims (paged KV blocks) are never
+evicted. Rows the registry set of a geometry holds shrink what
+`check_fits` allows a streamed access there. Counters aggregate
+process-wide into `dispatch.cache_stats()`.
+
+`set_current_spec` installs a process-wide spec (the failover lever): call
+sites whose `spec=None` means "the current geometry" resolve through
+`current_spec()`, and the layers whose `spec=None` means unbanked consult
+`spec_override()`.
 """
 from __future__ import annotations
 
 import dataclasses
 import weakref
 from collections import OrderedDict
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 from . import opset
 
@@ -26,15 +37,21 @@ class ArraySpec:
 
     banks          : independently activatable banks (concurrent).
     subarrays      : subarrays per bank, activated together per access.
-    rows           : wordlines per subarray — bounds the plane budget.
+    rows           : wordlines per subarray — bounds the plane budget of one
+                     access (two operand stacks + every requested output).
     bitline_words  : words served per subarray activation; a multiple of 32
                      so tiles align with the packed lanes of PlanePack.
+    disabled_banks : banks taken out of service. Placement round-robins over
+                     the enabled banks only; the default () keeps a healthy
+                     spec equal (and equally hashed) to one built without
+                     it, so every spec-keyed cache separates the two.
     """
 
     banks: int = 4
     subarrays: int = 4
     rows: int = 1024
     bitline_words: int = 1024
+    disabled_banks: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if self.banks < 1 or self.subarrays < 1 or self.rows < 1:
@@ -43,52 +60,125 @@ class ArraySpec:
             raise opset.CimOpError(
                 f"bitline_words must be a positive multiple of 32 (packed "
                 f"lanes), got {self.bitline_words}")
+        dead = tuple(sorted(set(int(b) for b in self.disabled_banks)))
+        if any(b < 0 or b >= self.banks for b in dead):
+            raise opset.CimOpError(
+                f"disabled_banks {dead} outside [0, {self.banks})")
+        if len(dead) >= self.banks:
+            raise opset.CimOpError(
+                f"every bank of {self} disabled: nothing left to remap to")
+        object.__setattr__(self, "disabled_banks", dead)
+
+    @property
+    def enabled_banks(self) -> Tuple[int, ...]:
+        """Live bank ids, in order — what placement round-robins over."""
+        dead = set(self.disabled_banks)
+        return tuple(b for b in range(self.banks) if b not in dead)
+
+    @property
+    def n_enabled(self) -> int:
+        return self.banks - len(self.disabled_banks)
+
+    def disable_bank(self, bank: int) -> "ArraySpec":
+        """The degraded spec with `bank` also dead (raises when that would
+        leave no live bank)."""
+        return dataclasses.replace(
+            self, disabled_banks=self.disabled_banks + (int(bank),))
 
     @property
     def tile_words(self) -> int:
         """Words one bank activation serves = the tiling granule."""
         return self.subarrays * self.bitline_words
 
+    @property
+    def parallel_words(self) -> int:
+        """Words the whole array serves per wave (every live bank active)."""
+        return self.n_enabled * self.tile_words
+
+    def check_fits(self, n_bits: int, ops: Sequence[str],
+                   resident_rows: int = 0) -> None:
+        """One access must fit its planes in the rows of a subarray: 2
+        operand stacks of n_bits plus every requested output, beside the
+        rows the resident region holds there."""
+        need = 2 * n_bits + sum(opset.out_rows(op, n_bits) for op in ops)
+        if need + resident_rows > self.rows:
+            occupancy = (f" with {resident_rows} rows held by resident "
+                         f"operands" if resident_rows else "")
+            raise opset.CimOpError(
+                f"access needs {need} rows (2x{n_bits} operand planes + "
+                f"outputs {tuple(ops)}){occupancy} but subarrays have "
+                f"{self.rows}")
+
     def plan(self, n_words: int) -> "TilePlan":
         if n_words < 1:
             raise opset.CimOpError(f"cannot place {n_words} words")
         n_tiles = -(-n_words // self.tile_words)
         return TilePlan(n_words=n_words, tile_words=self.tile_words,
-                        n_tiles=n_tiles, banks=self.banks)
+                        n_tiles=n_tiles, banks=self.banks,
+                        enabled=(self.enabled_banks
+                                 if self.disabled_banks else ()))
 
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
     """Placement of an operand pair onto a banked array: tile t covers words
-    [t * tile_words, (t+1) * tile_words) and runs on bank t % banks during
-    wave t // banks."""
+    [t * tile_words, (t+1) * tile_words) and runs on the t-th live bank in
+    round-robin order during wave t // n_live. `enabled` names the live
+    banks of a degraded array; the default () means all `banks` are live,
+    so healthy plans compare and hash as they did before banks could fail."""
 
     n_words: int
     tile_words: int
     n_tiles: int
     banks: int
+    enabled: Tuple[int, ...] = ()
+
+    @property
+    def live_banks(self) -> Tuple[int, ...]:
+        return self.enabled if self.enabled else tuple(range(self.banks))
+
+    @property
+    def n_live(self) -> int:
+        return len(self.enabled) if self.enabled else self.banks
+
+    @property
+    def lanes_per_tile(self) -> int:
+        return self.tile_words // 32
 
     @property
     def waves(self) -> int:
-        return -(-self.n_tiles // self.banks)
+        """Sequential activations on the busiest bank (the critical path)."""
+        return -(-self.n_tiles // self.n_live)
+
+    @property
+    def pad_words(self) -> int:
+        """Idle bitline columns of the last tile (activated, operand-less)."""
+        return self.n_tiles * self.tile_words - self.n_words
+
+    def bank_of(self, tile: int) -> int:
+        """Physical bank of tile `tile` — never a disabled bank."""
+        live = self.live_banks
+        return live[tile % len(live)]
 
     def bank_counts(self, n_devices: int = 1) -> Dict[Tuple[int, int], int]:
         """Activations per (device, bank), closed form: device d owns a
-        contiguous tile block and bank s every tile == s mod banks in it."""
-        banks = self.banks
+        contiguous tile block and live bank slot s every tile == s mod
+        n_live in it. Keys are physical bank ids; dead banks never appear."""
+        live = self.live_banks
+        n_live = len(live)
 
         def upto(x: int, s: int) -> int:
-            return (x - s + banks - 1) // banks
+            return (x - s + n_live - 1) // n_live
 
         per_dev = -(-self.n_tiles // n_devices)
         counts: Dict[Tuple[int, int], int] = {}
         for d in range(n_devices):
             lo = min(d * per_dev, self.n_tiles)
             hi = min(lo + per_dev, self.n_tiles)
-            for s in range(banks):
+            for s, b in enumerate(live):
                 n = upto(hi, s) - upto(lo, s)
                 if n:
-                    counts[(d, s)] = n
+                    counts[(d, b)] = n
         return counts
 
 
@@ -160,6 +250,13 @@ class ResidentSet:
                    for b, r in rows_by_bank.items())
 
     # -- lifecycle ----------------------------------------------------------
+    def peek(self, key: Tuple,
+             fingerprint: Optional[Tuple] = None) -> bool:
+        """Presence and fingerprint test without counters or LRU movement."""
+        entry = self._entries.get(key)
+        return entry is not None and (
+            fingerprint is None or entry.fingerprint == tuple(fingerprint))
+
     def get(self, key: Tuple,
             fingerprint: Optional[Tuple] = None) -> Optional[ResidentEntry]:
         entry = self._entries.get(key)
@@ -270,6 +367,31 @@ _reset_stats()
 #: process-wide resident set per geometry (shared by weight pins and KV pages)
 _RESIDENT_SETS: Dict[ArraySpec, ResidentSet] = {}
 
+#: process-wide spec override: the failover lever (see `set_current_spec`)
+_CURRENT_SPEC: Optional[ArraySpec] = None
+
+
+def set_current_spec(spec: Optional[ArraySpec]) -> Optional[ArraySpec]:
+    """Install the process-wide spec override (None restores DEFAULT_SPEC
+    resolution); returns the previous override."""
+    global _CURRENT_SPEC
+    prev = _CURRENT_SPEC
+    _CURRENT_SPEC = spec
+    return prev
+
+
+def current_spec() -> ArraySpec:
+    """What `spec=None` means right now: the override if one is installed,
+    else the paper's DEFAULT_SPEC."""
+    return _CURRENT_SPEC if _CURRENT_SPEC is not None else DEFAULT_SPEC
+
+
+def spec_override() -> Optional[ArraySpec]:
+    """The raw override (None when the process is healthy): what the layers
+    whose `spec=None` means unbanked consult, so they never pick up
+    DEFAULT_SPEC."""
+    return _CURRENT_SPEC
+
 
 def registry_reserve_rows(spec: ArraySpec) -> int:
     """Rows per bank the registry ResidentSet of `spec` keeps back for
@@ -278,14 +400,21 @@ def registry_reserve_rows(spec: ArraySpec) -> int:
 
 
 def resident_set(spec: Optional[ArraySpec] = None) -> ResidentSet:
-    """The process-wide ResidentSet for `spec` (DEFAULT_SPEC when None),
+    """The process-wide ResidentSet for `spec` (`current_spec()` when None),
     keeping `registry_reserve_rows` as reserve for streamed access planes."""
-    spec = spec or DEFAULT_SPEC
+    spec = spec or current_spec()
     rs = _RESIDENT_SETS.get(spec)
     if rs is None:
         rs = _RESIDENT_SETS[spec] = ResidentSet(
             spec, reserve_rows=registry_reserve_rows(spec))
     return rs
+
+
+def resident_rows_for(spec: Optional[ArraySpec]) -> int:
+    """Busiest-bank occupancy of the registry set for `spec` — what the
+    dispatcher folds into the combined `check_fits` budget."""
+    rs = _RESIDENT_SETS.get(spec or current_spec())
+    return rs.resident_rows if rs is not None else 0
 
 
 def resident_stats() -> Dict[str, int]:

@@ -25,8 +25,12 @@
 //     unrequested outputs are neither computed nor written. The branches are
 //     uniform across the grid, so they cost nothing here;
 //   * the ragged edge is masked in the kernel (no padding of W to a block);
-//   * gridDim.y walks a leading tile axis ([T, rows, W] stacks), so a banked
-//     dispatcher can launch all tiles of one access at once.
+//   * gridDim.y walks a leading tile axis ([T, rows, W] stacks), so the
+//     banked dispatcher launches all tiles of one access at once. gridDim.y
+//     stops at 65535: the wrapper splits a longer tile axis over launches,
+//     offsetting the pointers. A bank tile of 128 columns leaves 7/8 of a
+//     256-thread block idle, yet the tiled access ran within 1.07x of the
+//     same access untiled (PERF.md), so the block stays fixed.
 // No shared memory, TMA or async copies yet: this version is right first.
 
 #include <cstdint>
@@ -194,12 +198,16 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() as an int (0 = launched).
+// Launch on `stream`; returns cudaGetLastError() as an int (0 = launched),
+// or cudaErrorInvalidValue for a tile count outside [1, 65535].
 // a, b: [n_tiles, n_bits, w] uint32 stacks; outs: kNumOps pointers indexed
 // as opset.ALL_OPS, null where not requested.
 extern "C" int fused_planes_launch(const void* a, const void* b, int n_bits,
                                    long long w, int n_tiles, unsigned mask,
                                    void* const* outs, void* stream) {
+  if (n_tiles < 1 || n_tiles > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   OutPtrs o;
   bool vec = (w % 4 == 0) && aligned16(a) && aligned16(b);
   for (int i = 0; i < kNumOps; ++i) {

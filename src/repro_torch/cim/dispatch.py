@@ -1,22 +1,39 @@
-"""Compiled-schedule cache and dispatch counters.
+"""Tiling dispatcher: run any PlanePack op request on a banked array.
 
-Port of the substrate services of `repro.cim.dispatch`: a bounded LRU of
-schedule programs keyed by schedule structure (`repro_torch.cim.macro`
-stores one `CompiledSchedule` per key), hit/miss/eviction counters, and
-`dispatches` — the number of schedule-program invocations, the
-deterministic walltime proxy (a warm macro matmul is exactly one).
+Port of `repro.cim.dispatch` for one device. `execute_tiled` splits an
+operand pair into bank-sized tiles (ArraySpec / TilePlan from
+`repro_torch.cim.array`), runs the backend once over the whole
+[T, n_bits, lanes] tile stack — the fused kernel walks the tile axis in its
+grid, as the reference's vmap does — and stitches the outputs back
+together. It is bit-exact with the untiled engine: elementwise CiM ops touch
+each word independently and tiles cut the packed lane axis on uint32
+boundaries. The ledger is charged one activation per tile, attributed to
+its (device, bank) slot. A mesh (the reference's shard_map path) is refused.
 
-The banked tiling dispatcher (`execute_tiled`, the vmap over tiles) and the
-mesh path wait: the serve decode this slice ports is unbanked. The fused
-kernel already takes a leading tile axis for them.
+The module also holds the compiled-schedule cache: a bounded LRU of
+programs keyed by schedule structure. It holds the per-access tiled
+programs built here (key: ops, n_bits, tile shape, backend) and the
+whole-schedule programs of `repro_torch.cim.macro` (one `CompiledSchedule`
+per key). `cache_stats()` exposes hit/miss/eviction counters and
+`dispatches`, the number of program invocations — the deterministic
+walltime proxy (a warm macro is exactly one). The capacity is 256 unless
+REPRO_CIM_CACHE_CAPACITY (the reference's variable) or
+`set_schedule_cache_capacity` says otherwise.
 """
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Optional, Sequence
+
+import torch
 
 from . import array as array_mod
-from . import opset
+from . import engine, opset
+from .accounting import LEDGER
+from .array import DEFAULT_SPEC, ArraySpec, TilePlan
+from .backends import Backend, get_backend
+from .planepack import PlanePack
 
 #: program-table capacity (the reference's default)
 _DEFAULT_CAPACITY = 256
@@ -28,10 +45,7 @@ class BoundedLRU:
     depends on residency."""
 
     def __init__(self, capacity: int = _DEFAULT_CAPACITY):
-        if capacity < 1:
-            raise opset.CimOpError(
-                f"cache capacity must be >= 1, got {capacity}")
-        self.capacity = int(capacity)
+        self.capacity = _checked(capacity)
         self._data: "OrderedDict[object, object]" = OrderedDict()
         self.hits = 0
         self.misses = 0
@@ -50,6 +64,10 @@ class BoundedLRU:
     def put(self, key, value) -> None:
         self._data[key] = value
         self._data.move_to_end(key)
+        self._evict()
+
+    def set_capacity(self, capacity: int) -> None:
+        self.capacity = _checked(capacity)
         self._evict()
 
     def _evict(self) -> None:
@@ -71,13 +89,38 @@ class BoundedLRU:
                 "entries": len(self._data), "evictions": self.evictions,
                 "capacity": self.capacity}
 
+    def __len__(self) -> int:
+        return len(self._data)
 
-_PROGRAMS = BoundedLRU()
+    def __contains__(self, key) -> bool:
+        return key in self._data
+
+
+def _checked(capacity: int) -> int:
+    if capacity < 1:
+        raise opset.CimOpError(f"cache capacity must be >= 1, got {capacity}")
+    return int(capacity)
+
+
+def _env_capacity() -> int:
+    """REPRO_CIM_CACHE_CAPACITY; a malformed or < 1 value falls back to the
+    default instead of disabling the cache or failing the import."""
+    raw = os.environ.get("REPRO_CIM_CACHE_CAPACITY")
+    if raw is None:
+        return _DEFAULT_CAPACITY
+    try:
+        cap = int(raw)
+    except ValueError:
+        return _DEFAULT_CAPACITY
+    return cap if cap >= 1 else _DEFAULT_CAPACITY
+
+
+_PROGRAMS = BoundedLRU(_env_capacity())
 _DISPATCHES = 0
 
 
 def cache_stats() -> Dict[str, int]:
-    """Program-table hits/misses/evictions, `dispatches` (schedule-program
+    """Program-table hits/misses/evictions, `dispatches` (program
     invocations) and the aggregated resident-region counters."""
     stats = _PROGRAMS.stats()
     stats["dispatches"] = _DISPATCHES
@@ -91,17 +134,132 @@ def clear_schedule_cache() -> None:
     _DISPATCHES = 0
 
 
+def set_schedule_cache_capacity(capacity: int) -> None:
+    """Bound the program table to `capacity` entries (>= 1); the least
+    recently used programs are evicted at once if it holds more."""
+    _PROGRAMS.set_capacity(capacity)
+
+
 def count_dispatch(n: int = 1) -> None:
-    """Record `n` schedule-program invocations (see cache_stats)."""
+    """Record `n` program invocations (see cache_stats)."""
     global _DISPATCHES
     _DISPATCHES += n
 
 
 def program_cache_get(key):
-    """Look up a schedule program, counting a hit or a miss. Callers that
-    miss MUST build and `program_cache_put` under the same key."""
+    """Look up a program, counting a hit or a miss. Callers that miss MUST
+    build and `program_cache_put` under the same key."""
     return _PROGRAMS.get(key)
 
 
 def program_cache_put(key, prog) -> None:
     _PROGRAMS.put(key, prog)
+
+
+def _tiled_program(ops, bk: Backend):
+    """One access over a whole tile stack: the backend's own [T, n, lanes]
+    form (the fused kernel's grid walks the tile axis)."""
+    return lambda ta, tb: bk(ta, tb, ops)
+
+
+def _cached_program(ops, n_bits: int, tile_shape: tuple, bk: Backend):
+    """The tiled program of one schedule key. The bank count is not part of
+    the key: the same tile shape is the same program."""
+    key = (ops, n_bits, tile_shape, bk.name, None)
+    prog = program_cache_get(key)
+    if prog is None:
+        prog = _tiled_program(ops, bk)
+        program_cache_put(key, prog)
+    return prog
+
+
+# ---------------------------------------------------------------------------
+# tile / untile (packed lane axis, uint32 boundaries)
+# ---------------------------------------------------------------------------
+
+
+def _tile(planes: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    """[n_bits, W] -> contiguous [n_tiles, n_bits, lanes_per_tile], the last
+    tile's pad lanes zero: one pass over the planes."""
+    n_bits, w = planes.shape
+    lanes = plan.lanes_per_tile
+    full = w // lanes
+    out = planes.new_empty((plan.n_tiles, n_bits, lanes))
+    if full:
+        out[:full].copy_(planes[:, :full * lanes]
+                         .reshape(n_bits, full, lanes).transpose(0, 1))
+    if full < plan.n_tiles:
+        out[full:].zero_()
+        out[full, :, :w - full * lanes].copy_(planes[:, full * lanes:])
+    return out
+
+
+def _untile(raw: torch.Tensor, w: int) -> torch.Tensor:
+    """[n_tiles, rows, lanes] -> contiguous [rows, W] (pad lanes dropped)."""
+    n_tiles, rows, lanes = raw.shape
+    full = w // lanes
+    out = raw.new_empty((rows, w))
+    if full:
+        out[:, :full * lanes].view(rows, full, lanes).copy_(
+            raw[:full].transpose(0, 1))
+    if full * lanes < w:
+        out[:, full * lanes:].copy_(raw[full, :, :w - full * lanes])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dispatcher
+# ---------------------------------------------------------------------------
+
+
+def _prepare_tiles(a: PlanePack, b: PlanePack, ops: Sequence[str],
+                   spec: Optional[ArraySpec], mesh):
+    """The shared front half of the tiled paths: operand alignment, the
+    rows budget beside the resident region, placement and tile stacks."""
+    if mesh is not None:
+        raise opset.CimOpError(
+            "the port's dispatcher runs on one device: mesh must be None")
+    a, b, ops = engine.prepare_operands(a, b, ops)
+    spec = spec or DEFAULT_SPEC
+    spec.check_fits(a.n_bits, ops,
+                    resident_rows=array_mod.resident_rows_for(spec))
+    plan = spec.plan(a.n_words)
+    return a, ops, plan, _tile(a.planes, plan), _tile(b.planes, plan)
+
+
+def _wrap_tiled(a: PlanePack, ops, raws) -> engine.Outputs:
+    w = a.planes.shape[1]
+    return {op: engine._wrap(op, _untile(raw, w), a.n_bits, a.shape)
+            for op, raw in zip(ops, raws)}
+
+
+def execute_tiled(a: PlanePack, b: PlanePack, ops: Sequence[str],
+                  spec: Optional[ArraySpec] = None,
+                  backend: Optional[str] = None,
+                  mesh=None) -> engine.Outputs:
+    """One logical ADRA access on a banked array (the paper's DEFAULT_SPEC
+    when `spec` is None): bank-sized tiles, one backend call over them all.
+
+    Bit-exact with `engine.execute`; the ledger is charged one activation
+    per tile, attributed to its (device, bank), and the last tile's idle
+    columns as activated-but-idle words. One dispatch."""
+    a, ops, plan, ta, tb = _prepare_tiles(a, b, ops, spec, mesh)
+    bk = get_backend(backend)
+    raws = _cached_program(ops, a.n_bits, tuple(ta.shape[1:]), bk)(ta, tb)
+    count_dispatch()      # invoke first, account after (as CompiledSchedule)
+    LEDGER.charge_banked(ops, a.n_bits, a.n_words, plan)
+    return _wrap_tiled(a, ops, raws)
+
+
+def execute_tiled_traced(a: PlanePack, b: PlanePack, ops: Sequence[str],
+                         spec: Optional[ArraySpec] = None,
+                         backend: Optional[str] = None, mesh=None,
+                         charges: Optional[list] = None) -> engine.Outputs:
+    """The side-effect-free inner form of `execute_tiled` for a schedule
+    program: no cache lookup, no dispatch count, no ledger mutation. With
+    `charges`, appends the record `execute_tiled` would have charged."""
+    a, ops, plan, ta, tb = _prepare_tiles(a, b, ops, spec, mesh)
+    raws = _tiled_program(ops, get_backend(backend))(ta, tb)
+    if charges is not None:
+        charges.append(("banked", ops, a.n_bits, a.n_words, plan, 1))
+    return _wrap_tiled(a, ops, raws)

@@ -2,18 +2,21 @@
 
 Port of `repro.cim.engine`: `execute` runs any subset of the op catalogue
 over two PlanePacks in ONE simulated memory access on the selected backend
-and returns PlanePacks, so chained ops stay packed. The fault overlay, the
-unfused near-memory baseline and the integer-level wrappers wait.
+and returns PlanePacks, so chained ops stay packed. `execute_unfused` is the
+near-memory baseline (one access per pass) the paper argues against, and
+add / sub / compare / boolean pack, execute and unpack for callers that
+hold plain integer tensors. The fault overlay waits.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from . import opset
 from .accounting import LEDGER
 from .backends import get_backend
+from .fused_kernel import fused_planes_op_ref
 from .planepack import PlanePack
 
 Outputs = Dict[str, PlanePack]
@@ -68,6 +71,68 @@ def execute(a: PlanePack, b: PlanePack, ops: Sequence[str],
     return out
 
 
+def execute_unfused(a: PlanePack, b: PlanePack,
+                    passes: Sequence[Sequence[str]],
+                    backend: Optional[str] = None) -> Outputs:
+    """Near-memory baseline: one FULL access per pass, operands re-streamed
+    each time (the paper's two-access execution, generalized to k passes)."""
+    out: Outputs = {}
+    for ops in passes:
+        out.update(execute(a, b, ops, backend=backend))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# integer-level wrappers
+# ---------------------------------------------------------------------------
+
+
+class CmpOut(NamedTuple):
+    lt: torch.Tensor
+    eq: torch.Tensor
+    gt: torch.Tensor
+
+
+def _packed(x: torch.Tensor, y: torch.Tensor, n_bits: int, ops,
+            backend: Optional[str]) -> Outputs:
+    return execute(PlanePack.pack(x, n_bits), PlanePack.pack(y, n_bits),
+                   ops, backend=backend)
+
+
+def add(x: torch.Tensor, y: torch.Tensor, n_bits: int = 32,
+        backend: Optional[str] = None) -> torch.Tensor:
+    """x + y via one ADRA access; exact for n_bits < 32, int32 wrap at 32."""
+    return _packed(x, y, n_bits, ("add",), backend)["add"].unpack()
+
+
+def sub(x: torch.Tensor, y: torch.Tensor, n_bits: int = 32,
+        backend: Optional[str] = None) -> torch.Tensor:
+    """x - y via one ADRA access (the paper's non-commutative headline)."""
+    return _packed(x, y, n_bits, ("sub",), backend)["sub"].unpack()
+
+
+def compare(x: torch.Tensor, y: torch.Tensor, n_bits: int = 32,
+            backend: Optional[str] = None) -> CmpOut:
+    """Single-access comparison: lt/eq/gt 0/1 tensors of the operand shape."""
+    out = _packed(x, y, n_bits, ("lt", "eq", "gt"), backend)
+    return CmpOut(lt=out["lt"].unpack(), eq=out["eq"].unpack(),
+                  gt=out["gt"].unpack())
+
+
+def boolean(x: torch.Tensor, y: torch.Tensor, fn: str, n_bits: int = 32,
+            backend: Optional[str] = None) -> torch.Tensor:
+    """Any of the 16 two-input Boolean functions, one access."""
+    if fn not in opset.BOOLEAN_OPS:
+        raise opset.CimOpError(
+            f"unknown Boolean function {fn!r}; valid: {opset.BOOLEAN_OPS}")
+    return _packed(x, y, n_bits, (fn,), backend)[fn].unpack()
+
+
+# ---------------------------------------------------------------------------
+# device-memory traffic: the roofline argument, modeled and measured
+# ---------------------------------------------------------------------------
+
+
 def traffic_model_bytes(n_bits: int, n_words32: int,
                         ops: Sequence[str] = ("sub", "carry_sub", "lt", "eq"),
                         baseline_passes: Optional[Sequence[Sequence[str]]] = None,
@@ -83,5 +148,30 @@ def traffic_model_bytes(n_bits: int, n_words32: int,
     fused = ops_in + sum(out_bytes.values())
     baseline = sum(ops_in + sum(out_bytes[o] for o in p)
                    for p in baseline_passes)
+    return {"fused": float(fused), "baseline": float(baseline),
+            "ratio": baseline / fused}
+
+
+def measured_traffic_bytes(a: PlanePack, b: PlanePack, ops: Sequence[str],
+                           baseline_passes: Optional[Sequence[Sequence[str]]] = None
+                           ) -> Dict[str, float]:
+    """Like `traffic_model_bytes`, but read off the buffers one access
+    streams: operand and result bytes per pass, from the plain version run
+    on meta tensors (shapes only: nothing executes, nothing is charged).
+    Every backend returns the stacks the op catalogue's shape rules give."""
+    ops = opset.validate_ops(tuple(ops))
+    if baseline_passes is None:
+        baseline_passes = tuple((op,) for op in ops)
+    a, b = a.align(b)
+    in_bytes = a.planes.nbytes + b.planes.nbytes
+    meta_a = torch.empty_like(a.planes, device="meta")
+    meta_b = torch.empty_like(b.planes, device="meta")
+
+    def pass_bytes(pass_ops):
+        outs = fused_planes_op_ref(meta_a, meta_b, tuple(pass_ops))
+        return in_bytes + sum(o.nbytes for o in outs)
+
+    fused = pass_bytes(ops)
+    baseline = sum(pass_bytes(p) for p in baseline_passes)
     return {"fused": float(fused), "baseline": float(baseline),
             "ratio": baseline / fused}

@@ -18,7 +18,9 @@ nvcc for sm_90a into a shared library with a plain C interface under
 source, and loads it with ctypes.
 
 Planes are int32 tensors holding uint32 bit patterns, [n_bits, W] or, with a
-leading tile axis, [T, n_bits, W]; outputs follow the input layout.
+leading tile axis, [T, n_bits, W]; outputs follow the input layout. The
+kernel's grid walks at most `MAX_TILES_PER_LAUNCH` tiles, so the wrapper
+splits a longer tile axis over launches.
 """
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ from . import opset
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_planes.cu"
 
 _OP_INDEX = {op: i for i, op in enumerate(opset.ALL_OPS)}
+
+#: tiles one launch covers: the tile axis is the grid's y dimension
+MAX_TILES_PER_LAUNCH = 65535
 
 
 # ---------------------------------------------------------------------------
@@ -128,10 +133,11 @@ def fused_planes_op(a_planes: torch.Tensor, b_planes: torch.Tensor,
     (arith: n_bits+1 rows, predicates: 1 row, Boolean functions: n_bits).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream (or raise); each launch adds one to
-    `fused_planes_op.launches` and the bytes it must move to
-    `fused_planes_op.bytes`: both stacks read once and every output plane
-    written once, (2 n_bits + output rows) x W x 4 bytes a tile."""
+    the current stream (or raise), once per MAX_TILES_PER_LAUNCH tiles;
+    each launch adds one to `fused_planes_op.launches` and the bytes it
+    must move to `fused_planes_op.bytes`: both stacks read once and every
+    output plane written once, (2 n_bits + output rows) x W x 4 bytes a
+    tile."""
     ops = opset.validate_ops(ops)
     if a_planes.shape != b_planes.shape or a_planes.dim() not in (2, 3):
         raise opset.CimOpError(
@@ -153,29 +159,35 @@ def fused_planes_op(a_planes: torch.Tensor, b_planes: torch.Tensor,
     tiled = a_planes.dim() == 3
     n_tiles = a_planes.shape[0] if tiled else 1
     n_bits, w = a_planes.shape[-2], a_planes.shape[-1]
-    if n_bits < 1 or w < 1 or not 1 <= n_tiles <= 65535:
+    if n_bits < 1 or w < 1 or n_tiles < 1:
         raise opset.CimOpError(
-            f"kernel needs n_bits >= 1, W >= 1 and 1..65535 tiles, got "
+            f"kernel needs n_bits >= 1, W >= 1 and a tile, got "
             f"{tuple(a_planes.shape)}")
     launch = _launcher()
     lead = (n_tiles,) if tiled else ()
     outs = [torch.empty(lead + (opset.out_rows(op, n_bits), w),
                         dtype=a_planes.dtype, device=a_planes.device)
             for op in ops]
-    ptrs = (ctypes.c_void_p * len(opset.ALL_OPS))()
     mask = 0
-    for op, o in zip(ops, outs):
-        ptrs[_OP_INDEX[op]] = o.data_ptr()
+    for op in ops:
         mask |= 1 << _OP_INDEX[op]
     stream = torch.cuda.current_stream(a_planes.device).cuda_stream
+    in_tile = n_bits * w * 4                          # bytes of one tile
+    out_tile = [o.shape[-2] * w * 4 for o in outs]
     with torch.cuda.device(a_planes.device):
-        rc = launch(a_planes.data_ptr(), b_planes.data_ptr(), n_bits, w,
-                    n_tiles, mask, ctypes.cast(ptrs, ctypes.c_void_p), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_planes kernel launch failed: cudaError {rc}")
-    fused_planes_op.launches += 1
-    fused_planes_op.bytes += (2 * n_bits + sum(o.shape[-2] for o in outs)) \
-        * w * 4 * n_tiles
+        for t0 in range(0, n_tiles, MAX_TILES_PER_LAUNCH):
+            t = min(MAX_TILES_PER_LAUNCH, n_tiles - t0)
+            ptrs = (ctypes.c_void_p * len(opset.ALL_OPS))()
+            for op, o, ob in zip(ops, outs, out_tile):
+                ptrs[_OP_INDEX[op]] = o.data_ptr() + t0 * ob
+            rc = launch(a_planes.data_ptr() + t0 * in_tile,
+                        b_planes.data_ptr() + t0 * in_tile, n_bits, w, t,
+                        mask, ctypes.cast(ptrs, ctypes.c_void_p), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"fused_planes kernel launch failed: cudaError {rc}")
+            fused_planes_op.launches += 1
+            fused_planes_op.bytes += (2 * in_tile + sum(out_tile)) * t
     return tuple(outs)
 
 

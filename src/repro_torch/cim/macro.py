@@ -1,12 +1,11 @@
 """Macro-op executors: multi-access CiM arithmetic over the single-access
 engine, one cached schedule program per schedule.
 
-Port of `repro.cim.macro` (the int8 serve path's macros: multiply, tree
-reduction, matmul and batched matmul, with their resident-rhs forms; the
-select-based macros, popcount and `ChainExecutor` wait). Every macro
-executes a `planner.Schedule` through a cursor that allows exactly the
-planned accesses (same order, same op-sets) and nothing else, so ledger
-accesses == schedule.accesses by construction.
+Port of `repro.cim.macro`. Every macro executes a `planner.Schedule`
+through a cursor that allows exactly the planned accesses (same order, same
+op-sets) and nothing else, so ledger accesses == schedule.accesses by
+construction — or, on a banked `spec`, == schedule.placed_accesses: the
+cursor then routes every access through the tiling dispatcher.
 
 `run_schedule_program` is the eager counterpart of the reference's one
 jitted XLA program per schedule: the first call under a key runs the body
@@ -21,6 +20,22 @@ of the compiled program.)
 Operands, partial products, accumulators and tree levels all stay in the
 PlanePack packed domain; the only codec entries are the entry packs and the
 exit unpack.
+
+Macros:
+
+  multiply   — shift-and-add; signed multipliers subtract the MSB partial
+               product (single-access sub, the paper's headline op)
+  abs_/relu  — sub-chain predicate + zero-cost peripheral select
+  minimum/maximum — lt/gt predicate + select, one access each
+  popcount   — pairwise plane tree, n-1 add accesses
+  reduce_sum — log-stride tree reduction with row-buffer shifts
+  dot/matmul/batched_matmul — int x int -> wide-int contraction: one
+               multiply over a broadcast [M, K_pad, N] layout + a stride-N
+               reduction; the access count depends only on the bit width
+               and K, never on M or N
+
+`ChainExecutor` runs a fused region plan (`planner.concat_schedules`)
+through one shared cursor.
 """
 from __future__ import annotations
 
@@ -29,7 +44,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import dispatch, engine, planner
-from .accounting import PlannedCharges
+from .accounting import LEDGER, PlannedCharges
+from .array import ArraySpec
 from .backends import get_backend
 from .opset import CimOpError
 from .planepack import PlanePack
@@ -38,14 +54,20 @@ from .planepack import PlanePack
 class ScheduleCursor:
     """Executes a Schedule one access at a time, refusing to deviate.
 
-    Accesses run through the side-effect-free `engine.execute_traced`; the
-    ledger is never touched here — every planned charge is appended to
-    `charges`, the record `run_schedule_program` replays per call."""
+    With a `spec` every access runs through the banked tiling dispatcher
+    and costs `plan.n_tiles` activations. With `charges` (a list) the
+    cursor is in traced mode: accesses run through the side-effect-free
+    `execute_traced` forms and every planned charge is appended to
+    `charges`, the record `run_schedule_program` replays per call; without
+    it each access charges the ledger directly."""
 
-    def __init__(self, schedule: planner.Schedule, backend: Optional[str],
-                 charges: list):
+    def __init__(self, schedule: planner.Schedule,
+                 backend: Optional[str] = None,
+                 spec: Optional[ArraySpec] = None,
+                 charges: Optional[list] = None):
         self.schedule = schedule
         self.backend = backend
+        self.spec = spec
         self.charges = charges
         self._i = 0
 
@@ -64,17 +86,41 @@ class ScheduleCursor:
                 f"{self.schedule.macro}: access {self._i} executes {ops!r} "
                 f"but the plan says {step.ops!r}")
         self._i += 1
-        return engine.execute_traced(a, b, step.ops, backend=self.backend,
-                                     charges=self.charges)
+        if self.charges is not None:
+            if self.spec is None:
+                return engine.execute_traced(a, b, step.ops,
+                                             backend=self.backend,
+                                             charges=self.charges)
+            return dispatch.execute_tiled_traced(
+                a, b, step.ops, spec=self.spec, backend=self.backend,
+                charges=self.charges)
+        if self.spec is None:
+            return engine.execute(a, b, step.ops, backend=self.backend)
+        return dispatch.execute_tiled(a, b, step.ops, spec=self.spec,
+                                      backend=self.backend)
+
+    def charge_reduction(self, words32: float) -> None:
+        """Inter-bank reduction traffic of one strided step."""
+        if self.charges is not None:
+            self.charges.append(("reduction", float(words32)))
+        else:
+            LEDGER.charge_reduction(words32)
 
     def charge_load(self, n_bits: int, n_words: int) -> None:
-        """Operand-load row-writes of one STREAMED entry pack (one load
-        access: the unbanked array holds it in one tile)."""
-        self.charges.append(("load", n_bits, n_words, 1))
+        """Operand-load row-writes of one STREAMED entry pack: one load
+        access per tile it lands on (one tile unbanked)."""
+        n_tiles = self.spec.plan(n_words).n_tiles if self.spec else 1
+        if self.charges is not None:
+            self.charges.append(("load", n_bits, n_words, n_tiles))
+        else:
+            LEDGER.charge_load(n_bits, n_words, n_tiles=n_tiles)
 
     def charge_resident(self, n_bits: int, n_words: int) -> None:
         """One resident-operand reuse: entry pack (and its loads) skipped."""
-        self.charges.append(("resident", n_bits, n_words))
+        if self.charges is not None:
+            self.charges.append(("resident", n_bits, n_words))
+        else:
+            LEDGER.charge_resident_reuse(n_bits, n_words)
 
     def remaining(self) -> Tuple[planner.Step, ...]:
         return self.schedule.steps[self._i:]
@@ -119,23 +165,25 @@ def _leaf_sig(x) -> Tuple:
 
 
 def run_schedule_program(schedule: planner.Schedule, body, operands,
-                         body_key=(), backend: Optional[str] = None):
+                         body_key=(), backend: Optional[str] = None,
+                         spec: Optional[ArraySpec] = None):
     """Execute `body(cursor, *operands)` as ONE schedule program.
 
     Cached in the dispatch layer's bounded LRU under the schedule, the body
-    identity (`body_key`), the operand signatures and the backend: a repeat
-    hits (no new program), runs the cached body and replays the charges
-    recorded the first time — accesses == schedule.accesses either way."""
+    identity (`body_key`), the operand signatures, the backend and the
+    banked geometry: a repeat hits (no new program), runs the cached body
+    and replays the charges recorded the first time — accesses ==
+    schedule.accesses (placed_accesses on a `spec`) either way."""
     bk_name = get_backend(backend).name
     leaves = tuple(operands)
     key = ("step-program", schedule, tuple(body_key),
-           tuple(_leaf_sig(x) for x in leaves), bk_name)
+           tuple(_leaf_sig(x) for x in leaves), bk_name, spec)
     prog = dispatch.program_cache_get(key)
     if prog is not None:
         return prog(*leaves)
 
     def run(charges: list, *args):
-        cur = ScheduleCursor(schedule, bk_name, charges=charges)
+        cur = ScheduleCursor(schedule, bk_name, spec=spec, charges=charges)
         out = body(cur, *args)
         cur.finish()
         return out
@@ -154,6 +202,33 @@ def run_schedule_program(schedule: planner.Schedule, body, operands,
     return out
 
 
+def _place(sched: planner.Schedule, spec: Optional[ArraySpec],
+           n_words: int) -> planner.Schedule:
+    """Pin a schedule to the banked geometry, when one is given."""
+    return sched.placed(spec, n_words) if spec is not None else sched
+
+
+# ---------------------------------------------------------------------------
+# peripheral select (zero accesses)
+# ---------------------------------------------------------------------------
+
+
+def select(pred: PlanePack, x: PlanePack, y: PlanePack) -> PlanePack:
+    """Per-word mux pred ? x : y, as predicated writeback in the periphery:
+    the 1-plane predicate gates which operand's planes reach the row
+    buffer — no array access."""
+    if pred.planes.shape[0] != 1:
+        raise CimOpError("select predicate must be a 1-plane bitmap")
+    if x.signed != y.signed:
+        n = max(x.n_bits, y.n_bits) + 1   # room so both read as signed
+        x, y = x.extend_to(n).as_signed(True), y.extend_to(n).as_signed(True)
+    x, y = x.align(y)
+    mask = pred.planes[0]
+    planes = (x.planes & mask) | (y.planes & ~mask)
+    return PlanePack(planes=planes, n_bits=x.n_bits, signed=x.signed,
+                     shape=x.shape)
+
+
 def _plane_mask(bitmap: torch.Tensor, n_bits: int,
                 like: PlanePack) -> PlanePack:
     """One multiplier-bit bitmap replicated across n_bits planes (the same
@@ -163,7 +238,7 @@ def _plane_mask(bitmap: torch.Tensor, n_bits: int,
 
 
 # ---------------------------------------------------------------------------
-# multiply / reduction
+# multiply
 # ---------------------------------------------------------------------------
 
 
@@ -194,20 +269,148 @@ def _multiply_with(cur: ScheduleCursor, a: PlanePack,
     return acc.as_signed(a.signed or b.signed)
 
 
+def multiply(a: PlanePack, b: PlanePack, backend: Optional[str] = None,
+             spec: Optional[ArraySpec] = None) -> PlanePack:
+    """Exact product, (n_a + n_b)-plane result, 2*n_b - 1 accesses (times
+    the tile count on a banked `spec`) — one dispatch."""
+    if a.shape != b.shape:
+        raise CimOpError(f"operand shapes differ: {a.shape} vs {b.shape}")
+    sched = _place(planner.plan_multiply(a.n_bits, b.n_bits,
+                                         signed_b=b.signed), spec, a.n_words)
+    return run_schedule_program(sched, _multiply_with, (a, b),
+                                body_key=("multiply",), backend=backend,
+                                spec=spec)
+
+
+# ---------------------------------------------------------------------------
+# select-based macros: abs / relu / min / max
+# ---------------------------------------------------------------------------
+
+
+def _abs_with(cur: ScheduleCursor, a: PlanePack) -> PlanePack:
+    out = cur.execute(PlanePack.zeros_like(a), a, ("sub", "lt"))
+    return select(out["lt"], a, out["sub"])
+
+
+def _relu_with(cur: ScheduleCursor, a: PlanePack) -> PlanePack:
+    zero = PlanePack.zeros_like(a)
+    return select(cur.execute(a, zero, ("gt",))["gt"], a, zero)
+
+
+def _minimum_with(cur: ScheduleCursor, a: PlanePack,
+                  b: PlanePack) -> PlanePack:
+    return select(cur.execute(a, b, ("lt",))["lt"], a, b)
+
+
+def _maximum_with(cur: ScheduleCursor, a: PlanePack,
+                  b: PlanePack) -> PlanePack:
+    return select(cur.execute(a, b, ("gt",))["gt"], a, b)
+
+
+def abs_(a: PlanePack, backend: Optional[str] = None,
+         spec: Optional[ArraySpec] = None) -> PlanePack:
+    """|a| in one access: (0 - a, 0 < a) together, then select a vs -a. The
+    result has n+1 planes, so abs(INT_MIN) is exact."""
+    sched = _place(planner.plan_abs(a.n_bits), spec, a.n_words)
+    return run_schedule_program(sched, _abs_with, (a,), body_key=("abs",),
+                                backend=backend, spec=spec)
+
+
+def relu(a: PlanePack, backend: Optional[str] = None,
+         spec: Optional[ArraySpec] = None) -> PlanePack:
+    """max(a, 0) in one access: the a > 0 predicate gates the writeback."""
+    sched = _place(planner.plan_relu(a.n_bits), spec, a.n_words)
+    return run_schedule_program(sched, _relu_with, (a,), body_key=("relu",),
+                                backend=backend, spec=spec)
+
+
+def minimum(a: PlanePack, b: PlanePack, backend: Optional[str] = None,
+            spec: Optional[ArraySpec] = None) -> PlanePack:
+    sched = _place(planner.plan_minimum(max(a.n_bits, b.n_bits)), spec,
+                   a.n_words)
+    return run_schedule_program(sched, _minimum_with, (a, b),
+                                body_key=("minimum",), backend=backend,
+                                spec=spec)
+
+
+def maximum(a: PlanePack, b: PlanePack, backend: Optional[str] = None,
+            spec: Optional[ArraySpec] = None) -> PlanePack:
+    sched = _place(planner.plan_maximum(max(a.n_bits, b.n_bits)), spec,
+                   a.n_words)
+    return run_schedule_program(sched, _maximum_with, (a, b),
+                                body_key=("maximum",), backend=backend,
+                                spec=spec)
+
+
+# ---------------------------------------------------------------------------
+# popcount / reductions
+# ---------------------------------------------------------------------------
+
+
+def _popcount_with(cur: ScheduleCursor, a: PlanePack) -> PlanePack:
+    level = [PlanePack(planes=a.planes[i:i + 1], n_bits=1, signed=False,
+                       shape=a.shape)
+             for i in range(a.n_bits)]
+    while len(level) > 1:
+        nxt = [cur.execute(level[j], level[j + 1], ("add",))["add"]
+               for j in range(0, len(level) - 1, 2)]
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return level[0]
+
+
+def popcount(a: PlanePack, backend: Optional[str] = None,
+             spec: Optional[ArraySpec] = None) -> PlanePack:
+    """Set bits of each word's n-bit two's-complement pattern: pairwise
+    plane tree, n - 1 add accesses."""
+    sched = _place(planner.plan_popcount(a.n_bits), spec, a.n_words)
+    return run_schedule_program(sched, _popcount_with, (a,),
+                                body_key=("popcount",), backend=backend,
+                                spec=spec)
+
+
 def _reduce_with(cur: ScheduleCursor, acc: PlanePack,
                  n_steps: Optional[int] = None) -> PlanePack:
     """Log-stride reduction: each planned step shifts the row buffer by its
     stride and adds, so element 0 of each segment accumulates the segment
-    sum; exactness relies on the pack's zero padding past the last word."""
+    sum; exactness relies on the pack's zero padding past the last word.
+
+    `n_steps` bounds the walk (a region cursor may continue past it). On a
+    banked cursor a stride that reaches across a tile boundary moves words
+    between banks: the ledger's inter-bank traffic, stride / tile_words of
+    the words, capped at all of them."""
     if not acc.signed:
         acc = acc.extend_to(acc.n_bits + 1).as_signed(True)
     steps = cur.remaining()
     if n_steps is not None:
         steps = steps[:n_steps]
     for step in steps:
+        if cur.spec is not None and step.stride:
+            plan = cur.spec.plan(acc.n_words)
+            if plan.n_tiles > 1:
+                frac = min(1.0, step.stride / plan.tile_words)
+                cur.charge_reduction(acc.n_words * frac * acc.n_bits / 32.0)
         shifted = acc.shift_elements(step.stride)
         acc = cur.execute(acc, shifted, ("add",))["add"]
     return acc
+
+
+def _reduce_sum_body(cur: ScheduleCursor, a: PlanePack) -> PlanePack:
+    acc = _reduce_with(cur, a)
+    return PlanePack(planes=acc.planes, n_bits=acc.n_bits,
+                     signed=acc.signed, shape=())
+
+
+def reduce_sum(a: PlanePack, backend: Optional[str] = None,
+               spec: Optional[ArraySpec] = None) -> PlanePack:
+    """Sum of ALL logical elements, ceil(log2(n_words)) accesses; returns a
+    scalar-shaped pack (element 0 of the tree)."""
+    sched = _place(planner.plan_reduce_sum(a.n_words, stride=1,
+                                           n_bits=a.n_bits), spec, a.n_words)
+    return run_schedule_program(sched, _reduce_sum_body, (a,),
+                                body_key=("reduce_sum",), backend=backend,
+                                spec=spec)
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +509,7 @@ def _charge_entry(cur: ScheduleCursor, entry_bits: Optional[int],
 
 def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
            n_bits: int = 8, backend: Optional[str] = None,
+           spec: Optional[ArraySpec] = None,
            b_pack: Optional[PlanePack] = None,
            entry_bits: Optional[int] = None) -> torch.Tensor:
     """Exact intN x intN -> int32 matmul through the CiM array.
@@ -313,7 +517,8 @@ def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
     a : int [M, K], b : int [K, N], entries representable in n_bits signed.
     ONE shift-and-add multiply over the broadcast [M, K_pad, N] layout plus
     a log2(K_pad) stride-N tree reduction: (2*n_bits - 1) + ceil(log2 K)
-    accesses regardless of M and N.
+    accesses regardless of M and N, times the tile count on a banked
+    `spec`.
 
     With `b_pack` (a pinned `matmul_rhs_pack`; `b` may then be None) the
     rhs is RESIDENT: the schedule names it so, the program keys on that
@@ -325,8 +530,9 @@ def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
     m, k = (int(d) for d in a.shape)
     if b_pack is not None:
         m2, k_pad, n = b_pack.shape
-        sched = planner.plan_matmul(k_pad, n, n_bits=n_bits, signed=True,
-                                    resident_rhs=True)
+        sched = _place(planner.plan_matmul(k_pad, n, n_bits=n_bits,
+                                           signed=True, resident_rhs=True),
+                       spec, m2 * k_pad * n)
 
         def body_res(cur, a_, bp):
             _charge_entry(cur, entry_bits, a_)
@@ -336,12 +542,14 @@ def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
         return run_schedule_program(
             sched, body_res, (a, b_pack),
             body_key=("matmul", n_bits, entry_bits, "resident"),
-            backend=backend)
+            backend=backend, spec=spec)
     if b is None or b.dim() != 2 or int(b.shape[0]) != k:
         raise CimOpError(f"matmul needs [M,K] x [K,N], got {tuple(a.shape)} "
                          f"{None if b is None else tuple(b.shape)}")
     n = int(b.shape[1])
-    sched = planner.plan_matmul(k, n, n_bits=n_bits, signed=True)
+    k_pad = 1 << planner._log2_ceil(k)
+    sched = _place(planner.plan_matmul(k, n, n_bits=n_bits, signed=True),
+                   spec, m * k_pad * n)
 
     def body(cur, a_, b_):
         _charge_entry(cur, entry_bits, a_, b_)
@@ -350,30 +558,26 @@ def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
 
     return run_schedule_program(sched, body, (a, b),
                                 body_key=("matmul", n_bits, entry_bits),
-                                backend=backend)
+                                backend=backend, spec=spec)
 
 
 def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
                    n_bits: int = 8, backend: Optional[str] = None,
+                   spec: Optional[ArraySpec] = None,
                    b_pack: Optional[PlanePack] = None,
                    entry_bits: Optional[int] = None) -> torch.Tensor:
     """Exact batched intN x intN -> int32 contraction through the CiM array.
 
     a : int [*B, M, K], b : int [*B, K, N]. The batch dims flatten onto the
     word axis, so every batch element contracts in the SAME
-    (2*n_bits - 1) + ceil(log2 K) accesses as a single 2-D matmul."""
-    if a.dim() < 3:
-        raise CimOpError(f"batched matmul needs [*B, M, K] lhs, "
-                         f"got {tuple(a.shape)}")
-    m, k = int(a.shape[-2]), int(a.shape[-1])
-    bdims = tuple(int(d) for d in a.shape[:-2])
-    bf = 1
-    for d in bdims:
-        bf *= d
+    (2*n_bits - 1) + ceil(log2 K) accesses as a single 2-D matmul; batching
+    scales the words (and the tile placement on a `spec`) only."""
+    bdims, m, k, bf = _batch_dims(a)
     if b_pack is not None:
         mm, k_pad, n = b_pack.shape
-        sched = planner.plan_batched_matmul(bf, k_pad, n, n_bits=n_bits,
-                                            signed=True, resident_rhs=True)
+        sched = _place(planner.plan_batched_matmul(
+            bf, k_pad, n, n_bits=n_bits, signed=True, resident_rhs=True),
+            spec, mm * k_pad * n)
 
         def body_res(cur, a_, bp):
             _charge_entry(cur, entry_bits, a_)
@@ -383,15 +587,12 @@ def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
         return run_schedule_program(
             sched, body_res, (a, b_pack),
             body_key=("batched_matmul", n_bits, entry_bits, "resident"),
-            backend=backend)
-    if b is None or b.dim() != a.dim() \
-            or tuple(int(d) for d in b.shape[:-2]) != bdims \
-            or int(b.shape[-2]) != k:
-        raise CimOpError(
-            f"batched matmul needs [*B,M,K] x [*B,K,N], got {tuple(a.shape)} "
-            f"{None if b is None else tuple(b.shape)}")
-    n = int(b.shape[-1])
-    sched = planner.plan_batched_matmul(bf, k, n, n_bits=n_bits, signed=True)
+            backend=backend, spec=spec)
+    n = _check_batched_rhs(a, b, bdims, k)
+    k_pad = 1 << planner._log2_ceil(k)
+    sched = _place(planner.plan_batched_matmul(bf, k, n, n_bits=n_bits,
+                                               signed=True),
+                   spec, bf * m * k_pad * n)
 
     def body(cur, a_, b_):
         _charge_entry(cur, entry_bits, a_, b_)
@@ -402,4 +603,181 @@ def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
     return run_schedule_program(sched, body, (a, b),
                                 body_key=("batched_matmul", n_bits,
                                           entry_bits),
-                                backend=backend)
+                                backend=backend, spec=spec)
+
+
+def _batch_dims(a: torch.Tensor):
+    """(batch dims, M, K, flattened batch) of a [*B, M, K] lhs."""
+    if a.dim() < 3:
+        raise CimOpError(f"batched matmul needs [*B, M, K] lhs, "
+                         f"got {tuple(a.shape)}")
+    bdims = tuple(int(d) for d in a.shape[:-2])
+    bf = 1
+    for d in bdims:
+        bf *= d
+    return bdims, int(a.shape[-2]), int(a.shape[-1]), bf
+
+
+def _check_batched_rhs(a: torch.Tensor, b: Optional[torch.Tensor],
+                       bdims: Tuple[int, ...], k: int) -> int:
+    """N of a [*B, K, N] rhs matching the lhs, or CimOpError."""
+    if b is None or b.dim() != a.dim() \
+            or tuple(int(d) for d in b.shape[:-2]) != bdims \
+            or int(b.shape[-2]) != k:
+        raise CimOpError(
+            f"batched matmul needs [*B,M,K] x [*B,K,N], got {tuple(a.shape)} "
+            f"{None if b is None else tuple(b.shape)}")
+    return int(b.shape[-1])
+
+
+def dot(a: torch.Tensor, b: torch.Tensor, n_bits: int = 8,
+        backend: Optional[str] = None,
+        spec: Optional[ArraySpec] = None) -> torch.Tensor:
+    """Exact intN x intN -> int32 dot product of two [K] vectors."""
+    return matmul(a.reshape(1, -1), b.reshape(-1, 1), n_bits=n_bits,
+                  backend=backend, spec=spec)[0, 0]
+
+
+# ---------------------------------------------------------------------------
+# chain executor: one cursor for a fused multi-op region
+# ---------------------------------------------------------------------------
+
+
+class ChainExecutor:
+    """Executes a fused region Schedule (`planner.concat_schedules`)
+    through ONE shared cursor: each constituent op issues its planned
+    accesses in order against the same cursor, so a whole multi-op region
+    keeps the per-macro guarantee — ledger accesses == region plan length —
+    with every intermediate in the packed domain."""
+
+    def __init__(self, schedule: planner.Schedule,
+                 backend: Optional[str] = None,
+                 spec: Optional[ArraySpec] = None,
+                 charges: Optional[list] = None):
+        self.cursor = ScheduleCursor(schedule, backend, spec=spec,
+                                     charges=charges)
+
+    @classmethod
+    def from_cursor(cls, cursor: ScheduleCursor) -> "ChainExecutor":
+        """Wrap an already-open cursor (a schedule program's own)."""
+        self = cls.__new__(cls)
+        self.cursor = cursor
+        return self
+
+    # -- single-access ops (one planned step each) --------------------------
+    def execute(self, a: PlanePack, b: PlanePack,
+                ops: Sequence[str]) -> engine.Outputs:
+        return self.cursor.execute(a, b, ops)
+
+    def minimum(self, a: PlanePack, b: PlanePack) -> PlanePack:
+        return _minimum_with(self.cursor, a, b)
+
+    def maximum(self, a: PlanePack, b: PlanePack) -> PlanePack:
+        return _maximum_with(self.cursor, a, b)
+
+    def abs_(self, a: PlanePack) -> PlanePack:
+        return _abs_with(self.cursor, a)
+
+    def neg(self, a: PlanePack) -> PlanePack:
+        zero = PlanePack.zeros_like(a)
+        return self.cursor.execute(zero, a, ("sub",))["sub"]
+
+    # -- multi-access macros (their planned segment of the region) ----------
+    def multiply(self, a: PlanePack, b: PlanePack) -> PlanePack:
+        return _multiply_with(self.cursor, a, b)
+
+    def popcount(self, a: PlanePack) -> PlanePack:
+        return _popcount_with(self.cursor, a)
+
+    def reduce_sum(self, a: PlanePack) -> PlanePack:
+        acc = _reduce_with(self.cursor, a,
+                           n_steps=planner._log2_ceil(max(1, a.n_words)))
+        return PlanePack(planes=acc.planes, n_bits=acc.n_bits,
+                         signed=acc.signed, shape=())
+
+    def matmul(self, a: torch.Tensor, b: Optional[torch.Tensor],
+               n_bits: int, signed: bool = True,
+               b_pack: Optional[PlanePack] = None) -> PlanePack:
+        if a.dim() != 2:
+            raise CimOpError(f"matmul needs [M,K] lhs, got {tuple(a.shape)}")
+        m, k = (int(d) for d in a.shape)
+        if b_pack is not None:
+            return _contract_with(self.cursor, a, None, m, 1, n_bits, signed,
+                                  b_pack, (m, int(b_pack.shape[2])))
+        if b is None or b.dim() != 2 or int(b.shape[0]) != k:
+            raise CimOpError(
+                f"matmul needs [M,K] x [K,N], got {tuple(a.shape)} "
+                f"{None if b is None else tuple(b.shape)}")
+        return _contract_with(self.cursor, a, b.unsqueeze(0), m, 1, n_bits,
+                              signed, None, (m, int(b.shape[1])))
+
+    def batched_matmul(self, a: torch.Tensor, b: Optional[torch.Tensor],
+                       n_bits: int, signed: bool = True,
+                       b_pack: Optional[PlanePack] = None) -> PlanePack:
+        bdims, m, k, bf = _batch_dims(a)
+        a2 = a.reshape(bf * m, k)
+        if b_pack is not None:
+            return _contract_with(self.cursor, a2, None, m, bf, n_bits,
+                                  signed, b_pack,
+                                  bdims + (m, int(b_pack.shape[2])))
+        n = _check_batched_rhs(a, b, bdims, k)
+        return _contract_with(self.cursor, a2, b.reshape(bf, k, n), m, bf,
+                              n_bits, signed, None, bdims + (m, n))
+
+    def finish(self) -> None:
+        self.cursor.finish()
+
+
+# ---------------------------------------------------------------------------
+# integer-level convenience wrappers (pack at entry, unpack at exit)
+# ---------------------------------------------------------------------------
+
+
+def multiply_ints(x: torch.Tensor, y: torch.Tensor, n_bits: int = 16,
+                  signed: bool = True, backend: Optional[str] = None,
+                  spec: Optional[ArraySpec] = None) -> torch.Tensor:
+    return multiply(PlanePack.pack(x, n_bits, signed=signed),
+                    PlanePack.pack(y, n_bits, signed=signed),
+                    backend=backend, spec=spec).unpack()
+
+
+def relu_ints(x: torch.Tensor, n_bits: int = 16,
+              backend: Optional[str] = None,
+              spec: Optional[ArraySpec] = None) -> torch.Tensor:
+    return relu(PlanePack.pack(x, n_bits), backend=backend,
+                spec=spec).unpack()
+
+
+def abs_ints(x: torch.Tensor, n_bits: int = 16,
+             backend: Optional[str] = None,
+             spec: Optional[ArraySpec] = None) -> torch.Tensor:
+    return abs_(PlanePack.pack(x, n_bits), backend=backend,
+                spec=spec).unpack()
+
+
+def minimum_ints(x: torch.Tensor, y: torch.Tensor, n_bits: int = 16,
+                 backend: Optional[str] = None,
+                 spec: Optional[ArraySpec] = None) -> torch.Tensor:
+    return minimum(PlanePack.pack(x, n_bits), PlanePack.pack(y, n_bits),
+                   backend=backend, spec=spec).unpack()
+
+
+def maximum_ints(x: torch.Tensor, y: torch.Tensor, n_bits: int = 16,
+                 backend: Optional[str] = None,
+                 spec: Optional[ArraySpec] = None) -> torch.Tensor:
+    return maximum(PlanePack.pack(x, n_bits), PlanePack.pack(y, n_bits),
+                   backend=backend, spec=spec).unpack()
+
+
+def popcount_ints(x: torch.Tensor, n_bits: int = 16,
+                  backend: Optional[str] = None,
+                  spec: Optional[ArraySpec] = None) -> torch.Tensor:
+    return popcount(PlanePack.pack(x, n_bits), backend=backend,
+                    spec=spec).unpack()
+
+
+def reduce_sum_ints(x: torch.Tensor, n_bits: int = 16, signed: bool = True,
+                    backend: Optional[str] = None,
+                    spec: Optional[ArraySpec] = None) -> torch.Tensor:
+    return reduce_sum(PlanePack.pack(x, n_bits, signed=signed),
+                      backend=backend, spec=spec).unpack()

@@ -1,17 +1,20 @@
 """Macro-op planner: lower multi-access CiM arithmetic to access schedules.
 
-Port of `repro.cim.planner` (the plans the int8 serve path uses: multiply,
-reduce_sum, matmul and batched matmul; the other plans wait). A `Schedule`
+Port of `repro.cim.planner`. A `Schedule`
 is an ordered tuple of `Step`s, each exactly one engine access, and
 `Schedule.accesses == len(steps)` is the number of ADRA array accesses the
 macro performs: `repro_torch.cim.macro` executes schedules through a cursor
 that refuses to deviate from them, so the ledger's access count provably
-equals the planned count. The module holds no tensors.
+equals the planned count. `placed()` pins a schedule to a banked
+geometry, and `placed_accesses` is then the activation count the ledger
+shows. `concat_schedules` fuses a run of schedules into one region plan,
+and `schedule_traffic_bytes` models a schedule's device-memory bytes fused
+against unfused. The module holds no tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 from . import opset
 from .array import ArraySpec, TilePlan
@@ -145,6 +148,53 @@ def plan_multiply(n_bits_a: int, n_bits_b: int,
     return Schedule("multiply", tuple(steps), out_bits=n_bits_a + n_bits_b)
 
 
+def plan_elementwise(ops: Tuple[str, ...], out_bits: int,
+                     macro: Optional[str] = None) -> Schedule:
+    """One single-access elementwise step: every op in `ops` from the same
+    dual-row activation (add/sub/compare/any Boolean function)."""
+    ops = opset.validate_ops(tuple(ops))
+    return Schedule(macro or "+".join(ops), (Step(ops, role="ew"),),
+                    out_bits=out_bits)
+
+
+def plan_neg(n_bits: int) -> Schedule:
+    """0 - a: one sub access against the array's zero row."""
+    return Schedule("neg", (Step(("sub",), role="neg"),), out_bits=n_bits + 1)
+
+
+def plan_abs(n_bits: int) -> Schedule:
+    """abs via the sub chain: ONE access computes 0 - a and the 0 < a
+    predicate together; a peripheral select between a and -a finishes it."""
+    return Schedule("abs", (Step(("sub", "lt"), role="pred"),),
+                    out_bits=n_bits + 1)
+
+
+def plan_relu(n_bits: int) -> Schedule:
+    """relu: one access for the a > 0 predicate; peripheral select a vs 0."""
+    return Schedule("relu", (Step(("gt",), role="pred"),), out_bits=n_bits)
+
+
+def plan_minimum(n_bits: int) -> Schedule:
+    return Schedule("minimum", (Step(("lt",), role="pred"),), out_bits=n_bits)
+
+
+def plan_maximum(n_bits: int) -> Schedule:
+    return Schedule("maximum", (Step(("gt",), role="pred"),), out_bits=n_bits)
+
+
+def plan_popcount(n_bits: int) -> Schedule:
+    """Pairwise tree over the n single-bit planes: n - 1 add accesses."""
+    if n_bits < 1:
+        raise opset.CimOpError(f"popcount needs positive width, got {n_bits}")
+    steps, level = [], n_bits
+    while level > 1:
+        pairs = level // 2
+        steps.extend(Step(("add",), role="pair") for _ in range(pairs))
+        level = pairs + (level % 2)
+    return Schedule("popcount", tuple(steps),
+                    out_bits=_log2_ceil(n_bits + 1) + 1)
+
+
 def plan_reduce_sum(n_elems: int, stride: int = 1,
                     n_bits: int = 32) -> Schedule:
     """Log-stride tree reduction: ceil(log2(n)) add accesses, each fed by a
@@ -178,6 +228,10 @@ def plan_matmul(k: int, n_cols: int, n_bits: int = 8,
                      operands=("lhs", "rhs"))
     return sched.with_resident("rhs") if resident_rhs else sched
 
+
+def plan_dot(k: int, n_bits: int = 8, signed: bool = True) -> Schedule:
+    sched = plan_matmul(k, 1, n_bits=n_bits, signed=signed)
+    return dataclasses.replace(sched, macro="dot")
 
 
 def plan_batched_matmul(batch: int, k: int, n_cols: int, n_bits: int = 8,
@@ -214,10 +268,55 @@ def plan_batched_matmul(batch: int, k: int, n_cols: int, n_bits: int = 8,
     return sched.with_resident("rhs") if resident_rhs else sched
 
 
+def concat_schedules(schedules: Sequence[Schedule],
+                     macro: str = "region") -> Schedule:
+    """Fuse an ordered run of schedules into ONE region plan: the step-wise
+    concatenation, run through one ScheduleCursor, with `segments` keeping
+    the per-op boundaries."""
+    schedules = list(schedules)
+    if not schedules:
+        raise opset.CimOpError("cannot concatenate zero schedules")
+    steps: Tuple[Step, ...] = ()
+    segments = []
+    for s in schedules:
+        steps = steps + s.steps
+        segments.append((s.macro, len(s.steps)))
+    return Schedule(macro=macro, steps=steps,
+                    out_bits=max(s.out_bits for s in schedules),
+                    segments=tuple(segments))
+
 
 PLANS = {
     "multiply": plan_multiply,
+    "neg": plan_neg,
+    "abs": plan_abs,
+    "relu": plan_relu,
+    "minimum": plan_minimum,
+    "maximum": plan_maximum,
+    "popcount": plan_popcount,
     "reduce_sum": plan_reduce_sum,
     "matmul": plan_matmul,
+    "dot": plan_dot,
     "batched_matmul": plan_batched_matmul,
 }
+
+
+def schedule_traffic_bytes(schedule: Schedule, n_bits: int, n_words32: int,
+                           working_bits: Optional[int] = None
+                           ) -> Dict[str, float]:
+    """Device-memory byte model of a schedule fused vs unfused.
+
+    Fused: both operand stacks stream ONCE and the result is written once;
+    every intermediate stays in the array, and a resident side streams
+    nothing. Unfused (the near-memory baseline): each step re-reads its two
+    operand stacks at the working width and writes its outputs back."""
+    w = working_bits if working_bits is not None else schedule.out_bits
+    plane_bytes = 4 * n_words32
+    streamed_sides = 2 - min(len(schedule.resident), 2)
+    fused = (streamed_sides * n_bits + schedule.out_bits) * plane_bytes
+    baseline = 0.0
+    for step in schedule.steps:
+        out_rows = sum(opset.out_rows(op, w) for op in step.ops)
+        baseline += (2 * w + out_rows) * plane_bytes
+    return {"fused": float(fused), "baseline": float(baseline),
+            "ratio": baseline / fused}

@@ -4,7 +4,7 @@ Port of `repro.data.pipeline`'s host part (numpy only, copied so the port
 imports nothing of `repro`): tokens are a stateless function of (seed,
 step, position), so resuming from a checkpoint at step k reproduces batch
 k bit for bit with no iterator state to persist. `sharded_batch` and
-`embed_stub_batch` wait with the mesh (ROADMAP A15); the train driver moves
+`embed_stub_batch` wait with the mesh (ROADMAP A12); the train driver moves
 the numpy batch to its device.
 """
 from __future__ import annotations

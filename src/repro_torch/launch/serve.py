@@ -75,7 +75,8 @@ from repro_torch import resolve_device
 from repro_torch.cim import accounting, dispatch
 from repro_torch.cim import planner
 from repro_torch.cim.array import (DEFAULT_SPEC, ArraySpec, clear_resident,
-                                   registry_reserve_rows, resident_set)
+                                   registry_reserve_rows, resident_set,
+                                   set_current_spec)
 from repro_torch.configs import preset_config
 from repro_torch.launch.paged_kv import PagedKV
 from repro_torch.models.model import XLSTM_CELLS, Model, build, with_cim
@@ -327,6 +328,7 @@ def fresh_cim_state() -> None:
     accounting.ledger().reset()
     clear_resident()
     dispatch.clear_schedule_cache()
+    set_current_spec(None)
 
 
 def _decode_weight_pins(cfg, slots: int) -> List[int]:

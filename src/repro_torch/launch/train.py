@@ -16,7 +16,7 @@ of npz (f32 params and both Adam moments): keep `--ckpt-every` above
 `--steps` on the card.
 
 There is no mesh: one process trains on one device, without the
-reference's sharding specs, `jax.jit` and donation (ROADMAP A15). Each
+reference's sharding specs, `jax.jit` and donation (ROADMAP A12). Each
 step is timed between two device synchronizes, so its wall ms covers the
 device's work as well as the host's. It
 prints every `--log-every`-th step's loss, ce, grad norm and wall ms; at

@@ -10,11 +10,12 @@ reference, which lowers only `gqa_decode` to CiM). Sequences of
 (`blockwise_attention.py`), as the reference's `_attend` does. MLA waits.
 
 `sdpa_cim` runs QK^T and AV as planned batched CiM schedules by calling
-`repro_torch.cim.macro.batched_matmul` directly (two dispatches per call);
-the reference stages the same quantized core through its lowering compiler,
-whose two regions each hold one batched `dot_general`. KV streams into the
-array every decode step, as `gqa_decode_cim` does in the reference: the
-functional cache update makes fresh tensors per token.
+`repro_torch.cim.macro.batched_matmul` directly (two dispatches per call),
+banked on `spec` when one is given and unbanked otherwise, as in the
+reference; the reference stages the same quantized core through its
+lowering compiler, whose two regions each hold one batched `dot_general`.
+KV streams into the array every decode step, as `gqa_decode_cim` does in
+the reference: the functional cache update makes fresh tensors per token.
 """
 from __future__ import annotations
 
@@ -88,13 +89,14 @@ def _sdpa_quantized(q, k, v, mask, scale, n_bits: int = 8) -> torch.Tensor:
 
 
 def sdpa_cim(q, k, v, mask, scale, n_bits: int = 8,
-             backend: Optional[str] = None) -> torch.Tensor:
-    """Grouped SDPA with QK^T and AV executed as planned CiM schedules:
-    exactly two dispatches per call, whatever the batch, heads or length."""
+             backend: Optional[str] = None, spec=None) -> torch.Tensor:
+    """Grouped SDPA with QK^T and AV executed as planned CiM schedules on
+    the banked `spec` (None: unbanked): exactly two dispatches per call,
+    whatever the batch, heads or length."""
     qs = q.float() * torch.tensor(scale, dtype=torch.float32)
 
     def bmm(a, b, nb):
-        return cim_batched_matmul(a, b, nb, backend=backend)
+        return cim_batched_matmul(a, b, nb, backend=backend, spec=spec)
 
     return _sdpa_quantized_core(qs, k, v, mask, n_bits, bmm=bmm).to(q.dtype)
 

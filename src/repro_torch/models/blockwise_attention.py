@@ -15,7 +15,7 @@ Python loop. `_bwd` is also the backward of `kernels.ops.attention`, whose
 forward is the CUDA flash kernel on the card. Inputs in float64 compute in
 float64 (for `torch.autograd.gradcheck`); anything else in float32, as the
 reference. The quantized and CiM variants wait with the lowering compiler
-(ROADMAP A8).
+(ROADMAP A3).
 """
 from __future__ import annotations
 

@@ -13,10 +13,15 @@ of its MLP regions holds exactly one integer `dot_general`, executed by the
 same `_matmul_with` dataflow, so the accesses, dispatches and loads per
 call are the same (the region's int32 entry packs are charged through
 `entry_bits`). Porting the lowering compiler itself is later work.
+`spec` is the banked geometry the contractions run on, as in the
+reference: `spec=None` resolves through `array.spec_override()`, so it
+means unbanked until a degraded spec is installed with `set_current_spec`.
 Resident weights: `matmul_rhs_pack(wq, m, n_bits)` is pinned per weight
 tensor and row count m, keyed by the identity of the weight tensor, when
 its rows fit the resident budget — an oversize pack stays streamed, as the
-reference's residency planning decides.
+reference's residency planning decides. The pins live in the registry
+ResidentSet of `resident_spec` (the serve's widened array), else of the
+banked spec, as the reference's lowered regions pin.
 """
 from __future__ import annotations
 
@@ -163,13 +168,15 @@ def quantized_batched_matmul(a: torch.Tensor, b: torch.Tensor,
 
 
 def cim_batched_matmul(a: torch.Tensor, b: torch.Tensor, n_bits: int = 8,
-                       backend: Optional[str] = None) -> torch.Tensor:
+                       backend: Optional[str] = None,
+                       spec: Optional[array_mod.ArraySpec] = None
+                       ) -> torch.Tensor:
     """`quantized_batched_matmul` with its integer contraction run as a
-    planned batched CiM schedule (one dispatch)."""
+    planned batched CiM schedule (one dispatch), banked on `spec` if given."""
     aq, sa = quantize_symmetric(a, n_bits)
     bq, sb = quantize_symmetric(b, n_bits)
     y = macro.batched_matmul(aq, bq, n_bits=n_bits, backend=backend,
-                             entry_bits=32)
+                             spec=spec, entry_bits=32)
     return y.float() * (sa * sb)
 
 
@@ -210,40 +217,51 @@ def _resident_rhs(rs: array_mod.ResidentSet, w: torch.Tensor, m: int,
 
 def cim_linear(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
                backend: Optional[str] = None,
-               resident_set: Optional[array_mod.ResidentSet] = None
+               spec: Optional[array_mod.ArraySpec] = None,
+               resident: bool = False,
+               resident_spec: Optional[array_mod.ArraySpec] = None
                ) -> torch.Tensor:
     """x @ w through intN quantization with the integer contraction run as
     a planned CiM schedule: x [..., D], w [D, F] -> f32 [..., F], bit-exact
-    with `_quantized_linear`. With `resident_set` the int8 weight planes
-    are pinned at first call and reused while `w` is the same tensor."""
+    with `_quantized_linear`, on the banked `spec` (see the module note on
+    `spec=None`). With `resident` the int8 weight planes are pinned at
+    first call and reused while `w` is the same tensor."""
+    if spec is None:
+        spec = array_mod.spec_override()
     d, f = (int(s) for s in w.shape)
     lead = tuple(x.shape[:-1])
     xq, sx = quantize_symmetric(x, n_bits)
     xq = xq.reshape(-1, d)
     pack = None
-    if resident_set is not None:
-        pack = _resident_rhs(resident_set, w, xq.shape[0], n_bits)
+    if resident:
+        rs = array_mod.resident_set(resident_spec or spec)
+        pack = _resident_rhs(rs, w, xq.shape[0], n_bits)
     if pack is not None:
         sw = _quant_scale(w, n_bits)
-        y = macro.matmul(xq, None, n_bits=n_bits, backend=backend,
+        y = macro.matmul(xq, None, n_bits=n_bits, backend=backend, spec=spec,
                          b_pack=pack, entry_bits=32)
     else:
         wq, sw = quantize_symmetric(w, n_bits)
-        y = macro.matmul(xq, wq, n_bits=n_bits, backend=backend,
+        y = macro.matmul(xq, wq, n_bits=n_bits, backend=backend, spec=spec,
                          entry_bits=32)
     return (y.float() * (sx * sw)).reshape(lead + (f,))
 
 
 def mlp_cim(p: Params, x: torch.Tensor, gating: str, n_bits: int = 8,
-            backend: Optional[str] = None, resident: bool = False,
-            spec: Optional[array_mod.ArraySpec] = None) -> torch.Tensor:
-    """The quantized MLP with every integer matmul in the CiM array and
-    every float op (scales, gating) on the host. `resident=True` pins the
-    int8 weight planes in the registry ResidentSet of `spec`."""
-    rs = array_mod.resident_set(spec) if resident else None
+            backend: Optional[str] = None,
+            spec: Optional[array_mod.ArraySpec] = None,
+            resident: bool = False,
+            resident_spec: Optional[array_mod.ArraySpec] = None
+            ) -> torch.Tensor:
+    """The quantized MLP with every integer matmul in the CiM array on the
+    banked `spec` (`spec=None`: `array.spec_override()`, so a degraded spec
+    installed with `set_current_spec` re-routes here too) and every float
+    op (scales, gating) on the host. `resident=True` pins the int8 weight
+    planes in the registry ResidentSet of `resident_spec`, else of `spec`."""
     return _mlp_quantized(
         p, x, gating, n_bits,
-        linear=lambda x_, w_: cim_linear(x_, w_, n_bits, backend, rs))
+        linear=lambda x_, w_: cim_linear(x_, w_, n_bits, backend, spec,
+                                         resident, resident_spec))
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ covers real-TPU execution; on the card the port plays the TPU's role, so
 its train forward calls `gqa_apply(use_flash=True)`: the CUDA flash kernel
 forward, the blockwise backward. Both compute the same function and are
 held to each other. `rec`, `local`, `mlstm` and `slstm` layers do not
-train yet (ROADMAP A15).
+train yet (ROADMAP A11).
 
 Differences from the reference: MoE and MLA wait. The prefill runs
 eagerly, so its CiM MLPs charge the ledger on every call (the reference's
@@ -66,10 +66,10 @@ Params = Dict[str, Any]
 
 #: layer kinds whose train path waits, with the ROADMAP item that ports it
 TRAIN_WAITS = {
-    "rec": "ROADMAP A15: the hybrid train path (RG-LRU backward)",
-    "local": "ROADMAP A15: the hybrid train path",
-    "mlstm": "ROADMAP A15: the xLSTM train path",
-    "slstm": "ROADMAP A15: the xLSTM train path (sLSTM backward)",
+    "rec": "ROADMAP A11: the hybrid train path (RG-LRU backward)",
+    "local": "ROADMAP A11: the hybrid train path",
+    "mlstm": "ROADMAP A11: the xLSTM train path",
+    "slstm": "ROADMAP A11: the xLSTM train path (sLSTM backward)",
 }
 
 #: the layer kinds this port runs
@@ -259,7 +259,7 @@ class Model(nn.Module):
             return _mlp_quantized(p, h, cfg.gating, cfg.cim_mlp_bits)
         return mlp_cim(p, h, cfg.gating, n_bits=cfg.cim_mlp_bits,
                        resident=cfg.cim_resident and mode == "decode",
-                       spec=self.resident_spec)
+                       resident_spec=self.resident_spec)
 
     def _train_layer(self, i: int, x, positions) -> torch.Tensor:
         """One `attn` layer of the train path: ln1, flash attention, ln2,

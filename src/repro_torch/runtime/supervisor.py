@@ -10,7 +10,7 @@ Port of `repro.runtime.supervisor`:
 
 A restore writes the checkpoint into the live state's tensors
 (`CheckpointManager.restore`). The elastic re-meshing controller
-(`runtime/elastic.py`) waits with the mesh (ROADMAP A15).
+(`runtime/elastic.py`) waits with the mesh (ROADMAP A12).
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ Port of `repro.train.step`. The train state is a plain dict {"params",
 "opt", "step"} (plus "residuals" with gradient compression), whose
 "params" are the model's own `nn.Parameter`s: a step runs the backward
 into their `.grad`, then `adamw.update` writes the new values into them
-in place. The ADRA tournament sampler waits (ROADMAP A8).
+in place. The ADRA tournament sampler waits (ROADMAP A4).
 """
 from __future__ import annotations
 
