@@ -51,7 +51,10 @@ Phases, each fatal on failure (nothing is caught):
                library yardstick, never on the path) at gemma-2b's train
                shape;
   2b. banked — gemma-2b's decode contractions at full width (2 slots:
-               the GeGLU MLP, d_model 2048 x 16384, through `mlp_cim`;
+               the GeGLU MLP, d_model 2048 x 16384, lowered under policy
+               "always", and through `mlp_cim`, whose default "edp" policy
+               hosts the two up-projections on this array as the
+               reference's plan does;
                QK^T and AV of 8x1 heads of 256 over 16 cached positions
                through `sdpa_cim`) on the paper's array (DEFAULT_SPEC: 4
                banks of 4 x 1024-word subarrays), cold and warm, against
@@ -70,8 +73,22 @@ Phases, each fatal on failure (nothing is caught):
                the largest decode access timed unbanked and banked (the
                kernel alone by CUDA events, in turns; the whole call under
                the profiler, with the tile/untile glue's share);
+  2c. lower — the lowering compiler (`repro_torch.cim.lower`) on the card:
+               gemma-2b's GeGLU MLP at full width (2 slots, d_model 2048,
+               d_ff 16384) through `mlp_cim` (policy "edp") and under
+               policy "always", streamed and resident: 3 regions, 3 warm
+               dispatches, accesses equal to the summed region schedules,
+               output equal to the bit to the plain `_mlp_quantized`;
+               `sdpa_cim` at 8x1 heads of 256 over 16 cached positions: 2
+               regions, 2 warm dispatches; `blockwise_attention_cim` over
+               2048 kv positions in blocks of 512, causal and not: 2
+               dispatches per block from two programs shared across
+               blocks, equal to `blockwise_attention_quantized`; a seeded
+               composed integer graph (elementwise, compare/select, mul,
+               full sum, a contraction; int8 and int16) equal to torch's
+               own integer ops, under the default policy and "never";
   3. gemma   — gemma-2b at full width through the port's serve entry point
-               (int8 CiM decode, streamed repack phase, resident phase, warm
+               (int8 CiM decode through `lower()`, streamed repack phase, resident phase, warm
                replay), asserting 2214 accesses and 90 dispatches per decode
                step and that the fused kernel's launches cover every access;
                the same request schedule through the quantized host twins
@@ -357,6 +374,7 @@ def phase_banked(dev) -> dict:
     from repro_torch.cim import array, dispatch, engine, fused_kernel, macro
     from repro_torch.cim import planner
     from repro_torch.cim.accounting import LEDGER
+    from repro_torch.cim.lower import lower
     from repro_torch.cim.planepack import PlanePack
     from repro_torch.configs import preset_config
     from repro_torch.models import attention, layers
@@ -431,11 +449,38 @@ def phase_banked(dev) -> dict:
         assert torch.equal(res[0]["y"], res[1]["y"]), name
         return res
 
+    # every contraction placed: the lowered MLP under policy "always"; under
+    # the default "edp" the cost model hosts the two up-projections on this
+    # array (their stride-N reductions cross banks on most steps), as the
+    # reference's plan does, and mlp_cim lowers only the down-projection
+    always = lower(lambda p_, x_: layers._mlp_quantized(p_, x_, cfg.gating,
+                                                        8),
+                   spec=spec, policy="always")
     t = time.perf_counter()
     flat_mlp = run("mlp unbanked", lambda: layers.mlp_cim(
         p, x, cfg.gating), mlp_plans, None, None)
-    bank_mlp = run("mlp banked", lambda: layers.mlp_cim(
-        p, x, cfg.gating, spec=spec), mlp_plans, spec, spec.enabled_banks)
+    bank_mlp = run("mlp banked", lambda: always(p, x), mlp_plans, spec,
+                   spec.enabled_banks)
+    edp_plans = mlp_plans[2:]
+    edp = layers._lowered_mlp(cfg.gating, 8, None, spec).trace(p, x)
+    assert [(v.name, v.words) for v in edp.offload_plan.verdicts
+            if v.index in edp.offload_plan.demoted] == \
+        [("dot_general", mlp_plans[0][1])] * 2, edp.describe()
+    bank_edp = run("mlp banked edp", lambda: layers.mlp_cim(
+        p, x, cfg.gating, spec=spec), edp_plans, spec, spec.enabled_banks)
+    assert torch.equal(bank_edp[0]["y"], flat_mlp[0]["y"])
+    out["launches"] += bank_edp[0]["launches"] + bank_edp[1]["launches"]
+    out["cases"]["mlp edp"] = {
+        "accesses": bank_edp[0]["accesses"],
+        "launches": bank_edp[0]["launches"],
+        "demoted": edp.offload_plan.demoted_eqns,
+        "margins": [v.margin for v in edp.offload_plan.verdicts
+                    if v.index in edp.offload_plan.demoted]}
+    print(f"banked[mlp edp]: the cost model hosts "
+          f"{edp.offload_plan.demoted_eqns} of 3 contractions on this array "
+          f"(margins {out['cases']['mlp edp']['margins']}); "
+          f"{bank_edp[0]['accesses']} accesses, output equal to the "
+          f"unbanked call's")
     flat_att = run("sdpa unbanked", lambda: attention.sdpa_cim(
         q, k, v, mask, scale, n_bits=8), attn_plans, None, None)
     bank_att = run("sdpa banked", lambda: attention.sdpa_cim(
@@ -459,7 +504,7 @@ def phase_banked(dev) -> dict:
               f"{bank[0]['words32']}, {bank[0]['launches']} launches, warm "
               f"dispatches {bank[1]['dispatches']}")
     LEDGER.reset()
-    layers.mlp_cim(p, x, cfg.gating, spec=spec)
+    always(p, x)
     print(f"banked[mlp]: bank_report {json.dumps(LEDGER.bank_report(spec))}")
     out["mlp_s"] = time.perf_counter() - t
 
@@ -468,7 +513,7 @@ def phase_banked(dev) -> dict:
     array.set_current_spec(dead)
     try:
         deg = run("mlp degraded", lambda: layers.mlp_cim(p, x, cfg.gating),
-                  mlp_plans, dead, dead.enabled_banks)
+                  edp_plans, dead, dead.enabled_banks)
     finally:
         array.set_current_spec(None)
     assert all(b != 1 for _d, b in deg[0]["banks"]), deg[0]["banks"]
@@ -611,6 +656,240 @@ def phase_banked(dev) -> dict:
           f"{bank_k:.4f} of {bank_b:.4f} busy, tile/untile glue share "
           f"{1 - bank_k / bank_b:.3f}")
     del pa, pb, ta, tb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the lower phase's composed graph: int8 and int16 operands of this many
+#: words, and an int8 contraction [M, K] x [K, N]
+LOWER_GRAPH_WORDS = 1 << 16
+LOWER_GRAPH_MKN = (64, 256, 64)
+#: the lower phase's blockwise attention: (query tokens, kv positions,
+#: kv block)
+LOWER_BLOCKWISE = (16, 2048, 512)
+
+
+def composed_graph(seed: int, dtype):
+    """A seeded random integer graph over three operands of `dtype`:
+    elementwise ops, compare + select, mul, a full sum rebroadcast, an
+    int->int convert round trip and bitwise not, then an int8 contraction
+    (int32 result) and its bias add. Returns the function."""
+    import torch
+    from repro_torch.cim.trace import int_contract
+
+    rng = random.Random(seed)
+    steps = [(rng.randrange(10), rng.randrange(10_000)) for _ in range(8)]
+
+    def fn(a, b, c, x, w):
+        vals = [a, b, c]
+        for kind, sel in steps:
+            u = vals[sel % len(vals)]
+            v = vals[(sel // 7) % len(vals)]
+            if kind == 0:
+                r = u + v
+            elif kind == 1:
+                r = u - v
+            elif kind == 2:
+                r = u * v
+            elif kind == 3:
+                r = u ^ v
+            elif kind == 4:
+                r = torch.minimum(u, v)
+            elif kind == 5:
+                r = torch.maximum(u, v)
+            elif kind == 6:
+                cmp = (u < v, u <= v, u > v, u >= v, u == v, u != v)[sel % 6]
+                r = torch.where(cmp, u, v)
+            elif kind == 7:
+                r = u + torch.sum(u, dtype=dtype)
+            elif kind == 8:
+                r = ~u.to(torch.int8).to(dtype)
+            else:
+                r = torch.abs(u)
+            vals.append(r)
+        y = int_contract(x, w)
+        return vals[-1], vals[-2], y + torch.sum(y, dtype=torch.int32)
+
+    return fn
+
+
+def phase_lower(dev) -> dict:
+    """The lowering compiler on the card: gemma-2b's GeGLU MLP at full
+    width through `mlp_cim` (the default "edp" policy) and under "always",
+    streamed and resident; `sdpa_cim` at gemma-2b's heads over 16 cached
+    positions; `blockwise_attention_cim` over 2048 kv positions in blocks
+    of 512, causal and not; a composed integer graph in int8 and int16
+    against torch's own integer ops, with policy "never" too. Region counts,
+    warm dispatches and accesses against the capture's plan; outputs to the
+    bit against the plain functions on the card."""
+    import torch
+
+    from repro_torch.cim import cost, dispatch, fused_kernel, planner
+    from repro_torch.cim.accounting import LEDGER
+    from repro_torch.cim.lower import lower
+    from repro_torch.configs import preset_config
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, layers
+    from repro_torch.models.blockwise_attention import (
+        blockwise_attention_cim, blockwise_attention_quantized)
+    from repro_torch.models.model import with_cim
+
+    fused = fused_kernel.fused_planes_op
+    cfg = preset_config("gemma-2b", "full")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    act = cfg.activation_dtype()
+    p = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gating, act, dev)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen, device=dev).to(act)
+    out = {"launches": 0, "cases": {}}
+
+    def calls(name, fn, n_calls=2):
+        """fn() cold then warm: results, ledger accesses, dispatches,
+        misses, resident pins/hits and wall ms of each call."""
+        res = []
+        for _ in range(n_calls):
+            LEDGER.reset()
+            c0 = dispatch.cache_stats()
+            fused.launches = 0
+            t = time.perf_counter()
+            y = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            c1 = dispatch.cache_stats()
+            out["launches"] += fused.launches
+            res.append({"y": y, "ms": ms, "accesses": LEDGER.accesses,
+                        "launches": fused.launches,
+                        **{k: c1[k] - c0[k] for k in (
+                            "dispatches", "misses", "resident_pins",
+                            "resident_hits")}})
+        return res
+
+    def record(name, res, regions, **extra):
+        out["cases"][name] = dict(
+            regions=regions, accesses=res[0]["accesses"],
+            launches=res[0]["launches"],
+            cold_dispatches=res[0]["dispatches"],
+            warm_dispatches=res[1]["dispatches"],
+            warm_misses=res[1]["misses"], cold_ms=res[0]["ms"],
+            warm_ms=res[1]["ms"], **extra)
+        print(f"lower[{name}]: {regions} regions, {res[0]['accesses']} "
+              f"accesses, {res[0]['launches']} launches, dispatches cold "
+              f"{res[0]['dispatches']} / warm {res[1]['dispatches']} (warm "
+              f"misses {res[1]['misses']}), wall ms cold {res[0]['ms']:.2f} "
+              f"/ warm {res[1]['ms']:.2f}"
+              + "".join(f", {k} {v}" for k, v in extra.items()))
+
+    # -- gemma-2b's MLP: edp (mlp_cim) and always, streamed and resident --
+    twin = layers._mlp_quantized(p, x, cfg.gating, 8)
+    mlp_steps = 2 * planner.plan_matmul(cfg.d_model, cfg.d_ff).accesses \
+        + planner.plan_matmul(cfg.d_ff, cfg.d_model).accesses
+    cost.reset_plan_stats()
+    rspec = serve.resident_array_spec(with_cim(cfg, 8), 2, 16)
+    for policy in ("edp", "always"):
+        for resident in (False, True):
+            name = f"mlp {policy}" + (" resident" if resident else "")
+            if policy == "edp":
+                fn = lambda: layers.mlp_cim(   # noqa: E731
+                    p, x, cfg.gating, resident=resident, resident_spec=rspec)
+                lf = layers._lowered_mlp(
+                    cfg.gating, 8, None, None, resident,
+                    layers._resident_set(resident, rspec))
+            else:
+                lf = lower(lambda p_, x_: layers._mlp_quantized(
+                    p_, x_, cfg.gating, 8), policy="always",
+                    resident_argnums=(0,) if resident else (),
+                    resident_set=layers._resident_set(resident, rspec))
+                fn = lambda: lf(p, x)          # noqa: E731
+            comp = lf.trace(p, x)
+            res = calls(name, fn)
+            planned = sum(r.schedule.accesses for r in comp.regions)
+            assert len(comp.regions) == 3, (name, comp.describe())
+            assert comp.offload_plan.demoted_eqns == 0, comp.describe()
+            for r in res:
+                assert torch.equal(r["y"], twin), name
+                assert r["accesses"] == planned == mlp_steps, \
+                    (name, r["accesses"], planned)
+            assert res[1]["dispatches"] == 3 and res[1]["misses"] == 0, \
+                (name, res[1])
+            if resident:
+                assert res[0]["resident_pins"] == 3, (name, res[0])
+                assert res[1]["resident_hits"] == 3 and \
+                    res[1]["resident_pins"] == 0, (name, res[1])
+            record(name, res, len(comp.regions),
+                   pins=res[0]["resident_pins"],
+                   warm_hits=res[1]["resident_hits"])
+    out["plan_stats"] = dict(cost.PLAN_STATS)
+    print(f"lower[mlp]: offload plan stats {json.dumps(cost.PLAN_STATS)}")
+    del twin
+    serve.fresh_cim_state()
+
+    # -- sdpa_cim at gemma-2b's 8x1 heads of 256 over 16 cached positions -
+    slots, t_max = 2, 16
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((slots, 1, hq, hd), generator=gen, device=dev).to(act)
+    k = torch.randn((slots, t_max, hkv, hd), generator=gen, device=dev).to(act)
+    v = torch.randn((slots, t_max, hkv, hd), generator=gen, device=dev).to(act)
+    pos = torch.tensor([7, 12], device=dev)
+    mask = (torch.arange(t_max, device=dev)[None, :] <= pos[:, None])[:, None]
+    scale = 1.0 / hd ** 0.5
+    want = attention._sdpa_quantized(q, k, v, mask, scale)
+    res = calls("sdpa", lambda: attention.sdpa_cim(q, k, v, mask, scale))
+    qs = q.float() * scale
+    comp = attention._lowered_sdpa(8, None, None).trace(qs, k, v, mask)
+    assert len(comp.regions) == 2, comp.describe()
+    for r in res:
+        assert torch.equal(r["y"], want)
+        assert r["accesses"] == comp.accesses
+    assert res[1]["dispatches"] == 2 and res[1]["misses"] == 0, res[1]
+    record("sdpa", res, len(comp.regions))
+
+    # -- blockwise over 2048 kv positions in blocks of 512 -----------------
+    tq, tk, bk = LOWER_BLOCKWISE
+    qb = torch.randn((1, tq, hq, hd), generator=gen, device=dev)
+    kb = torch.randn((1, tk, hkv, hd), generator=gen, device=dev)
+    vb = torch.randn((1, tk, hkv, hd), generator=gen, device=dev)
+    for causal in (True, False):
+        name = f"blockwise causal={causal}"
+        want = blockwise_attention_quantized(qb, kb, vb, causal=causal,
+                                             block_k=bk)
+        res = calls(name, lambda: blockwise_attention_cim(
+            qb, kb, vb, causal=causal, block_k=bk))
+        for r in res:
+            assert torch.equal(r["y"], want), name
+            assert r["dispatches"] == 2 * (tk // bk), (name, r)
+        assert res[1]["misses"] == 0, (name, res[1])
+        record(name, res, 2, blocks=tk // bk)
+    serve.fresh_cim_state()
+
+    # -- a composed integer graph, int8 and int16 --------------------------
+    m, kk, n = LOWER_GRAPH_MKN
+    for seed, dtype in ((0, torch.int8), (1, torch.int16)):
+        info = torch.iinfo(dtype)
+        a, b, c = (torch.randint(info.min, info.max + 1, (LOWER_GRAPH_WORDS,),
+                                 dtype=dtype, device=dev, generator=gen)
+                   for _ in range(3))
+        xm = torch.randint(-128, 128, (m, kk), dtype=torch.int8, device=dev,
+                           generator=gen)
+        wm = torch.randint(-128, 128, (kk, n), dtype=torch.int8, device=dev,
+                           generator=gen)
+        fn = composed_graph(seed, dtype)
+        want = fn(a, b, c, xm, wm)
+        name = f"graph {str(dtype).split('.')[-1]}"
+        lf = lower(fn)
+        comp = lf.trace(a, b, c, xm, wm)
+        res = calls(name, lambda: lf(a, b, c, xm, wm))
+        for r in res:
+            assert all(torch.equal(g_, w_) for g_, w_ in zip(r["y"], want)), \
+                name
+            assert r["accesses"] == comp.accesses > 0, (name, r)
+        never = lower(fn, policy="never")
+        LEDGER.reset()
+        got = never(a, b, c, xm, wm)
+        torch.cuda.synchronize()
+        assert LEDGER.accesses == 0
+        assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want)), name
+        record(name, res, len(comp.regions), never_equal=True)
+    serve.fresh_cim_state()
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1862,6 +2141,11 @@ def phase_profile(m, dev, max_len: int, position: int) -> None:
 
 
 def main() -> int:
+    # the hybrid serve runs within a few GB of the card's 80; growable
+    # segments keep the caching allocator's freed blocks usable by the
+    # next, differently sized prefill allocation instead of stranding them
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1904,6 +2188,9 @@ def main() -> int:
     t = time.perf_counter()
     banked = phase_banked(dev)
     phases["banked_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    low = phase_lower(dev)
+    phases["lower_s"] = time.perf_counter() - t
     t = time.perf_counter()
     rg = phase_rglru(dev, sm_mhz)
     phases["rglru_s"] = time.perf_counter() - t
@@ -1950,13 +2237,17 @@ def main() -> int:
              "source": "src/repro_torch/cim/csrc/fused_planes.cu",
              "replaces": "src/repro/cim/fused_kernel.py:137",
              "launches": sum(r["fused_launches"] for r in runs.values())
-             + banked["launches"],
+             + banked["launches"] + low["launches"],
              "launches_banked": banked["launches"],
+             "launches_lower": low["launches"],
+             "launches_serve": {a: r["fused_launches"]
+                                for a, r in runs.items()},
              "max_abs_err": kern["max_abs_err"],
              "ms": kern["ms"], "plain_ms": kern["plain_ms"],
              "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
              "library_ms": None, "banked": {k: banked[k] for k in (
-                 "timing", "cap", "cases", "mlp_s")}}
+                 "timing", "cap", "cases", "mlp_s")},
+             "lower": {k: low[k] for k in ("cases", "plan_stats")}}
     # the main path's RG-LRU launches: the hybrid's CiM serve and its float
     # prefill phase, per kernel
     rec_launches = {k: runs["recurrentgemma-9b"]["rglru_launches"][k]

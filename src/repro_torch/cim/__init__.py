@@ -21,17 +21,29 @@
                  reduce_sum, dot/matmul/batched matmul (resident rhs too),
                  each one dispatch, unbanked or placed on a banked spec;
                  ChainExecutor for fused regions
+  trace        — aten capture (make_fx on fake tensors) and the per-node
+                 eligibility classification, with the `int_contract` and
+                 `population_count` ops it reads as one node each
+  cost         — spec-driven cost model: DeviceSpec host roofline (an H100
+                 SXM row by default) vs CiM energy/latency/EDP per op, and
+                 the offload policy that decides whether lowering pays
+  lower        — the lowering compiler: fuse eligible node runs into region
+                 Schedules, run each as one dispatch through ChainExecutor,
+                 run the rest on the host
 """
 from . import (  # noqa: F401
     accounting,
     array,
     backends,
+    cost,
     dispatch,
     engine,
     fused_kernel,
+    lower as lower_mod,
     macro,
     opset,
     planner,
+    trace as trace_mod,
 )
 from .accounting import LEDGER, Ledger, ledger, project_savings  # noqa: F401
 from .array import (  # noqa: F401
@@ -44,6 +56,16 @@ from .array import (  # noqa: F401
     resident_set,
     resident_stats,
     set_current_spec,
+)
+from .cost import (  # noqa: F401
+    DEFAULT_DEVICE,
+    DEFAULT_POLICY,
+    POLICIES,
+    DeviceSpec,
+    EqnVerdict,
+    OffloadPlan,
+    cim_wins_table,
+    plan_offload,
 )
 from .backends import (  # noqa: F401
     available_backends,
@@ -70,6 +92,12 @@ from .engine import (  # noqa: F401
     traffic_model_bytes,
 )
 from .fused_kernel import fused_planes_op  # noqa: F401
+from .lower import (  # noqa: F401
+    LoweredComputation,
+    LoweredFunction,
+    lower,
+)
+from .trace import Trace, TracedOp, trace  # noqa: F401
 from .macro import (  # noqa: F401
     ChainExecutor,
     CompiledSchedule,

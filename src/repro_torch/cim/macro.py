@@ -156,12 +156,20 @@ class CompiledSchedule:
         return out
 
 
+def aval_sig(aval) -> Tuple:
+    """Cache-key signature of one abstract value (anything with `.shape`
+    and `.dtype`: a tensor, a `trace.Aval`): what a program's body depends
+    on. The ONE definition of that discipline; the lowering compiler's
+    region keys use it too."""
+    return (tuple(int(d) for d in aval.shape), str(aval.dtype))
+
+
 def _leaf_sig(x) -> Tuple:
     """Cache-key signature of one operand (a tensor or a PlanePack): what
     a program depends on."""
     if isinstance(x, PlanePack):
         return ("pack", x.n_bits, x.signed, x.shape) + _leaf_sig(x.planes)
-    return (tuple(x.shape), str(x.dtype), x.device.type)
+    return aval_sig(x) + (x.device.type,)
 
 
 def run_schedule_program(schedule: planner.Schedule, body, operands,
@@ -496,22 +504,10 @@ def _contract_with(cur: ScheduleCursor, a2: torch.Tensor, b3, m: int,
     return acc.take_words(idx.reshape(-1), out_shape)
 
 
-def _charge_entry(cur: ScheduleCursor, entry_bits: Optional[int],
-                  *operands: torch.Tensor) -> None:
-    """The region-entry loads of the reference's lowered contraction: its
-    int32 quantized operands enter the region as `entry_bits`-wide packs
-    before the convert to n_bits feeds the dot. The values are unchanged by
-    that round trip, so the port charges the loads and skips the pack."""
-    if entry_bits:
-        for x in operands:
-            cur.charge_load(entry_bits, x.numel())
-
-
 def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
            n_bits: int = 8, backend: Optional[str] = None,
            spec: Optional[ArraySpec] = None,
-           b_pack: Optional[PlanePack] = None,
-           entry_bits: Optional[int] = None) -> torch.Tensor:
+           b_pack: Optional[PlanePack] = None) -> torch.Tensor:
     """Exact intN x intN -> int32 matmul through the CiM array.
 
     a : int [M, K], b : int [K, N], entries representable in n_bits signed.
@@ -522,9 +518,7 @@ def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
 
     With `b_pack` (a pinned `matmul_rhs_pack`; `b` may then be None) the
     rhs is RESIDENT: the schedule names it so, the program keys on that
-    residency, and only the lhs pays operand loads. `entry_bits` charges
-    the region-entry loads of the reference's lowered form (see
-    `_charge_entry`)."""
+    residency, and only the lhs pays operand loads."""
     if a.dim() != 2:
         raise CimOpError(f"matmul needs [M,K] lhs, got {tuple(a.shape)}")
     m, k = (int(d) for d in a.shape)
@@ -535,13 +529,12 @@ def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
                        spec, m2 * k_pad * n)
 
         def body_res(cur, a_, bp):
-            _charge_entry(cur, entry_bits, a_)
             return _contract_with(cur, a_, None, m, 1, n_bits, True, bp,
                                   (m, n)).unpack()
 
         return run_schedule_program(
             sched, body_res, (a, b_pack),
-            body_key=("matmul", n_bits, entry_bits, "resident"),
+            body_key=("matmul", n_bits, "resident"),
             backend=backend, spec=spec)
     if b is None or b.dim() != 2 or int(b.shape[0]) != k:
         raise CimOpError(f"matmul needs [M,K] x [K,N], got {tuple(a.shape)} "
@@ -552,20 +545,18 @@ def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
                    spec, m * k_pad * n)
 
     def body(cur, a_, b_):
-        _charge_entry(cur, entry_bits, a_, b_)
         return _contract_with(cur, a_, b_.unsqueeze(0), m, 1, n_bits, True,
                               None, (m, n)).unpack()
 
     return run_schedule_program(sched, body, (a, b),
-                                body_key=("matmul", n_bits, entry_bits),
+                                body_key=("matmul", n_bits),
                                 backend=backend, spec=spec)
 
 
 def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
                    n_bits: int = 8, backend: Optional[str] = None,
                    spec: Optional[ArraySpec] = None,
-                   b_pack: Optional[PlanePack] = None,
-                   entry_bits: Optional[int] = None) -> torch.Tensor:
+                   b_pack: Optional[PlanePack] = None) -> torch.Tensor:
     """Exact batched intN x intN -> int32 contraction through the CiM array.
 
     a : int [*B, M, K], b : int [*B, K, N]. The batch dims flatten onto the
@@ -580,13 +571,12 @@ def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
             spec, mm * k_pad * n)
 
         def body_res(cur, a_, bp):
-            _charge_entry(cur, entry_bits, a_)
             return _contract_with(cur, a_.reshape(bf * m, k), None, m, bf,
                                   n_bits, True, bp, bdims + (m, n)).unpack()
 
         return run_schedule_program(
             sched, body_res, (a, b_pack),
-            body_key=("batched_matmul", n_bits, entry_bits, "resident"),
+            body_key=("batched_matmul", n_bits, "resident"),
             backend=backend, spec=spec)
     n = _check_batched_rhs(a, b, bdims, k)
     k_pad = 1 << planner._log2_ceil(k)
@@ -595,14 +585,12 @@ def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
                    spec, bf * m * k_pad * n)
 
     def body(cur, a_, b_):
-        _charge_entry(cur, entry_bits, a_, b_)
         return _contract_with(cur, a_.reshape(bf * m, k),
                               b_.reshape(bf, k, n), m, bf, n_bits, True,
                               None, bdims + (m, n)).unpack()
 
     return run_schedule_program(sched, body, (a, b),
-                                body_key=("batched_matmul", n_bits,
-                                          entry_bits),
+                                body_key=("batched_matmul", n_bits),
                                 backend=backend, spec=spec)
 
 

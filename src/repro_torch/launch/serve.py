@@ -34,9 +34,11 @@ on the card, so a step's latency is device time. Steady-state tok/s and the
 p50/p99 per-token latencies exclude prefill and the first `--warmup-steps`
 decode steps.
 
-With --cim-lower every decode MLP matmul and global-attention contraction
-runs as a planned ADRA access schedule whose accesses are launches of the
-fused bit-plane kernel; `accesses` is the compute bill, `load_accesses` the
+With --cim-lower every decode MLP and global-attention contraction runs
+through the lowering compiler (`repro_torch.cim.lower`): each is one fused
+region, a planned ADRA access schedule whose accesses are launches of the
+fused bit-plane kernel, and the report's offload-policy line counts the
+cost model's verdicts; `accesses` is the compute bill, `load_accesses` the
 streamed-operand row-write bill. The prefill runs eagerly and charges the
 ledger on every call (the reference's jitted prefill charges once, at
 trace time). The bench runs the SAME request schedule twice — streamed
@@ -65,6 +67,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json as json_lib
+import os
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -72,7 +75,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.cim import accounting, dispatch
+from repro_torch.cim import accounting, cost, dispatch
 from repro_torch.cim import planner
 from repro_torch.cim.array import (DEFAULT_SPEC, ArraySpec, clear_resident,
                                    registry_reserve_rows, resident_set,
@@ -328,6 +331,7 @@ def fresh_cim_state() -> None:
     accounting.ledger().reset()
     clear_resident()
     dispatch.clear_schedule_cache()
+    cost.reset_plan_stats()
     set_current_spec(None)
 
 
@@ -414,6 +418,11 @@ def print_cim_report(tag: str) -> None:
           f"{cs['resident_pins']} pins / {cs['resident_hits']} hits / "
           f"{cs['resident_evictions']} evictions, "
           f"{cs['resident_rows']} rows held")
+    ps = cost.PLAN_STATS
+    print(f"  offload policy: {ps['plans']} plans cut, "
+          f"{ps['eqns_lowered']} eqns lowered / {ps['eqns_demoted']} "
+          f"demoted ({ps['demoted_accesses']} accesses kept on host), "
+          f"{ps['fused_despite_loss']} losing eqns kept fused")
 
 
 def parse_args(argv=None):
@@ -538,4 +547,9 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
 
 
 if __name__ == "__main__":
+    # read at the first CUDA allocation: freed blocks stay usable by the
+    # next, differently sized prefill allocation (the full-width hybrid
+    # serves within a few GB of the card's 80)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     main()

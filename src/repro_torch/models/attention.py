@@ -9,16 +9,16 @@ reference, which lowers only `gqa_decode` to CiM). Sequences of
 `BLOCKWISE_MIN_LEN` tokens or more take the blockwise attention
 (`blockwise_attention.py`), as the reference's `_attend` does. MLA waits.
 
-`sdpa_cim` runs QK^T and AV as planned batched CiM schedules by calling
-`repro_torch.cim.macro.batched_matmul` directly (two dispatches per call),
-banked on `spec` when one is given and unbanked otherwise, as in the
-reference; the reference stages the same quantized core through its
-lowering compiler, whose two regions each hold one batched `dot_general`.
-KV streams into the array every decode step, as `gqa_decode_cim` does in
-the reference: the functional cache update makes fresh tensors per token.
+`sdpa_cim` is a `lower()` application of the quantized core, as in the
+reference: its two regions each hold one batched contraction (QK^T, AV),
+two dispatches per call, banked on `spec` when one is given and unbanked
+otherwise. KV streams into the array every decode step, as `gqa_decode_cim`
+does in the reference: the functional cache update makes fresh tensors per
+token.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -28,8 +28,8 @@ from repro_torch.kernels import ops as kops
 from .blockwise_attention import blockwise_attention
 from .layers import (
     _dense_init,
+    _lru_get,
     apply_rope,
-    cim_batched_matmul,
     quantized_batched_matmul,
     rmsnorm,
     rmsnorm_init,
@@ -58,25 +58,28 @@ def _sdpa(q, k, v, mask, scale) -> torch.Tensor:
     return out.reshape(b, tq, hq, d).to(q.dtype)
 
 
-def _sdpa_quantized_core(qs, k, v, mask, n_bits: int,
-                         bmm=quantized_batched_matmul) -> torch.Tensor:
-    """Quantized SDPA body: both contractions are canonical batched
-    matmuls with batch dims (B, Hkv) and the grouped-query axis folded into
-    M; mask, softmax and the layout transposes are host islands. `bmm`
-    swaps the host twin for the CiM schedule."""
+def _sdpa_quantized_core(qs, k, v, mask, n_bits: int) -> torch.Tensor:
+    """Quantized SDPA body captured by the lowering compiler. `qs` is the
+    PRE-SCALED query [B,Tq,Hq,D] (the caller applies the scale, so the
+    capture is keyed only on shapes and n_bits). Both contractions are
+    canonical batched matmuls with batch dims (B, Hkv) and the grouped-query
+    axis folded into M; mask, softmax and the layout transposes are host
+    islands."""
     b, tq, hq, d = qs.shape
     tk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     qg = qs.reshape(b, tq, hkv, g, d).permute(0, 2, 3, 1, 4) \
         .reshape(b, hkv, g * tq, d)
     kt = k.float().permute(0, 2, 3, 1)                        # [B,Hkv,D,Tk]
-    logits = bmm(qg, kt, n_bits).reshape(b, hkv, g, tq, tk)
+    logits = quantized_batched_matmul(qg, kt, n_bits) \
+        .reshape(b, hkv, g, tq, tk)
     logits = torch.where(mask[:, None, None], logits,
                          torch.tensor(-1e30, dtype=logits.dtype,
                                       device=logits.device))
     probs = torch.softmax(logits, dim=-1)
     vt = v.float().permute(0, 2, 1, 3)                        # [B,Hkv,Tk,Dv]
-    out = bmm(probs.reshape(b, hkv, g * tq, tk), vt, n_bits)
+    out = quantized_batched_matmul(probs.reshape(b, hkv, g * tq, tk), vt,
+                                   n_bits)
     return out.reshape(b, hkv, g, tq, dv).permute(0, 3, 1, 2, 4) \
         .reshape(b, tq, hq, dv)
 
@@ -88,17 +91,37 @@ def _sdpa_quantized(q, k, v, mask, scale, n_bits: int = 8) -> torch.Tensor:
     return _sdpa_quantized_core(qs, k, v, mask, n_bits).to(q.dtype)
 
 
+#: bounded LRU of lowered SDPA callables (see layers._LOWERED_LINEAR)
+_LOWERED_SDPA: "OrderedDict" = OrderedDict()
+
+
+def _lowered_sdpa(n_bits: int, backend, spec, resident: bool = False):
+    from repro_torch.cim import array
+    from repro_torch.cim.lower import lower
+
+    return _lru_get(
+        _LOWERED_SDPA, (n_bits, backend, spec, resident),
+        lambda: lower(
+            lambda qs, k, v, mask: _sdpa_quantized_core(qs, k, v, mask,
+                                                        n_bits),
+            backend=backend, spec=spec,
+            resident_argnums=(1, 2) if resident else (),
+            resident_set=array.resident_set(spec) if resident else None))
+
+
 def sdpa_cim(q, k, v, mask, scale, n_bits: int = 8,
-             backend: Optional[str] = None, spec=None) -> torch.Tensor:
+             backend: Optional[str] = None, spec=None,
+             resident: bool = False) -> torch.Tensor:
     """Grouped SDPA with QK^T and AV executed as planned CiM schedules on
-    the banked `spec` (None: unbanked): exactly two dispatches per call,
-    whatever the batch, heads or length."""
+    the banked `spec` (None: unbanked): two fused regions per call, so warm
+    calls are exactly two dispatches whatever the batch, heads or length.
+    `resident=True` pins the packed K^T/V planes by tensor identity: pass
+    the SAME k/v tensors across calls to skip their entry packs (decode
+    with a functionally-updated cache gets fresh tensors each step, so the
+    serve path streams KV instead)."""
     qs = q.float() * torch.tensor(scale, dtype=torch.float32)
-
-    def bmm(a, b, nb):
-        return cim_batched_matmul(a, b, nb, backend=backend, spec=spec)
-
-    return _sdpa_quantized_core(qs, k, v, mask, n_bits, bmm=bmm).to(q.dtype)
+    lf = _lowered_sdpa(n_bits, backend, spec, resident)
+    return lf(qs, k, v, mask).to(q.dtype)
 
 
 def _causal_mask(tq: int, tk: int, device=None) -> torch.Tensor:

@@ -14,11 +14,16 @@ is the `torch.autograd.Function` `BlockwiseAttention`; `lax.scan` is a
 Python loop. `_bwd` is also the backward of `kernels.ops.attention`, whose
 forward is the CUDA flash kernel on the card. Inputs in float64 compute in
 float64 (for `torch.autograd.gradcheck`); anything else in float32, as the
-reference. The quantized and CiM variants wait with the lowering compiler
-(ROADMAP A3).
+reference.
+
+`blockwise_attention_quantized` is the forward-only int8 form with a
+pluggable batched matmul, and `blockwise_attention_cim` runs its two
+contractions per kv block through one `lower()`ed quantized batched
+matmul: fixed block shapes, so two programs serve every block.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -146,3 +151,88 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Tq, Hq, D], k and v [B, Tk, Hkv, D] -> o [B, Tq, Hq, D] in
     q's dtype, differentiable through `_bwd`."""
     return BlockwiseAttention.apply(q, k, v, causal, scale, window, block_k)
+
+
+# ---------------------------------------------------------------------------
+# Quantized blockwise attention (host reference + CiM-lowered execution)
+# ---------------------------------------------------------------------------
+
+#: bounded LRU of lowered quantized batched matmuls (see
+#: layers._LOWERED_LINEAR)
+_LOWERED_BMM: "OrderedDict" = OrderedDict()
+
+
+def blockwise_attention_quantized(q, k, v, causal=True, scale=None, window=0,
+                                  block_k=512, n_bits=8, bmm=None):
+    """Forward-only quantized blockwise attention with a pluggable batched
+    matmul.
+
+    The online-softmax recurrence of `_fwd`, but the per-block QK^T and AV
+    contractions go through `bmm(a, b)` on canonical [B*, M, K] x
+    [B*, K, N] operands: `quantized_batched_matmul` when `bmm` is None (the
+    float-quantized host reference), or a `lower()`ed twin of it
+    (`blockwise_attention_cim`). The kv loop runs over FIXED block shapes,
+    so every block presents the same two operand signatures."""
+    from .layers import quantized_batched_matmul
+
+    if bmm is None:
+        def bmm(a, bb):
+            return quantized_batched_matmul(a, bb, n_bits)
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    scale_v = scale if scale is not None else 1.0 / d ** 0.5
+    bk = min(block_k, tk) if tk % min(block_k, tk) == 0 else block_k
+    kp, vp = _pad_kv(k, v, bk)
+    nk = kp.shape[1] // bk
+    dev = q.device
+
+    qm = (q.float() * scale_v).reshape(b, tq, hkv, g, d) \
+        .permute(0, 2, 3, 1, 4).reshape(b, hkv, g * tq, d)
+    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    m_run = torch.full((b, hkv, g, tq), NEG, dtype=torch.float32, device=dev)
+    l_run = torch.zeros((b, hkv, g, tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, g, tq, dv), dtype=torch.float32, device=dev)
+    for j in range(nk):
+        kb = kp[:, j * bk:(j + 1) * bk].float()               # [B,bk,Hkv,D]
+        vb = vp[:, j * bk:(j + 1) * bk].float()
+        s = bmm(qm, kb.permute(0, 2, 3, 1)) \
+            .reshape(b, hkv, g, tq, bk)                      # [B,Hkv,G,Tq,bk]
+        msk = _mask(tq, tk, j * bk, tq, bk, causal, window, dev)
+        s = torch.where(msk, s, neg)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m_run - m_new)
+        l_run = alpha * l_run + p.sum(dim=-1)
+        pv = bmm(p.reshape(b, hkv, g * tq, bk),
+                 vb.permute(0, 2, 1, 3)).reshape(b, hkv, g, tq, dv)
+        acc = acc * alpha[..., None] + pv
+        m_run = m_new
+    safe_l = torch.where(l_run == 0.0, torch.ones_like(l_run), l_run)
+    o = acc / safe_l[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, tq, hq, dv).to(q.dtype)
+
+
+def blockwise_attention_cim(q, k, v, causal=True, scale=None, window=0,
+                            block_k=512, n_bits=8, backend=None, spec=None,
+                            resident=False):
+    """Blockwise attention whose integer contractions execute in the CiM
+    array: bit-exact with `blockwise_attention_quantized` on the same
+    operands, 2 dispatches per kv block, and (by the structural region key)
+    ONE program per contraction shape shared across all blocks."""
+    from .layers import _lru_get, quantized_batched_matmul
+
+    def make():
+        from repro_torch.cim import array
+        from repro_torch.cim.lower import lower
+
+        return lower(lambda a, bb: quantized_batched_matmul(a, bb, n_bits),
+                     backend=backend, spec=spec,
+                     resident_argnums=(1,) if resident else (),
+                     resident_set=array.resident_set(spec)
+                     if resident else None)
+
+    bmm = _lru_get(_LOWERED_BMM, (n_bits, backend, spec, resident), make)
+    return blockwise_attention_quantized(q, k, v, causal, scale, window,
+                                         block_k, n_bits, bmm=bmm)

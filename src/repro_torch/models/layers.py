@@ -6,25 +6,21 @@ initializers take an explicit `torch.Generator` and device. Matmul-bearing
 layers compute in float32 and cast to the activation dtype, as the
 reference's `preferred_element_type=float32` einsums do.
 
-`mlp_cim` runs each integer contraction as a planned CiM schedule by
-calling `repro_torch.cim.macro.matmul` directly. The reference stages the
-same function through its jaxpr lowering compiler (`repro.cim.lower`); each
-of its MLP regions holds exactly one integer `dot_general`, executed by the
-same `_matmul_with` dataflow, so the accesses, dispatches and loads per
-call are the same (the region's int32 entry packs are charged through
-`entry_bits`). Porting the lowering compiler itself is later work.
-`spec` is the banked geometry the contractions run on, as in the
-reference: `spec=None` resolves through `array.spec_override()`, so it
-means unbanked until a degraded spec is installed with `set_current_spec`.
-Resident weights: `matmul_rhs_pack(wq, m, n_bits)` is pinned per weight
-tensor and row count m, keyed by the identity of the weight tensor, when
-its rows fit the resident budget — an oversize pack stays streamed, as the
-reference's residency planning decides. The pins live in the registry
-ResidentSet of `resident_spec` (the serve's widened array), else of the
-banked spec, as the reference's lowered regions pin.
+`mlp_cim` and `cim_linear` are `lower()` applications, as in the reference:
+the quantized function is captured once per argument signature
+(`repro_torch.cim.lower`), its integer contractions (`int_contract` in the
+narrow dtype `_cim_int_dtype` picks, int32 result) run as fused CiM regions
+and the float quantize/rescale/gating ops on the host. `spec` is the banked
+geometry the regions run on: `spec=None` resolves through
+`array.spec_override()`, so it means unbanked until a degraded spec is
+installed with `set_current_spec`. With `resident=True` the weight-side
+region inputs are pinned by the lowering's residency planning, in the
+registry ResidentSet of `resident_spec` (the serve's widened array) when one
+is given, else of the banked spec.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import torch
@@ -32,7 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.cim import array as array_mod
-from repro_torch.cim import macro
+from repro_torch.cim.trace import int_contract
 
 Params = Dict[str, torch.Tensor]
 
@@ -134,85 +130,106 @@ def quantize_symmetric(x: torch.Tensor, n_bits: int = 8):
     return q.to(torch.int32), scale
 
 
-def int_contract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact integer (batched) matmul of quantized operands -> int32.
-
-    On the CPU in int32 (an int8 matmul would wrap, as the reference's
-    `preferred_element_type=int32` avoids). CUDA has no integer matmul for
-    these shapes, so there the contraction runs in float64, which is exact
-    here: every partial sum is an integer below 2^53 (|q| <= 127, so
-    127^2 * K < 2^53 for any K below 5e11)."""
-    if a.device.type == "cpu":
-        return torch.matmul(a.to(torch.int32), b.to(torch.int32))
-    return torch.matmul(a.double(), b.double()).to(torch.int32)
+def _cim_int_dtype(n_bits: int) -> torch.dtype:
+    """Narrowest integer dtype holding symmetric n_bits quantized values:
+    the dtype IS the eligibility signal the lowering compiler reads."""
+    if n_bits <= 8:
+        return torch.int8
+    if n_bits <= 16:
+        return torch.int16
+    return torch.int32
 
 
 def _quantized_linear(x: torch.Tensor, w: torch.Tensor,
                       n_bits: int) -> torch.Tensor:
-    """Host twin: fake-quantize both operands, contract EXACTLY in
-    integers, rescale."""
+    """Quantized linear: fake-quantize both operands, contract EXACTLY in
+    narrow integers (int32 result), rescale. This is the function the
+    lowering compiler captures: its `int_contract` is the CiM-eligible op;
+    the float quantize/rescale stays on the host."""
     d, f = w.shape
     lead = tuple(x.shape[:-1])
     xq, sx = quantize_symmetric(x, n_bits)
     wq, sw = quantize_symmetric(w, n_bits)
-    y = int_contract(xq.reshape(-1, d), wq)
+    dt = _cim_int_dtype(n_bits)
+    y = int_contract(xq.reshape(-1, d).to(dt), wq.to(dt))
     return (y.float() * (sx * sw)).reshape(lead + (f,))
 
 
 def quantized_batched_matmul(a: torch.Tensor, b: torch.Tensor,
                              n_bits: int = 8) -> torch.Tensor:
-    """Host twin: per-tensor-quantized [*B,M,K] x [*B,K,N] -> f32."""
+    """Per-tensor-quantized batched matmul [*B,M,K] x [*B,K,N] -> f32, on
+    the canonical batched contraction the planner lowers with a per-tile
+    access count independent of the batch size."""
     aq, sa = quantize_symmetric(a, n_bits)
     bq, sb = quantize_symmetric(b, n_bits)
-    return int_contract(aq, bq).float() * (sa * sb)
-
-
-def cim_batched_matmul(a: torch.Tensor, b: torch.Tensor, n_bits: int = 8,
-                       backend: Optional[str] = None,
-                       spec: Optional[array_mod.ArraySpec] = None
-                       ) -> torch.Tensor:
-    """`quantized_batched_matmul` with its integer contraction run as a
-    planned batched CiM schedule (one dispatch), banked on `spec` if given."""
-    aq, sa = quantize_symmetric(a, n_bits)
-    bq, sb = quantize_symmetric(b, n_bits)
-    y = macro.batched_matmul(aq, bq, n_bits=n_bits, backend=backend,
-                             spec=spec, entry_bits=32)
-    return y.float() * (sa * sb)
+    dt = _cim_int_dtype(n_bits)
+    return int_contract(aq.to(dt), bq.to(dt)).float() * (sa * sb)
 
 
 def _mlp_quantized(p: Params, x: torch.Tensor, gating: str,
-                   n_bits: int, linear=None) -> torch.Tensor:
-    """The quantized MLP as one plain function — the host twin `mlp_cim`
-    must match bit for bit (`linear` swaps in the CiM contraction)."""
-    linear = linear or (lambda x_, w_: _quantized_linear(x_, w_, n_bits))
-    h = linear(x, p["w_in"])
+                   n_bits: int) -> torch.Tensor:
+    """The quantized MLP as one plain function: the unlowered twin
+    `mlp_cim` must match bit for bit."""
+    h = _quantized_linear(x, p["w_in"], n_bits)
     if gating == "swiglu":
-        h = F.silu(linear(x, p["w_gate"])) * h
+        h = F.silu(_quantized_linear(x, p["w_gate"], n_bits)) * h
     elif gating == "geglu":
-        h = _gelu(linear(x, p["w_gate"])) * h
+        h = _gelu(_quantized_linear(x, p["w_gate"], n_bits)) * h
     else:
         h = _gelu(h)
-    return linear(h, p["w_out"]).to(x.dtype)
+    return _quantized_linear(h, p["w_out"], n_bits).to(x.dtype)
 
 
-def _resident_rhs(rs: array_mod.ResidentSet, w: torch.Tensor, m: int,
-                  n_bits: int):
-    """The pinned [M, K_pad, N] int8 plane stack of weight `w`, or None
-    when it does not fit the resident budget (it then streams)."""
-    k, n = (int(d) for d in w.shape)
-    k_pad = 1 << macro.planner._log2_ceil(k)
-    rows = rs._rows_for(n_bits, m * k_pad * n)
-    if max(rows.values(), default=0) > rs.budget:
-        return None
-    key = ("mlp", id(w), m, n_bits)
-    fp = (id(w),)
-    entry = rs.get(key, fingerprint=fp)
-    if entry is None:
-        wq, _ = quantize_symmetric(w, n_bits)
-        # aux keeps the weight alive so its id() cannot be recycled
-        entry = rs.pin(key, macro.matmul_rhs_pack(wq, m, n_bits),
-                       fingerprint=fp, aux=w)
-    return entry.pack
+#: bounded LRU caches of lowered callables, keyed by everything that shapes
+#: the capture (each LoweredFunction also bounds its per-signature
+#: captures: no layer of this path grows without limit)
+_LOWERED_CACHE_CAPACITY = 32
+_LOWERED_LINEAR: "OrderedDict" = OrderedDict()
+_LOWERED_MLP: "OrderedDict" = OrderedDict()
+
+
+def _lru_get(cache, key, make):
+    lf = cache.get(key)
+    if lf is None:
+        lf = cache[key] = make()
+        while len(cache) > _LOWERED_CACHE_CAPACITY:
+            cache.popitem(last=False)
+    else:
+        cache.move_to_end(key)
+    return lf
+
+
+def _resident_set(resident: bool, resident_spec):
+    """The explicit ResidentSet a resident lowering pins into: the registry
+    set of `resident_spec` (resolved per call, so clear_resident() takes
+    effect), or None for the registry set of the lowering's own spec."""
+    if resident and resident_spec is not None:
+        return array_mod.resident_set(resident_spec)
+    return None
+
+
+def _lowered_linear(n_bits: int, backend, spec, resident: bool = False,
+                    resident_set=None):
+    from repro_torch.cim.lower import lower
+
+    return _lru_get(
+        _LOWERED_LINEAR, (n_bits, backend, spec, resident, resident_set),
+        lambda: lower(lambda x, w: _quantized_linear(x, w, n_bits),
+                      backend=backend, spec=spec,
+                      resident_argnums=(1,) if resident else (),
+                      resident_set=resident_set))
+
+
+def _lowered_mlp(gating: str, n_bits: int, backend, spec,
+                 resident: bool = False, resident_set=None):
+    from repro_torch.cim.lower import lower
+
+    return _lru_get(
+        _LOWERED_MLP, (gating, n_bits, backend, spec, resident, resident_set),
+        lambda: lower(lambda p, x: _mlp_quantized(p, x, gating, n_bits),
+                      backend=backend, spec=spec,
+                      resident_argnums=(0,) if resident else (),
+                      resident_set=resident_set))
 
 
 def cim_linear(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
@@ -221,30 +238,15 @@ def cim_linear(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
                resident: bool = False,
                resident_spec: Optional[array_mod.ArraySpec] = None
                ) -> torch.Tensor:
-    """x @ w through intN quantization with the integer contraction run as
-    a planned CiM schedule: x [..., D], w [D, F] -> f32 [..., F], bit-exact
-    with `_quantized_linear`, on the banked `spec` (see the module note on
-    `spec=None`). With `resident` the int8 weight planes are pinned at
-    first call and reused while `w` is the same tensor."""
+    """x @ w through intN quantization as a `lower()` application: x
+    [..., D], w [D, F] -> f32 [..., F], bit-exact with `_quantized_linear`;
+    its one region is one dispatch on the banked `spec` (see the module
+    note on `spec=None`). With `resident` the int8 weight planes are pinned
+    at first call and reused while `w` is the same tensor."""
     if spec is None:
         spec = array_mod.spec_override()
-    d, f = (int(s) for s in w.shape)
-    lead = tuple(x.shape[:-1])
-    xq, sx = quantize_symmetric(x, n_bits)
-    xq = xq.reshape(-1, d)
-    pack = None
-    if resident:
-        rs = array_mod.resident_set(resident_spec or spec)
-        pack = _resident_rhs(rs, w, xq.shape[0], n_bits)
-    if pack is not None:
-        sw = _quant_scale(w, n_bits)
-        y = macro.matmul(xq, None, n_bits=n_bits, backend=backend, spec=spec,
-                         b_pack=pack, entry_bits=32)
-    else:
-        wq, sw = quantize_symmetric(w, n_bits)
-        y = macro.matmul(xq, wq, n_bits=n_bits, backend=backend, spec=spec,
-                         entry_bits=32)
-    return (y.float() * (sx * sw)).reshape(lead + (f,))
+    return _lowered_linear(n_bits, backend, spec, resident,
+                           _resident_set(resident, resident_spec))(x, w)
 
 
 def mlp_cim(p: Params, x: torch.Tensor, gating: str, n_bits: int = 8,
@@ -253,15 +255,17 @@ def mlp_cim(p: Params, x: torch.Tensor, gating: str, n_bits: int = 8,
             resident: bool = False,
             resident_spec: Optional[array_mod.ArraySpec] = None
             ) -> torch.Tensor:
-    """The quantized MLP with every integer matmul in the CiM array on the
-    banked `spec` (`spec=None`: `array.spec_override()`, so a degraded spec
-    installed with `set_current_spec` re-routes here too) and every float
-    op (scales, gating) on the host. `resident=True` pins the int8 weight
-    planes in the registry ResidentSet of `resident_spec`, else of `spec`."""
-    return _mlp_quantized(
-        p, x, gating, n_bits,
-        linear=lambda x_, w_: cim_linear(x_, w_, n_bits, backend, spec,
-                                         resident, resident_spec))
+    """The quantized MLP through the lowering compiler: every integer
+    contraction in the CiM array on the banked `spec` (`spec=None`:
+    `array.spec_override()`, so a degraded spec installed with
+    `set_current_spec` re-routes here too), one region each, and every
+    float op (scales, gating) on the host. `resident=True` pins the int8
+    weight planes in the registry ResidentSet of `resident_spec`, else of
+    `spec`: pass the SAME weight tensors each call to stay warm."""
+    if spec is None:
+        spec = array_mod.spec_override()
+    return _lowered_mlp(gating, n_bits, backend, spec, resident,
+                        _resident_set(resident, resident_spec))(p, x)
 
 
 # ---------------------------------------------------------------------------

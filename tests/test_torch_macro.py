@@ -130,15 +130,6 @@ def test_batched_matmul_and_resident_rhs_match_reference():
         assert getattr(TLEDGER, f) == getattr(RLEDGER, f), f
 
 
-def test_entry_bits_charges_the_region_entry_loads():
-    """`entry_bits` adds one load per streamed int32 operand, as the
-    reference's lowered region charges for its convert inputs."""
-    a, b = _mm_inputs(5, (2, 16), (16, 32))
-    tmacro.matmul(torch.from_numpy(a), torch.from_numpy(b), entry_bits=32)
-    assert TLEDGER.load_accesses == 4
-    assert TLEDGER.load_words32 == (2 * 16 + 16 * 32) + 2 * (2 * 16 * 32) / 4
-
-
 def test_bounded_lru_matches_reference():
     r, t = rdisp.BoundedLRU(2), tdisp.BoundedLRU(2)
     for op in ("a", "b", "a", "c", "b", "a", "d"):
