@@ -93,6 +93,20 @@ Phases, each fatal on failure (nothing is caught):
                step and that the fused kernel's launches cover every access;
                the same request schedule through the quantized host twins
                must give identical greedy tokens;
+  3b. adra-faults — the paper's comparison on the card's kernel: `adra_sub`
+               in one fused launch against `baseline_sub_then_cmp`'s two
+               over 2^24 int16 words, both equal to `adra_int_ref` and to
+               the torch-boolean backend, each timed with its kernel bytes,
+               and the `adra_bitplane_op` shims against `adra_bitplane_ref`;
+               gemma-2b at full width with `--sampler adra` (2 slots,
+               prompt 8 + gen 4): every sampled batch equal to
+               `adra_sample_ref` on the same logits, every decode step 2214
+               + 18 accesses and 90 + 18 dispatches; the chaos serve (ECC
+               pins, fault seed 0, resident BER 1e-9, scrub every 2 steps):
+               tokens equal to the fault-free run, 0 uncorrected, corrected
+               > 0, the ECC verify's ms per step and the peak memory; a
+               bank of the serve's widened array killed at decode step 2:
+               failover, tokens equal again;
   4. hybrid  — recurrentgemma-9b at full width the same way: 3154 accesses
                and 114 dispatches per decode step, RG-LRU launches = 26 x
                (decode steps + prefilled requests), each on the kernel
@@ -129,8 +143,8 @@ Phases, each fatal on failure (nothing is caught):
                4096, float32 (so the SIMT flash kernel): the first batch's
                gradients and 2 train steps on the card and on the CPU from
                the same weights.
-The launch counts of each serve, banked and train path are set to 0 just
-before it and read just after; the kernel checks' and timings' own
+The launch counts of each serve, banked, adra-faults and train path are set
+to 0 just before it and read just after; the kernel checks' and timings' own
 launches are not counted. Earlier lines
 carry the metrics and one JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -1626,6 +1640,235 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
             "times": times}
 
 
+#: the ADRA phase: the paper's comparison at 2^24 int16 words; gemma-2b's
+#: serve with the ADRA sampler, then the chaos serve: ECC-protected pins
+#: under seed 0 and a resident BER of 1e-9 (about 0.54 flips a pin and
+#: get: 54 decode pins of 2^29 bits give about 29 single flips a step),
+#: scrubbed every 2 decode steps; then a bank killed at decode step 2
+ADRA_WORDS = 1 << 24
+ADRA_SERVE = ["--arch", "gemma-2b", "--preset", "full", "--device", "cuda",
+              "--slots", "2", "--requests", "2", "--prompt-len", "8",
+              "--gen", "4", "--cim-lower", "--cim-resident", "--sampler",
+              "adra", "--scrub-every", "2"]
+CHAOS_ENV = {"REPRO_CIM_FAULT_SEED": "0",
+             "REPRO_CIM_FAULT_RESIDENT_BER": "1e-9"}
+KILL_BANK_AT = (2, 1)
+
+
+def phase_adra_faults(model, dev) -> dict:
+    """(a) `adra_sub` in one fused launch against `baseline_sub_then_cmp`'s
+    two over 2^24 int16 words, both equal to `adra_int_ref` and to the
+    torch-boolean backend, with each one's device ms and kernel bytes, and
+    the `adra_bitplane_op` shims (select 0/1) against `adra_bitplane_ref`;
+    (b) gemma-2b at full width through `serve.main --sampler adra`
+    (repack, resident): every sampled batch's tokens equal to
+    `adra_sample_ref` on the same logits, every decode step 2214 + 18
+    accesses and 90 + 18 dispatches; (c) the chaos serve (ECC pins, the
+    CHAOS_ENV campaign, fail-stop, scrub every 2 steps): tokens equal to
+    (b)'s resident run, 0 uncorrected, corrected > 0, the ECC verify's ms
+    per decode step and the peak memory; then a failover at KILL_BANK_AT
+    on the serve's widened array (4 banks): tokens equal again."""
+    import math
+
+    import torch
+    from repro_torch.cim import array, faults, fused_kernel
+    from repro_torch.cim.planepack import PlanePack
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.adra_bitplane import (
+        adra_bitplane_op, baseline_bitplane_sub_then_cmp)
+    from repro_torch.launch import serve
+    from repro_torch.train import step as train_step
+
+    fused = fused_kernel.fused_planes_op
+    out = {"launches": 0}
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    # (a) the paper's comparison: one access against two
+    a = torch.randint(-2 ** 15, 2 ** 15, (ADRA_WORDS,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    b = torch.randint(-2 ** 15, 2 ** 15, (ADRA_WORDS,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    want = ref.adra_int_ref(a, b, 1, 16)
+    plain = ops.adra_sub(a, b, n_bits=16, backend="torch-boolean")
+    runs = {}
+    for name, fn in (("adra_sub", ops.adra_sub),
+                     ("baseline_sub_then_cmp", ops.baseline_sub_then_cmp)):
+        fused.launches, b0 = 0, fused.bytes
+        got = fn(a, b, n_bits=16)
+        torch.cuda.synchronize()
+        runs[name] = {"launches": fused.launches, "bytes": fused.bytes - b0}
+        out["launches"] += fused.launches
+        for g, w, pl in zip(got, want, plain):
+            assert torch.equal(g, w) and torch.equal(g, pl), name
+        runs[name]["call_ms"] = cuda_ms(lambda: fn(a, b, n_bits=16), reps=5)
+    assert runs["adra_sub"]["launches"] == 1, runs
+    assert runs["baseline_sub_then_cmp"]["launches"] == 2, runs
+    pa, pb = PlanePack.pack(a, 16).planes, PlanePack.pack(b, 16).planes
+    one = ("sub", "lt", "eq")
+    for name, passes in (("adra_sub", (one,)),
+                         ("baseline_sub_then_cmp", (("sub",), ("lt", "eq")))):
+        rounds = sorted(cuda_ms(lambda: [fused(pa, pb, p) for p in passes],
+                                reps=10) for _ in range(5))
+        runs[name]["kernel_ms"] = rounds[2]
+        runs[name]["kernel_ms_rounds"] = [rounds[0], rounds[-1]]
+        runs[name]["plain_ms"] = cuda_ms(
+            lambda: [fused_kernel.fused_planes_op_ref(pa, pb, p)
+                     for p in passes], reps=3)
+        runs[name]["bound"] = {k: sum(kernel_bounds(16, pa.shape[1], p)[k]
+                                      for p in passes)
+                               for k in ("bound_ms", "bytes")}
+    for select in (0, 1):
+        for g, w in zip(adra_bitplane_op(pa, pb, select),
+                        ref.adra_bitplane_ref(pa, pb, select)):
+            assert torch.equal(g, w), select
+    for g, w in zip(baseline_bitplane_sub_then_cmp(pa, pb),
+                    ref.adra_bitplane_ref(pa, pb, 1)[:1]
+                    + fused_kernel.fused_planes_op_ref(pa, pb, ("lt", "eq"))):
+        assert torch.equal(g, w)
+    out["paper"] = runs
+    for name, r in runs.items():
+        print(f"adra[{name}]: {ADRA_WORDS} int16 words, {r['launches']} "
+              f"launch(es), {r['bytes']} kernel B; kernel {r['kernel_ms']:.4f}"
+              f" ms (rounds {r['kernel_ms_rounds'][0]:.4f}-"
+              f"{r['kernel_ms_rounds'][1]:.4f}), bound "
+              f"{r['bound']['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms; whole call {r['call_ms']:.4f} ms; equal to adra_int_ref "
+              f"and torch-boolean")
+    print("adra: adra_bitplane_op select 0/1 and the two-pass shim equal to "
+          "adra_bitplane_ref")
+
+    # (b) gemma-2b with the ADRA sampler: every sampled batch recorded
+    sampled = []
+    real = serve.adra_sample
+
+    def recording(logits, n_bits=8):
+        toks = real(logits, n_bits)
+        sampled.append((logits.detach().clone(), toks.clone()))
+        return toks
+    args = serve.parse_args(ADRA_SERVE)
+    levels = math.ceil(math.log2(model.cfg.vocab_padded))
+    step_acc = PATHS["gemma-2b"]["step_accesses"] + levels
+    step_disp = PATHS["gemma-2b"]["step_dispatches"] + levels
+    t = time.perf_counter()
+    serve.adra_sample = recording
+    try:
+        fused.launches = 0
+        rep = serve.main(ADRA_SERVE, model=model)
+        out["launches"] += fused.launches
+    finally:
+        serve.adra_sample = real
+    out["sampler_s"] = time.perf_counter() - t
+    for name in ("repack", "resident"):
+        ph = rep["phases"][name]
+        assert set(ph["step_accesses"]) == {step_acc}, (name, ph)
+        assert set(ph["step_dispatches"]) == {step_disp}, (name, ph)
+    n_batches = sum(2 + ph["decode_steps"] for ph in rep["phases"].values())
+    assert len(sampled) == n_batches, (len(sampled), n_batches)
+    for logits, toks in sampled:
+        assert torch.equal(toks, train_step.adra_sample_ref(logits))
+    resident = rep["phases"]["resident"]
+    out["sampler"] = {"levels": levels, "step_accesses": step_acc,
+                      "step_dispatches": step_disp,
+                      "batches_checked": len(sampled),
+                      "tok_s_resident": resident["tok_s_steady"],
+                      "tokens": [r["token_ids"]
+                                 for r in resident["per_request"]]}
+    print(f"adra sampler: gemma-2b {step_acc} accesses and {step_disp} "
+          f"dispatches every decode step (greedy's + {levels} levels); "
+          f"{len(sampled)} sampled batches equal to adra_sample_ref; "
+          f"resident {resident['tok_s_steady']:.4f} tok/s; tokens "
+          f"{out['sampler']['tokens']}")
+    del sampled
+
+    # (c) the chaos serve, its ECC verify timed by CUDA events
+    model_resident = model.derive(dataclasses.replace(model.cfg,
+                                                      cim_resident=True))
+    marks = []
+    verify = array.ResidentSet._verify
+
+    def timed_verify(self, entry, decay_s=0.0):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        try:
+            return verify(self, entry, decay_s)
+        finally:
+            e1.record()
+            marks.append((e0, e1))
+    os.environ.update(CHAOS_ENV)
+    array.ResidentSet._verify = timed_verify
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    try:
+        fused.launches = 0
+        chaos = serve.chaos_phase(model_resident, args, resident)
+        out["launches"] += fused.launches
+    finally:
+        array.ResidentSet._verify = verify
+        for k in CHAOS_ENV:
+            os.environ.pop(k, None)
+    torch.cuda.synchronize()
+    out["chaos_s"] = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    f = chaos["faults"]
+    assert [r["token_ids"] for r in chaos["per_request"]] == \
+        out["sampler"]["tokens"]
+    assert f["uncorrected"] == 0 and f["corrected"] > 0, f
+    assert set(chaos["step_accesses"]) == {step_acc}, chaos["step_accesses"]
+    verify_ms = sum(e0.elapsed_time(e1) for e0, e1 in marks)
+    out["chaos"] = {k: f[k] for k in ("injected", "corrected", "uncorrected",
+                                      "verifies", "repairs", "scrub",
+                                      "ecc_verifies")}
+    out["chaos"].update(
+        resident_ber=float(CHAOS_ENV["REPRO_CIM_FAULT_RESIDENT_BER"]),
+        seed=int(CHAOS_ENV["REPRO_CIM_FAULT_SEED"]),
+        decode_steps=chaos["decode_steps"], verify_calls=len(marks),
+        verify_ms=verify_ms,
+        verify_ms_per_step=verify_ms / max(1, chaos["decode_steps"]),
+        tok_s=chaos["tok_s_steady"], peak_gib=peak)
+    c = out["chaos"]
+    print(f"chaos: seed {c['seed']}, resident BER {c['resident_ber']:g}, "
+          f"scrub every {args.scrub_every}: tokens equal to the fault-free "
+          f"run; {c['injected']} bits injected / {c['corrected']} corrected"
+          f" / {c['uncorrected']} uncorrected over {c['decode_steps']} "
+          f"decode steps, {c['verify_calls']} verifies ({c['ecc_verifies']} "
+          f"counted), repairs {c['repairs']}, scrub {c['scrub']}; ECC verify"
+          f" {c['verify_ms_per_step']:.2f} ms a decode step (CUDA events "
+          f"around each verify); {c['tok_s']:.4f} tok/s; peak {peak:.2f} "
+          f"GiB")
+
+    # the failover: a bank of the widened array killed mid-run
+    spec = serve.resident_array_spec(model.cfg, args.slots,
+                                     args.prompt_len + args.gen)
+    assert spec.n_enabled > 1, spec
+    t = time.perf_counter()
+    serve.fresh_cim_state()
+    try:
+        fused.launches = 0
+        with faults.faults(faults.FaultConfig(seed=5,
+                                              kill_bank_at=KILL_BANK_AT)):
+            kill = serve.serve_once(model_resident, args)
+        out["launches"] += fused.launches
+    finally:
+        serve.fresh_cim_state()
+    out["failover_s"] = time.perf_counter() - t
+    kf = kill["faults"]
+    assert kf["failovers"] == 1 and kf["dead_banks"] == [KILL_BANK_AT[1]], kf
+    assert [r["token_ids"] for r in kill["per_request"]] == \
+        out["sampler"]["tokens"]
+    out["failover"] = {"kill_bank_at": list(KILL_BANK_AT),
+                       "array": "widened (full width)",
+                       "step_accesses": kill["step_accesses"],
+                       "step_dispatches": kill["step_dispatches"],
+                       "completed": kill["completed"]}
+    print(f"failover: bank {KILL_BANK_AT[1]} of the widened array killed at "
+          f"decode step {KILL_BANK_AT[0]}: tokens equal to the healthy run; "
+          f"accesses per step {kill['step_accesses']}, dispatches "
+          f"{kill['step_dispatches']}")
+    print(f"adra phase: {out['launches']} fused launches")
+    return out
+
+
 def phase_hybrid_prefill(model, dev) -> dict:
     """The hybrid phase's recurrentgemma-9b model (weights and compute
     casts reused) through `serve.main` on the float path: 2 requests of a
@@ -2209,6 +2452,10 @@ def main() -> int:
         for k, v in runs[arch]["times"].items():
             phases[f"{arch}_{k}"] = v
         model = runs[arch].pop("model")
+        if arch == "gemma-2b":
+            t = time.perf_counter()
+            adra = phase_adra_faults(model, dev)
+            phases["adra_faults_s"] = time.perf_counter() - t
         if arch == "recurrentgemma-9b":
             t = time.perf_counter()
             pre = phase_hybrid_prefill(model, dev)
@@ -2237,9 +2484,10 @@ def main() -> int:
              "source": "src/repro_torch/cim/csrc/fused_planes.cu",
              "replaces": "src/repro/cim/fused_kernel.py:137",
              "launches": sum(r["fused_launches"] for r in runs.values())
-             + banked["launches"] + low["launches"],
+             + banked["launches"] + low["launches"] + adra["launches"],
              "launches_banked": banked["launches"],
              "launches_lower": low["launches"],
+             "launches_adra_faults": adra["launches"],
              "launches_serve": {a: r["fused_launches"]
                                 for a, r in runs.items()},
              "max_abs_err": kern["max_abs_err"],
@@ -2247,7 +2495,9 @@ def main() -> int:
              "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
              "library_ms": None, "banked": {k: banked[k] for k in (
                  "timing", "cap", "cases", "mlp_s")},
-             "lower": {k: low[k] for k in ("cases", "plan_stats")}}
+             "lower": {k: low[k] for k in ("cases", "plan_stats")},
+             "adra_faults": {k: adra[k] for k in (
+                 "paper", "sampler", "chaos", "failover")}}
     # the main path's RG-LRU launches: the hybrid's CiM serve and its float
     # prefill phase, per kernel
     rec_launches = {k: runs["recurrentgemma-9b"]["rglru_launches"][k]

@@ -1,7 +1,8 @@
 """repro_torch.cim — the ADRA CiM engine, ported to PyTorch and CUDA.
 
   opset        — the op catalogue and plane-level Boolean composition
-  planepack    — PlanePack: packed planes + metadata, packed-domain wiring
+  planepack    — PlanePack: packed planes + metadata, packed-domain wiring,
+                 the SECDED codec across the plane index
   fused_kernel — the fused single-pass kernel (CUDA, sm_90a) and its plain
                  PyTorch version
   backends     — registry: fused / torch-boolean
@@ -11,8 +12,11 @@
                  inter-bank reduction words, the contention-adjusted bank
                  report and the energy projection
   array        — ArraySpec (banks x subarrays x rows x bitline words, dead
-                 banks), TilePlan placement, ResidentSet (pinned operands),
-                 the process-wide spec override
+                 banks), TilePlan placement, ResidentSet (pinned operands,
+                 SECDED-protected with ecc), the process-wide spec override
+  faults       — seeded fault injection (streamed BER, resident BER,
+                 retention decay, stuck-at rows, bank kills), its counters
+                 and the training side's host-failure hook
   dispatch     — the tiling dispatcher (`execute_tiled`), the bounded
                  program cache and dispatch counters
   planner      — access Schedules for every macro, region concatenation,
@@ -38,6 +42,7 @@ from . import (  # noqa: F401
     cost,
     dispatch,
     engine,
+    faults,
     fused_kernel,
     lower as lower_mod,
     macro,
@@ -56,6 +61,14 @@ from .array import (  # noqa: F401
     resident_set,
     resident_stats,
     set_current_spec,
+    set_resident_ecc,
+)
+from .faults import (  # noqa: F401
+    FaultConfig,
+    FaultModel,
+    UncorrectableFaultError,
+    fault_seed,
+    fault_stats,
 )
 from .cost import (  # noqa: F401
     DEFAULT_DEVICE,

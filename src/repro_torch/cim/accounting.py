@@ -13,9 +13,9 @@ slot and counts the last tile's idle columns as activated words,
 between banks, and `bank_report` turns both into a contention-adjusted EDP
 projection. Schedules executed through
 `repro_torch.cim.macro.run_schedule_program` record their charges once, as a
-`PlannedCharges` object, and replay it on every invocation. The fault and
-ECC fields exist so ledgers compare field for field with the reference's;
-nothing in the port charges them yet.
+`PlannedCharges` object, and replay it on every invocation. `charge_ecc`
+bills the parity planes of ECC-protected resident operands and
+`charge_fault` the outcome bits of a fault campaign (`repro_torch.cim.faults`).
 """
 from __future__ import annotations
 
@@ -138,6 +138,25 @@ class Ledger:
             return
         self.resident_reuses += 1
         self.resident_words32 += n_words * n_bits / 32.0
+
+    def charge_ecc(self, n_parity_bits: int, n_words: int,
+                   n_tiles: int = 1) -> None:
+        """Parity-plane traffic of ECC protection: the extra rows written
+        at pin time and the parity reads of each verify or scrub pass."""
+        if not self.enabled:
+            return
+        self.ecc_accesses += n_tiles
+        self.ecc_words32 += n_words * n_parity_bits / 32.0
+
+    def charge_fault(self, injected: int = 0, detected: int = 0,
+                     corrected: int = 0, uncorrected: int = 0) -> None:
+        """Fault-campaign outcome bits (see repro_torch.cim.faults)."""
+        if not self.enabled:
+            return
+        self.fault_injected += injected
+        self.fault_detected += detected
+        self.fault_corrected += corrected
+        self.fault_uncorrected += uncorrected
 
     def reset(self) -> None:
         """Restore every counter to its dataclass default.

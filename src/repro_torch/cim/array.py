@@ -1,7 +1,6 @@
 """Banked CiM array substrate: physical geometry, tile placement, residency.
 
-Port of `repro.cim.array` without the fault layer (ECC-protected pins,
-`scrub` and `_verify`). An `ArraySpec` describes the physical array — banks
+Port of `repro.cim.array`. An `ArraySpec` describes the physical array — banks
 of subarrays of rows x bitline words, with whole banks optionally taken out
 of service — and its `plan()` turns an operand word count into a
 `TilePlan`: which words go to which bank activation, round-robin over the
@@ -13,7 +12,9 @@ paper's stored-operand assumption): every pin charges the ledger its
 operand-load accesses once, every reuse charges none, pins are LRU-evicted
 under row pressure, and `reserve()` row claims (paged KV blocks) are never
 evicted. Rows the registry set of a geometry holds shrink what
-`check_fits` allows a streamed access there. Counters aggregate
+`check_fits` allows a streamed access there. With ECC (`ResidentSet(ecc=)`,
+or `set_resident_ecc` for the registry sets) every pin carries SECDED
+parity rows, verified on every `get` and by `scrub`. Counters aggregate
 process-wide into `dispatch.cache_stats()`.
 
 `set_current_spec` installs a process-wide spec (the failover lever): call
@@ -190,7 +191,10 @@ DEFAULT_SPEC = ArraySpec()
 class ResidentEntry:
     """One pinned occupant of the resident region (pack None for a
     `reserve()` row claim). `fingerprint` names the source tensors: a
-    mismatched `get()` drops the entry as stale."""
+    mismatched `get()` drops the entry as stale. `ecc_parity` holds the
+    SECDED parity planes when the set runs with ECC (their rows are in
+    `rows_by_bank`), `scrubbed_s` the fault-model clock of the last verify,
+    over which retention decay is integrated."""
 
     key: Tuple
     pack: Any
@@ -200,19 +204,26 @@ class ResidentEntry:
     evictable: bool = True
     aux: Any = None
     hits: int = 0
+    ecc_parity: Any = None
+    scrubbed_s: float = 0.0
 
 
 class ResidentSet:
-    """Row-budget-checked resident region of one banked array."""
+    """Row-budget-checked resident region of one banked array. With `ecc`
+    every pin carries SECDED parity planes (`planepack.ecc_encode`) in
+    extra rows of the same banks, and every `get` verifies and repairs it
+    (after the active fault model's resident flips) on the planes' own
+    device; `scrub` does the same for every pin, with retention decay."""
 
     def __init__(self, spec: Optional[ArraySpec] = None,
-                 reserve_rows: int = 0):
+                 reserve_rows: int = 0, ecc: bool = False):
         self.spec = spec or DEFAULT_SPEC
         if reserve_rows < 0 or reserve_rows >= self.spec.rows:
             raise opset.CimOpError(
                 f"reserve_rows must be in [0, {self.spec.rows}), "
                 f"got {reserve_rows}")
         self.reserve_rows = reserve_rows
+        self.ecc = bool(ecc)
         self._entries: "OrderedDict[Tuple, ResidentEntry]" = OrderedDict()
         self.pins = 0
         self.reserves = 0
@@ -220,6 +231,9 @@ class ResidentSet:
         self.misses = 0
         self.evictions = 0
         self.invalidations = 0
+        self.ecc_corrected = 0
+        self.ecc_uncorrected = 0
+        self.ecc_verifies = 0
         _ALL_SETS.add(self)
 
     # -- occupancy ----------------------------------------------------------
@@ -271,6 +285,11 @@ class ResidentSet:
             self.misses += 1
             _STATS["resident_misses"] += 1
             return None
+        if entry.ecc_parity is not None and not self._verify(entry):
+            # uncorrectable: the entry was dropped, the caller rebuilds it
+            self.misses += 1
+            _STATS["resident_misses"] += 1
+            return None
         entry.hits += 1
         self.hits += 1
         _STATS["resident_hits"] += 1
@@ -280,23 +299,117 @@ class ResidentSet:
     def pin(self, key: Tuple, pack, fingerprint: Tuple = (),
             aux: Any = None) -> ResidentEntry:
         """Write `pack` into resident rows (evicting LRU pins to fit) and
-        charge the one-time operand load the pin replaces per call."""
+        charge the one-time operand load the pin replaces per call. With
+        `ecc` the parity planes are encoded here, stored as extra rows of
+        the same banks and their row writes charged (`charge_ecc`)."""
+        from . import faults as faults_mod
         from .accounting import LEDGER
+        from .planepack import ecc_encode, ecc_plane_count
 
         if key in self._entries:
             del self._entries[key]
-        rows = self._rows_for(pack.n_bits, pack.n_words)
+        parity = None
+        n_ecc = 0
+        if self.ecc:
+            parity = ecc_encode(pack.planes)
+            n_ecc = ecc_plane_count(pack.n_bits)
+        rows = self._rows_for(pack.n_bits + n_ecc, pack.n_words)
         self._make_room(key, rows)
+        fm = faults_mod.active() if self.ecc else None
         entry = ResidentEntry(key=key, pack=pack, rows_by_bank=rows,
                               words32=pack.n_words * pack.n_bits / 32.0,
                               fingerprint=tuple(fingerprint), evictable=True,
-                              aux=aux)
+                              aux=aux, ecc_parity=parity,
+                              scrubbed_s=fm.clock() if fm is not None
+                              else 0.0)
         self._entries[key] = entry
         self.pins += 1
         _STATS["resident_pins"] += 1
         n_tiles = self.spec.plan(pack.n_words).n_tiles
         LEDGER.charge_load(pack.n_bits, pack.n_words, n_tiles=n_tiles)
+        if n_ecc:
+            LEDGER.charge_ecc(n_ecc, pack.n_words, n_tiles=n_tiles)
         return entry
+
+    # -- ECC verify / scrub --------------------------------------------------
+
+    def _verify(self, entry: ResidentEntry, decay_s: float = 0.0) -> bool:
+        """One ECC pass over a protected entry: inject what the active
+        fault model says the rows took (the per-get resident BER, plus
+        `decay_s` seconds of retention decay on the scrub path), then
+        SECDED-verify and repair. Returns False, after invalidating the
+        entry, when the damage was uncorrectable (or raises
+        UncorrectableFaultError under fail-stop semantics)."""
+        from . import faults as faults_mod
+        from .accounting import LEDGER
+        from .planepack import ecc_check_correct, ecc_plane_count
+
+        fm = faults_mod.active()
+        planes = entry.pack.planes
+        parity = entry.ecc_parity
+        if fm is not None:
+            planes, _ = fm.corrupt_resident(planes)
+            if decay_s > 0.0:
+                flips = fm.decay_bits(
+                    decay_s, planes.numel() * 32 + parity.numel() * 32)
+                if flips:
+                    planes = fm.decay(planes, flips)
+            entry.scrubbed_s = fm.clock()
+        fixed, fixed_par, corrected, uncorrected = \
+            ecc_check_correct(planes, parity)
+        self.ecc_verifies += 1
+        _STATS["ecc_verifies"] += 1
+        LEDGER.charge_ecc(ecc_plane_count(entry.pack.n_bits),
+                          entry.pack.n_words,
+                          n_tiles=self.spec.plan(entry.pack.n_words).n_tiles)
+        if corrected:
+            self.ecc_corrected += corrected
+            _STATS["ecc_corrected"] += corrected
+        if uncorrected:
+            self.ecc_uncorrected += uncorrected
+            _STATS["ecc_uncorrected"] += uncorrected
+        if fm is not None:
+            fm.record_verify(corrected, uncorrected)
+        if uncorrected:
+            self._entries.pop(entry.key, None)
+            self.invalidations += 1
+            _STATS["resident_invalidations"] += 1
+            if fm is not None and fm.config.raise_on_uncorrectable:
+                raise faults_mod.UncorrectableFaultError(
+                    f"resident entry {entry.key!r}: {uncorrected} "
+                    f"uncorrectable bit(s); entry invalidated: re-pin and "
+                    f"retry")
+            return False
+        if corrected or fm is not None:
+            entry.pack = dataclasses.replace(entry.pack, planes=fixed)
+            entry.ecc_parity = fixed_par
+        return True
+
+    def scrub(self) -> Dict[str, int]:
+        """Walk every protected pin, integrate retention decay since its
+        last verify, and repair what SECDED can (uncorrectable entries are
+        invalidated, so the next `get` misses and rebuilds): the periodic
+        pass a serving process runs between steps."""
+        from . import faults as faults_mod
+
+        fm = faults_mod.active()
+        now = fm.clock() if fm is not None else 0.0
+        corrected0 = self.ecc_corrected
+        uncorrected0 = self.ecc_uncorrected
+        scanned = 0
+        dropped = 0
+        for entry in list(self._entries.values()):
+            if entry.ecc_parity is None:
+                continue
+            scanned += 1
+            decay_s = max(0.0, now - entry.scrubbed_s) if fm is not None \
+                else 0.0
+            if not self._verify(entry, decay_s=decay_s):
+                dropped += 1
+        _STATS["ecc_scrubs"] += 1
+        return {"scanned": scanned, "dropped": dropped,
+                "corrected": self.ecc_corrected - corrected0,
+                "uncorrected": self.ecc_uncorrected - uncorrected0}
 
     def reserve(self, key: Tuple, n_rows: int, bank: int = 0,
                 words32: float = 0.0,
@@ -346,6 +459,9 @@ class ResidentSet:
                 "reserves": self.reserves, "hits": self.hits,
                 "misses": self.misses, "evictions": self.evictions,
                 "invalidations": self.invalidations,
+                "ecc_verifies": self.ecc_verifies,
+                "ecc_corrected": self.ecc_corrected,
+                "ecc_uncorrected": self.ecc_uncorrected,
                 "resident_rows": self.resident_rows}
 
 
@@ -359,7 +475,9 @@ _STATS: Dict[str, int] = {}
 def _reset_stats() -> None:
     _STATS.update(resident_pins=0, resident_reserves=0, resident_hits=0,
                   resident_misses=0, resident_evictions=0,
-                  resident_invalidations=0)
+                  resident_invalidations=0,
+                  ecc_verifies=0, ecc_corrected=0, ecc_uncorrected=0,
+                  ecc_scrubs=0)
 
 
 _reset_stats()
@@ -367,8 +485,26 @@ _reset_stats()
 #: process-wide resident set per geometry (shared by weight pins and KV pages)
 _RESIDENT_SETS: Dict[ArraySpec, ResidentSet] = {}
 
+#: whether registry ResidentSets are created ECC-protected (the serve's
+#: chaos phase turns this on; off keeps every ledger the plan's)
+_DEFAULT_ECC: bool = False
+
 #: process-wide spec override: the failover lever (see `set_current_spec`)
 _CURRENT_SPEC: Optional[ArraySpec] = None
+
+
+def set_resident_ecc(on: bool) -> bool:
+    """Make future registry ResidentSets ECC-protected (or not); returns
+    the previous setting. Existing sets keep their mode: call
+    `clear_resident()` first to rebuild them protected."""
+    global _DEFAULT_ECC
+    prev = _DEFAULT_ECC
+    _DEFAULT_ECC = bool(on)
+    return prev
+
+
+def resident_ecc_default() -> bool:
+    return _DEFAULT_ECC
 
 
 def set_current_spec(spec: Optional[ArraySpec]) -> Optional[ArraySpec]:
@@ -401,12 +537,13 @@ def registry_reserve_rows(spec: ArraySpec) -> int:
 
 def resident_set(spec: Optional[ArraySpec] = None) -> ResidentSet:
     """The process-wide ResidentSet for `spec` (`current_spec()` when None),
-    keeping `registry_reserve_rows` as reserve for streamed access planes."""
+    keeping `registry_reserve_rows` as reserve for streamed access planes,
+    ECC-protected when `set_resident_ecc(True)` was in force at creation."""
     spec = spec or current_spec()
     rs = _RESIDENT_SETS.get(spec)
     if rs is None:
         rs = _RESIDENT_SETS[spec] = ResidentSet(
-            spec, reserve_rows=registry_reserve_rows(spec))
+            spec, reserve_rows=registry_reserve_rows(spec), ecc=_DEFAULT_ECC)
     return rs
 
 

@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from repro_torch.core import energy
 
 from . import accounting
+from . import array as array_mod
 from .array import ArraySpec
 
 # ---------------------------------------------------------------------------
@@ -217,21 +218,12 @@ class EqnVerdict:
         return d
 
 
-def _ecc_plane_count(n_bits: int) -> int:
-    """SECDED parity planes protecting `n_bits` data planes: r Hamming
-    check planes (2^r >= n_bits + r + 1) plus the overall-parity plane."""
-    if n_bits < 1:
-        raise ValueError(f"cannot protect {n_bits} planes")
-    r = 0
-    while (1 << r) < n_bits + r + 1:
-        r += 1
-    return r + 1
-
-
 def ecc_overhead(n_bits: int) -> float:
     """Fractional row/load overhead of SECDED on an n_bits resident pack:
-    parity planes per data plane (5/8 at int8)."""
-    return _ecc_plane_count(n_bits) / max(1, n_bits)
+    parity planes per data plane (5/8 at int8, see planepack)."""
+    from .planepack import ecc_plane_count
+
+    return ecc_plane_count(n_bits) / max(1, n_bits)
 
 
 def project_eqn(op, index: int, spec: Optional[ArraySpec], res,
@@ -417,8 +409,8 @@ def plan_offload(tr, spec: Optional[ArraySpec] = None,
     are demoted outright; an interior loser is kept fused when the
     pack/unpack toll of hosting it exceeds its loss (`fused=True` on its
     verdict), else the run splits around it and the halves re-evaluate.
-    Resident ECC waits with the fault layer (ROADMAP A7): no pin is
-    protected yet, so no load carries the ECC overhead."""
+    While registry pins are ECC-protected (`array.set_resident_ecc`) every
+    streamed load also pays its parity planes (`ecc_overhead`)."""
     policy = normalize_policy(policy)
     device = device or DEFAULT_DEVICE
     res = accounting._SCHEMES[scheme](rows)
@@ -426,7 +418,12 @@ def plan_offload(tr, spec: Optional[ArraySpec] = None,
     verdicts: Dict[int, EqnVerdict] = {}
     for i, op in enumerate(tr.ops):
         if op.eligible:
-            verdicts[i] = project_eqn(op, i, spec, res, device, policy)
+            # free ops the aten capture adds (view/reshape, where) carry
+            # n_bits 0 and load nothing, so they pay no parity either
+            ratio = ecc_overhead(op.n_bits) \
+                if array_mod.resident_ecc_default() and op.n_bits else 0.0
+            verdicts[i] = project_eqn(op, i, spec, res, device, policy,
+                                      ecc_overhead_ratio=ratio)
 
     demoted: set = set()
     if policy == "never":

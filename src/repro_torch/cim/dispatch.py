@@ -9,6 +9,9 @@ together. It is bit-exact with the untiled engine: elementwise CiM ops touch
 each word independently and tiles cut the packed lane axis on uint32
 boundaries. The ledger is charged one activation per tile, attributed to
 its (device, bank) slot. A mesh (the reference's shard_map path) is refused.
+An installed fault model corrupts the streamed operands of the eager
+`execute_tiled` (BER flips and the stuck-at rows of the banks its tiles land
+on); the traced form a schedule program runs never injects.
 
 The module also holds the compiled-schedule cache: a bounded LRU of
 programs keyed by schedule structure. It holds the per-access tiled
@@ -22,6 +25,7 @@ REPRO_CIM_CACHE_CAPACITY (the reference's variable) or
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from collections import OrderedDict
 from typing import Dict, Optional, Sequence
@@ -121,10 +125,14 @@ _DISPATCHES = 0
 
 def cache_stats() -> Dict[str, int]:
     """Program-table hits/misses/evictions, `dispatches` (program
-    invocations) and the aggregated resident-region counters."""
+    invocations), the aggregated resident-region counters and the fault
+    layer's injection/ECC counters."""
+    from . import faults as faults_mod
+
     stats = _PROGRAMS.stats()
     stats["dispatches"] = _DISPATCHES
     stats.update(array_mod.resident_stats())
+    stats.update(faults_mod.fault_stats())
     return stats
 
 
@@ -224,7 +232,26 @@ def _prepare_tiles(a: PlanePack, b: PlanePack, ops: Sequence[str],
     spec.check_fits(a.n_bits, ops,
                     resident_rows=array_mod.resident_rows_for(spec))
     plan = spec.plan(a.n_words)
-    return a, ops, plan, _tile(a.planes, plan), _tile(b.planes, plan)
+    return a, b, ops, plan, _tile(a.planes, plan), _tile(b.planes, plan)
+
+
+def _fault_overlay(a: PlanePack, b: PlanePack, plan: TilePlan, ta, tb):
+    """Transient-fault injection on the streamed operands of one eager
+    tiled access (BER flips and stuck-at rows of the active FaultModel)."""
+    from . import faults as faults_mod
+
+    fm = faults_mod.active()
+    if fm is None or (fm.config.ber <= 0.0 and not fm.config.stuck):
+        return a, b, ta, tb
+    pa, na = fm.corrupt_streamed(a.planes, plan)
+    pb, nb = fm.corrupt_streamed(b.planes, plan)
+    if na:
+        a = dataclasses.replace(a, planes=pa)
+        ta = _tile(a.planes, plan)
+    if nb:
+        b = dataclasses.replace(b, planes=pb)
+        tb = _tile(b.planes, plan)
+    return a, b, ta, tb
 
 
 def _wrap_tiled(a: PlanePack, ops, raws) -> engine.Outputs:
@@ -243,7 +270,8 @@ def execute_tiled(a: PlanePack, b: PlanePack, ops: Sequence[str],
     Bit-exact with `engine.execute`; the ledger is charged one activation
     per tile, attributed to its (device, bank), and the last tile's idle
     columns as activated-but-idle words. One dispatch."""
-    a, ops, plan, ta, tb = _prepare_tiles(a, b, ops, spec, mesh)
+    a, b, ops, plan, ta, tb = _prepare_tiles(a, b, ops, spec, mesh)
+    a, b, ta, tb = _fault_overlay(a, b, plan, ta, tb)
     bk = get_backend(backend)
     raws = _cached_program(ops, a.n_bits, tuple(ta.shape[1:]), bk)(ta, tb)
     count_dispatch()      # invoke first, account after (as CompiledSchedule)
@@ -258,7 +286,7 @@ def execute_tiled_traced(a: PlanePack, b: PlanePack, ops: Sequence[str],
     """The side-effect-free inner form of `execute_tiled` for a schedule
     program: no cache lookup, no dispatch count, no ledger mutation. With
     `charges`, appends the record `execute_tiled` would have charged."""
-    a, ops, plan, ta, tb = _prepare_tiles(a, b, ops, spec, mesh)
+    a, _, ops, plan, ta, tb = _prepare_tiles(a, b, ops, spec, mesh)
     raws = _tiled_program(ops, get_backend(backend))(ta, tb)
     if charges is not None:
         charges.append(("banked", ops, a.n_bits, a.n_words, plan, 1))

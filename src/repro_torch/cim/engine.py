@@ -5,10 +5,14 @@ over two PlanePacks in ONE simulated memory access on the selected backend
 and returns PlanePacks, so chained ops stay packed. `execute_unfused` is the
 near-memory baseline (one access per pass) the paper argues against, and
 add / sub / compare / boolean pack, execute and unpack for callers that
-hold plain integer tensors. The fault overlay waits.
+hold plain integer tensors. An installed fault model (`repro_torch.cim.faults`)
+corrupts the streamed operands of the eager `execute` only: the traced form
+a schedule program runs never injects, as the reference's jitted programs
+never do.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -64,11 +68,31 @@ def execute_traced(a: PlanePack, b: PlanePack, ops: Sequence[str],
 def execute(a: PlanePack, b: PlanePack, ops: Sequence[str],
             backend: Optional[str] = None) -> Outputs:
     """One ADRA access: every requested op from a single streamed pass."""
+    a, b = _fault_overlay(a, b)
     charges: list = []
     out = execute_traced(a, b, ops, backend=backend, charges=charges)
     for _, c_ops, n_bits, n_words in charges:
         LEDGER.charge(c_ops, n_bits, n_words, accesses=1)
     return out
+
+
+def _fault_overlay(a: PlanePack, b: PlanePack
+                   ) -> Tuple[PlanePack, PlanePack]:
+    """Transient BER injection on the streamed operands of one eager access
+    (the untiled path has no bank placement, so stuck-at rows do not apply
+    here)."""
+    from . import faults as faults_mod
+
+    fm = faults_mod.active()
+    if fm is None or fm.config.ber <= 0.0:
+        return a, b
+    pa, na = fm.corrupt_streamed(a.planes)
+    pb, nb = fm.corrupt_streamed(b.planes)
+    if na:
+        a = dataclasses.replace(a, planes=pa)
+    if nb:
+        b = dataclasses.replace(b, planes=pb)
+    return a, b
 
 
 def execute_unfused(a: PlanePack, b: PlanePack,

@@ -181,7 +181,10 @@ def run_schedule_program(schedule: planner.Schedule, body, operands,
     identity (`body_key`), the operand signatures, the backend and the
     banked geometry: a repeat hits (no new program), runs the cached body
     and replays the charges recorded the first time — accesses ==
-    schedule.accesses (placed_accesses on a `spec`) either way."""
+    schedule.accesses (placed_accesses on a `spec`) either way. The body's
+    accesses take the traced forms, which never see the fault overlay:
+    the reference's programs are jitted, so a streamed fault campaign
+    injects nothing into them (and draws nothing for them)."""
     bk_name = get_backend(backend).name
     leaves = tuple(operands)
     key = ("step-program", schedule, tuple(body_key),

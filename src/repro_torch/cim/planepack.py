@@ -1,7 +1,7 @@
 """PlanePack: packed bit-plane tensor — the CiM engine's working format.
 
-Port of `repro.cim.planepack` (the pack and its zero-access peripherals;
-the SECDED helpers wait for the fault layer). It carries the packed plane
+Port of `repro.cim.planepack`: the pack, its zero-access peripherals and
+the SECDED codec of the fault layer. It carries the packed plane
 stack — an int32 tensor [n_bits, W] holding uint32 bit patterns, plane p =
 bit p of 32 words per lane element — plus the metadata (n_bits,
 signedness, logical shape) needed to re-assemble integers, so chained CiM
@@ -10,7 +10,7 @@ ops stay packed between calls.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -159,3 +159,130 @@ def mask_to_ints(bitmap: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     w = bitmap.shape[-1]
     bits = unpack_lanes(bitmap.reshape(1, w))[0]
     return bits[:n].reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# SECDED ECC across the plane index
+# ---------------------------------------------------------------------------
+#
+# One logical element occupies a column: bit j of lane word w across the
+# n_bits plane rows. A Hamming code across the plane index protects every
+# element independently, one parity plane per Hamming check bit plus one
+# overall-parity plane, all XORs over plane rows. Per column any single bit
+# flip is corrected, any double flip detected (never miscorrected); three
+# or more may alias a valid syndrome, the classic SECDED bound.
+#
+# The reference runs this numpy-eager on host copies. Here the same plane
+# math runs in torch on the planes' own device (a full-width pin is tens of
+# MB of planes: a host copy per verify would dominate a decode step), and
+# only the two popcounts come back to the host.
+
+
+def _hamming_data_positions(m: int) -> List[int]:
+    """Hamming codeword positions of the m data planes: the first m
+    positive integers that are not powers of two (powers of two are the
+    check-bit positions)."""
+    pos, p = [], 3
+    while len(pos) < m:
+        if p & (p - 1):
+            pos.append(p)
+        p += 1
+    return pos
+
+
+def ecc_plane_count(n_bits: int) -> int:
+    """Parity planes protecting `n_bits` data planes: r Hamming check
+    planes (2^r >= n_bits + r + 1) plus the overall-parity plane."""
+    if n_bits < 1:
+        raise ValueError(f"cannot protect {n_bits} planes")
+    r = 0
+    while (1 << r) < n_bits + r + 1:
+        r += 1
+    return r + 1
+
+
+def _xor_rows(rows: List[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros_like(like)
+    for row in rows:
+        acc = acc ^ row
+    return acc
+
+
+def popcount_total(mask: torch.Tensor) -> torch.Tensor:
+    """Set bits of an int32 tensor holding uint32 patterns, summed: a 0-dim
+    int64 tensor on the mask's device (SWAR in int64, so bit 31 is an
+    ordinary bit)."""
+    x = mask.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    return x.sum()
+
+
+def ecc_encode(planes: torch.Tensor) -> torch.Tensor:
+    """int32[m, W] data planes -> int32[r+1, W] parity planes (r Hamming
+    check planes, then the overall parity plane), on the planes' device."""
+    data = planes
+    m = data.shape[0]
+    r = ecc_plane_count(m) - 1
+    pos = _hamming_data_positions(m)
+    checks = [_xor_rows([data[i] for i, p in enumerate(pos) if (p >> k) & 1],
+                        data[0]) for k in range(r)]
+    overall = _xor_rows([data[i] for i in range(m)] + checks, data[0])
+    return torch.stack(checks + [overall])
+
+
+def syndrome_is(syn: List[torch.Tensor], p: int,
+                like: torch.Tensor) -> torch.Tensor:
+    """Lane mask of the columns whose syndrome (planes `syn`, one per
+    Hamming check bit) equals the codeword position `p`."""
+    acc = torch.full_like(like, -1)
+    for k, s in enumerate(syn):
+        acc = acc & (s if (p >> k) & 1 else ~s)
+    return acc
+
+
+def ecc_check_correct(planes: torch.Tensor, parity: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """Verify (and repair) a protected plane stack.
+
+    Returns (data, parity, corrected, uncorrected): the repaired stacks
+    plus per-bit counts. `corrected` single-bit errors were repaired in
+    place (data, check or overall planes alike); `uncorrected` bits were
+    detected but cannot be repaired (even total parity with a nonzero
+    syndrome: a double error in one column). The caller treats any nonzero
+    `uncorrected` as data loss. Without a correction the inputs come back
+    as they were (no copy)."""
+    data, par = planes, parity
+    m = data.shape[0]
+    r = par.shape[0] - 1
+    pos = _hamming_data_positions(m)
+    like = data[0]
+
+    syn = [_xor_rows([par[k]] + [data[i] for i, p in enumerate(pos)
+                                 if (p >> k) & 1], like) for k in range(r)]
+    overall = _xor_rows([data[i] for i in range(m)]
+                        + [par[k] for k in range(r + 1)], like)
+    any_syn = torch.zeros_like(like)
+    for s in syn:
+        any_syn = any_syn | s
+
+    data_fix = [syndrome_is(syn, p, like) & overall for p in pos]
+    check_fix = [syndrome_is(syn, 1 << k, like) & overall for k in range(r)]
+    overall_fix = syndrome_is(syn, 0, like) & overall
+    fixed = torch.zeros_like(like)
+    for fix in data_fix + check_fix + [overall_fix]:
+        fixed = fixed | fix
+    # even parity + nonzero syndrome: double error (detected, not fixable);
+    # odd parity pointing outside every valid position: 3+ flips, ditto
+    uncorrectable = (any_syn & ~overall) | (overall & ~fixed)
+    # a column has one syndrome, so the fix masks are disjoint: their
+    # union's popcount is the sum of theirs
+    counts = torch.stack([popcount_total(fixed),
+                          popcount_total(uncorrectable)]).tolist()
+    corrected, uncorrected = int(counts[0]), int(counts[1])
+    if corrected:
+        data = data ^ torch.stack(data_fix)
+        par = par ^ torch.stack(check_fix + [overall_fix])
+    return data, par, corrected, uncorrected

@@ -1,9 +1,15 @@
-"""Public entry points of the kernels — port of `repro.kernels.ops` for
-attention and the recurrences (RG-LRU, and sLSTM, which the reference
-reaches through `repro.kernels.slstm.slstm_scan`). The reference picks
-Pallas or its jnp oracle by a flag; here the tensor's device decides: CPU
-tensors take the plain version, CUDA tensors the kernel (which raises on
-what it does not take). There is no switch and no fallback.
+"""Public entry points of the kernels — port of `repro.kernels.ops`: the
+ADRA integer ops and macros through the CiM engine, attention and the
+recurrences (RG-LRU, and sLSTM, which the reference reaches through
+`repro.kernels.slstm.slstm_scan`). The reference picks Pallas or its jnp
+oracle by a flag; here the tensor's device decides: CPU tensors take the
+plain version, CUDA tensors the kernel (which raises on what it does not
+take). There is no switch and no fallback.
+
+The ADRA wrappers take `backend=` (a `repro_torch.cim.backends` name; the
+registry default when None). The reference's `interpret` flag names the
+Pallas interpreter, which has no counterpart here: `interpret=True`
+raises, `interpret=False` pins the compiled kernel ("fused").
 
 `attention` is differentiable: its forward saves (q, k, v, o, lse) and its
 backward is the blockwise FlashAttention-2 recomputation
@@ -17,7 +23,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.cim import PlanePack, execute, execute_unfused, macro
+from repro_torch.cim.array import ArraySpec
+from repro_torch.cim.dispatch import execute_tiled
+from repro_torch.cim.opset import CimOpError
+from repro_torch.cim.planepack import mask_to_ints
+
 from . import ref
+from .adra_bitplane import (_no_interpret, adra_bitplane_op,  # noqa: F401
+                            baseline_bitplane_sub_then_cmp)
 from .flash_attention import flash_attention
 from .rglru import rglru
 from .slstm import slstm
@@ -25,6 +39,115 @@ from .slstm import slstm
 
 #: kv block of the backward's recomputation (the reference's blockwise size)
 BWD_BLOCK_K = 512
+
+
+def _resolve_backend(interpret: Optional[bool],
+                     backend: Optional[str]) -> Optional[str]:
+    """An explicit backend wins; interpret=False pins the compiled kernel;
+    interpret=True raises (see the module note); None/None defers to the
+    registry default."""
+    _no_interpret(interpret)
+    if backend is not None:
+        return backend
+    return None if interpret is None else "fused"
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise CimOpError("the port runs on one device: mesh must be None")
+
+
+# ---------------------------------------------------------------------------
+# ADRA integer ops through the CiM engine
+# ---------------------------------------------------------------------------
+
+
+def adra_sub(a: torch.Tensor, b: torch.Tensor, n_bits: int = 16,
+             interpret: Optional[bool] = None, backend: Optional[str] = None,
+             spec: Optional[ArraySpec] = None, mesh=None):
+    """Fused single-pass subtraction + comparison over integer tensors:
+    (diff, lt, eq) as int32, from ONE access (one kernel launch on CUDA
+    tensors). With `spec` the operands are tiled over the banked array:
+    the same results, the ledger charged per bank activation."""
+    bk = _resolve_backend(interpret, backend)
+    pa, pb = PlanePack.pack(a, n_bits), PlanePack.pack(b, n_bits)
+    if spec is not None or mesh is not None:
+        out = execute_tiled(pa, pb, ("sub", "lt", "eq"), spec=spec,
+                            backend=bk, mesh=mesh)
+    else:
+        out = execute(pa, pb, ("sub", "lt", "eq"), backend=bk)
+    return out["sub"].unpack(), out["lt"].unpack(), out["eq"].unpack()
+
+
+def adra_add(a: torch.Tensor, b: torch.Tensor, n_bits: int = 16,
+             interpret: Optional[bool] = None, backend: Optional[str] = None,
+             spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
+    """a + b in one access (int32), tiled over banks with `spec`."""
+    bk = _resolve_backend(interpret, backend)
+    pa, pb = PlanePack.pack(a, n_bits), PlanePack.pack(b, n_bits)
+    if spec is not None or mesh is not None:
+        out = execute_tiled(pa, pb, ("add",), spec=spec, backend=bk,
+                            mesh=mesh)
+    else:
+        out = execute(pa, pb, ("add",), backend=bk)
+    return out["add"].unpack()
+
+
+def unpack_bits_mask(bitmap: torch.Tensor, n: int) -> torch.Tensor:
+    """[1, W] bitmap -> int32[n] of 0/1 (see planepack.mask_to_ints)."""
+    return mask_to_ints(bitmap, (n,))
+
+
+def baseline_sub_then_cmp(a: torch.Tensor, b: torch.Tensor, n_bits: int = 16,
+                          interpret: Optional[bool] = None,
+                          backend: Optional[str] = None):
+    """The paper's near-memory baseline: a subtraction access, then a
+    comparison access that re-streams both operands (two launches)."""
+    bk = _resolve_backend(interpret, backend)
+    out = execute_unfused(PlanePack.pack(a, n_bits), PlanePack.pack(b, n_bits),
+                          (("sub",), ("lt", "eq")), backend=bk)
+    return out["sub"].unpack(), out["lt"].unpack(), out["eq"].unpack()
+
+
+# ---------------------------------------------------------------------------
+# macro ops (multi-access schedules from the CiM planner)
+# ---------------------------------------------------------------------------
+
+
+def cim_matmul(a: torch.Tensor, b: torch.Tensor, n_bits: int = 8,
+               interpret: Optional[bool] = None,
+               backend: Optional[str] = None,
+               spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
+    """Exact intN x intN -> int32 matmul as one planned access schedule:
+    (2 n_bits - 1) + ceil(log2 K) logical accesses, one dispatch; placed
+    per bank on a banked `spec`."""
+    _no_mesh(mesh)
+    return macro.matmul(a, b, n_bits=n_bits,
+                        backend=_resolve_backend(interpret, backend),
+                        spec=spec)
+
+
+def cim_relu(x: torch.Tensor, n_bits: int = 16,
+             interpret: Optional[bool] = None, backend: Optional[str] = None,
+             spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
+    """max(x, 0) over integer tensors: one access (the gt predicate gates
+    the writeback) whatever the width."""
+    _no_mesh(mesh)
+    return macro.relu(PlanePack.pack(x, n_bits),
+                      backend=_resolve_backend(interpret, backend),
+                      spec=spec).unpack()
+
+
+def cim_lower(fn, interpret: Optional[bool] = None,
+              backend: Optional[str] = None,
+              spec: Optional[ArraySpec] = None, mesh=None):
+    """Compile an unmodified PyTorch function into the hybrid CiM/host
+    callable (`repro_torch.cim.lower.lower`), with the backend resolved as
+    the other wrappers here resolve it."""
+    from repro_torch.cim.lower import lower
+
+    return lower(fn, backend=_resolve_backend(interpret, backend),
+                 spec=spec, mesh=mesh)
 
 
 class _Attention(torch.autograd.Function):

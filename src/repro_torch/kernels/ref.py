@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the kernels — port of `repro.kernels.ref`.
+"""Plain PyTorch versions of the kernels — port of `repro.kernels.ref`,
+the ADRA bit-plane oracles included.
 
 Each mirrors one kernel's contract. The tests hold them to the reference's
 oracles on the CPU, and `chip_smoke.py` holds the CUDA kernels to them on
@@ -10,6 +11,49 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+
+# ---------------------------------------------------------------------------
+# adra_bitplane oracles
+# ---------------------------------------------------------------------------
+
+
+def adra_bitplane_ref(a_planes: torch.Tensor, b_planes: torch.Tensor,
+                      select: int):
+    """Oracle for `adra_bitplane_op`: the plane-wise ripple (add for
+    select 0, sub for select 1) over int32 planes holding uint32 patterns.
+    Returns (sum planes [n_bits+1, W], carry [1, W], sign [1, W],
+    zero [1, W])."""
+    n_bits = a_planes.shape[0]
+    b_eff = ~b_planes if select == 1 else b_planes
+    carry = torch.full_like(a_planes[0], -1 if select == 1 else 0)
+    sums = []
+    nz = torch.zeros_like(a_planes[0])
+    for i in range(n_bits):
+        a, b = a_planes[i], b_eff[i]
+        half = a ^ b
+        s = half ^ carry
+        carry = (a & b) | (carry & half)
+        sums.append(s)
+        nz = nz | s
+    a_msb, b_msb = a_planes[n_bits - 1], b_eff[n_bits - 1]
+    half = a_msb ^ b_msb
+    s_ext = half ^ carry
+    carry_out = (a_msb & b_msb) | (carry & half)
+    nz = nz | s_ext
+    sums.append(s_ext)
+    return (torch.stack(sums), carry_out[None, :], s_ext[None, :],
+            (~nz)[None, :])
+
+
+def adra_int_ref(a: torch.Tensor, b: torch.Tensor, select: int,
+                 n_bits: int):
+    """Integer-semantics oracle: what the bit-plane machinery must equal
+    (a - b for select 1, else a + b, with a < b and a == b as int32)."""
+    a = torch.as_tensor(a).to(torch.int32)
+    b = torch.as_tensor(b).to(torch.int32)
+    res = a - b if select == 1 else a + b
+    return res, (a < b).to(torch.int32), (a == b).to(torch.int32)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,12 @@
 """Bank-aligned paged KV block table for the serve engine.
 
-Port of `repro.launch.paged_kv` (block migration for bank failover waits).
-The dense [slots, max_len, ...] cache the decode step computes on stays as
+Port of `repro.launch.paged_kv`. The dense [slots, max_len, ...] cache the decode step computes on stays as
 it is; this module adds the residency model over it: an in-flight
 request's KV is held in the CiM array as fixed-size blocks of rows, each
 pinned to bank `block_id % banks`, claimed from the shared `ResidentSet` as
 non-evictable reservations, so pressure surfaces as a failed allocation
-(the engine then defers admission) instead of an eviction.
+(the engine then defers admission) instead of an eviction. On a bank
+failover `migrate` moves every block off the dead banks, all or nothing.
 """
 from __future__ import annotations
 
@@ -71,8 +71,10 @@ class PagedKV:
     # -- block lifecycle -----------------------------------------------------
 
     def bank_of_block(self, bid: int) -> int:
-        """Round-robin placement over the banks."""
-        return bid % self.spec.banks
+        """Round-robin over the live banks only: a degraded spec skips its
+        dead banks, so new reservations never land on failed hardware."""
+        live = self.spec.enabled_banks
+        return live[bid % len(live)]
 
     def _claim(self, rid: int) -> bool:
         if not self._free:
@@ -129,6 +131,47 @@ class PagedKV:
             self._free.append(bid)
         self.lengths.pop(rid, None)
         self._free.sort()
+
+    # -- failover ------------------------------------------------------------
+
+    def migrate(self, new_spec: ArraySpec,
+                new_rs: Optional[ResidentSet] = None) -> int:
+        """Move every in-use block off the banks `new_spec` disables.
+
+        All or nothing: each block is re-reserved in `new_rs` (or the
+        current set) under the live-bank mapping of `new_spec` first; only
+        when every block lands does the table release the old reservations
+        and adopt the new spec and set. A failed re-reserve rolls back every
+        reservation made so far, leaves the table untouched and raises.
+        Returns the number of blocks migrated."""
+        target = new_rs if new_rs is not None else self.rs
+        in_use = sorted(bid for blocks in self.tables.values()
+                        for bid in blocks)
+        live = new_spec.enabled_banks
+        if target is not None:
+            placed: List[int] = []
+            try:
+                for bid in in_use:
+                    target.reserve(("kv_mig", bid), self.kv_bits,
+                                   bank=live[bid % len(live)],
+                                   words32=(self.block_tokens
+                                            * self.kv_bits / 32.0))
+                    placed.append(bid)
+            except Exception:
+                for bid in placed:
+                    target.release(("kv_mig", bid))
+                raise
+            # commit: drop the old claims, rename the staged ones
+            for bid in in_use:
+                if self.rs is not None:
+                    self.rs.release(("kv", bid))
+            for bid in in_use:
+                entry = target._entries.pop(("kv_mig", bid))
+                entry.key = ("kv", bid)
+                target._entries[("kv", bid)] = entry
+        self.spec = new_spec
+        self.rs = target
+        return len(in_use)
 
     # -- reporting -----------------------------------------------------------
 

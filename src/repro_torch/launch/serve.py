@@ -1,7 +1,6 @@
 """Continuous-batching serve engine over the CiM-quantized model.
 
-Port of `repro.launch.serve` (without fault injection, ECC scrubbing, bank
-failover and admission shedding, which wait). It serves the dense family
+Port of `repro.launch.serve`. It serves the dense family
 (gemma-2b), the hybrid one (recurrentgemma-9b: RG-LRU recurrent blocks,
 each launching the RG-LRU kernel on the card, and sliding-window local
 attention, both float, with int8 CiM MLPs in every layer) and the ssm one
@@ -18,6 +17,11 @@ launching the sLSTM kernel on the card, on the float path only):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
       --preset full --device cuda --slots 2 --requests 4 --prompt-len 512 \
       --gen 16
+  REPRO_CIM_FAULT_SEED=0 REPRO_CIM_FAULT_RESIDENT_BER=1e-9 \
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
+      --preset full --device cuda --slots 2 --requests 2 --prompt-len 8 \
+      --gen 4 --cim-lower --cim-resident --sampler adra --cim-faults \
+      --scrub-every 2
 
 xLSTM layers hold no MLP and no global attention, so nothing in them
 lowers to CiM: with --cim-lower an xLSTM run charges nothing and fails the
@@ -27,7 +31,18 @@ The engine holds `slots` concurrent sequences in one batched KV cache. Each
 loop iteration admits at most one due request (a batch-1 prefill inserted
 into its slot between decode steps) and then runs ONE full-batch decode
 step for every in-flight sequence; retired sequences free their slot and
-their paged KV blocks at once.
+their paged KV blocks at once. `--sampler adra` picks each token with the
+ADRA tournament (`repro_torch.train.adra_sample`: ceil(log2 V) lowered
+accesses per sampled batch, on the fused kernel) instead of argmax.
+
+Self-healing: an installed fault model (`repro_torch.cim.faults`) is
+advanced to each decode step; a bank it kills is failed over (degraded
+spec, paged KV migrated, stale pins dropped and re-pinned, the process
+spec override installed). A decode step whose ECC verify finds damage
+SECDED cannot repair is retried within `retry_budget` (the failing pin is
+already invalidated, so the retry re-pins it); `scrub_every` decode steps
+a scrub pass repairs every protected pin. Admission control sheds a due
+request that waited past `timeout_s` and the tail past `queue_limit`.
 
 Timing: every prefill and decode step ends in `torch.cuda.synchronize()`
 on the card, so a step's latency is device time. Steady-state tok/s and the
@@ -45,7 +60,10 @@ trace time). The bench runs the SAME request schedule twice — streamed
 repack, then resident — and asserts that the resident phase charges the
 same compute accesses per token and strictly fewer total accesses per
 token; --assert-warm replays the resident phase and asserts zero program
-misses and zero new pins.
+misses and zero new pins. --cim-faults adds a chaos phase: the resident
+run again with ECC-protected pins under the REPRO_CIM_FAULT_* campaign
+(fail-stop), asserting tokens identical to the fault-free run, 0
+uncorrected bits, and corrected > 0 when the resident BER is.
 
 The resident array is decided in one place, `resident_array_spec`, and
 printed on the report's `array:` line beside the paper's. The paper's
@@ -76,14 +94,18 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.cim import accounting, cost, dispatch
+from repro_torch.cim import array as array_mod
+from repro_torch.cim import faults as faults_mod
 from repro_torch.cim import planner
 from repro_torch.cim.array import (DEFAULT_SPEC, ArraySpec, clear_resident,
                                    registry_reserve_rows, resident_set,
                                    set_current_spec)
+from repro_torch.cim.planepack import ecc_plane_count
 from repro_torch.configs import preset_config
 from repro_torch.launch.paged_kv import PagedKV
 from repro_torch.models.model import XLSTM_CELLS, Model, build, with_cim
-from repro_torch.train import greedy_sample, make_decode_step, make_prefill_step
+from repro_torch.train import (adra_sample, greedy_sample, make_decode_step,
+                               make_prefill_step)
 
 
 @dataclasses.dataclass
@@ -105,6 +127,8 @@ class ServeRequest:
     accesses: float = 0.0          # ledger attribution (see module docstring)
     load_accesses: float = 0.0
     token_latencies_ms: List[float] = dataclasses.field(default_factory=list)
+    shed: bool = False             # dropped by admission control, never ran
+    repairs: int = 0               # retried decode steps attributed here
 
     @property
     def done(self) -> bool:
@@ -119,6 +143,8 @@ class ServeRequest:
             "prefill_ms": round(self.prefill_ms, 3),
             "tokens": len(self.tokens),
             "token_ids": list(self.tokens),
+            "shed": self.shed,
+            "repairs": self.repairs,
             "accesses": round(self.accesses, 3),
             "load_accesses": round(self.load_accesses, 3),
             "total_accesses": round(self.accesses + self.load_accesses, 3),
@@ -139,20 +165,84 @@ def _sync(device: torch.device) -> None:
 
 
 class ServeEngine:
-    """Slot-based continuous batching over one batched cache."""
+    """Slot-based continuous batching over one batched cache. `spec` is the
+    CiM geometry the engine serves from (what a bank kill degrades);
+    `retry_budget` bounds the retries of a decode step per request,
+    `queue_limit` the due requests waiting beyond the free slots,
+    `timeout_s` a due request's wait for a slot, and `scrub_every` the
+    decode steps between ECC scrub passes (0: none)."""
 
     def __init__(self, model: Model, slots: int, max_len: int,
-                 cim_lower: bool = False, paged: Optional[PagedKV] = None,
-                 warmup_steps: int = 1, seed: int = 0):
+                 sampler: str = "greedy", cim_lower: bool = False,
+                 paged: Optional[PagedKV] = None, warmup_steps: int = 1,
+                 seed: int = 0, spec: Optional[ArraySpec] = None,
+                 retry_budget: int = 2, queue_limit: Optional[int] = None,
+                 timeout_s: Optional[float] = None, scrub_every: int = 0):
         self.model, self.cfg = model, model.cfg
         self.device = model.device
         self.slots, self.max_len = int(slots), int(max_len)
+        if sampler not in ("greedy", "adra"):
+            raise ValueError(f"unknown sampler {sampler!r}")
+        self.sample = greedy_sample if sampler == "greedy" else adra_sample
         self.cim_lower = cim_lower
         self.paged = paged
         self.warmup_steps = int(warmup_steps)
         self.seed = int(seed)
+        self.spec = spec
+        self.retry_budget = int(retry_budget)
+        self.queue_limit = queue_limit
+        self.timeout_s = timeout_s
+        self.scrub_every = int(scrub_every)
+        self.repairs = 0                      # uncorrectable -> re-pin+retry
+        self.failovers = 0                    # bank-kill remaps executed
+        self.shed_count = 0
+        self.scrub_report = {"scanned": 0, "dropped": 0,
+                             "corrected": 0, "uncorrected": 0}
         self.prefill_fn = make_prefill_step(model, max_len)
         self.decode_fn = make_decode_step(model)
+
+    # -- fault handling ------------------------------------------------------
+
+    def _check_faults(self, step: int) -> None:
+        """Advance the installed FaultModel to `step` and fail over when it
+        has killed a bank this engine still serves from."""
+        fm = faults_mod.active()
+        if fm is None:
+            return
+        fm.on_step(step)
+        if self.spec is None or not self.cim_lower:
+            return
+        dead = [b for b in fm.dead_banks
+                if b not in self.spec.disabled_banks and b < self.spec.banks]
+        if dead:
+            self._failover(dead)
+
+    def _failover(self, dead_banks: List[int]) -> None:
+        """Remap the serving process off `dead_banks`: degraded spec, paged
+        KV migrated (all or nothing), stale weight pins dropped so they
+        re-pin under the new geometry, and the process-wide spec override
+        installed, so every spec=None layer re-routes from the next call
+        on (its fresh lowering re-plans, demoting what no longer pays)."""
+        new_spec = self.spec
+        for b in dead_banks:
+            new_spec = new_spec.disable_bank(b)
+        new_rs = resident_set(new_spec)
+        if self.paged is not None:
+            self.paged.migrate(new_spec, new_rs)
+        old_rs = array_mod._RESIDENT_SETS.get(self.spec)
+        if old_rs is not None and old_rs is not new_rs:
+            old_rs.clear()              # stale pins: re-pin under new_spec
+        set_current_spec(new_spec)
+        self.spec = new_spec
+        self.failovers += 1
+
+    def _scrub(self) -> None:
+        rs = array_mod._RESIDENT_SETS.get(self.spec)
+        if rs is None or not rs.ecc:
+            return
+        r = rs.scrub()
+        for k in self.scrub_report:
+            self.scrub_report[k] += r.get(k, 0)
 
     def _prompt_inputs(self, req: ServeRequest) -> Dict[str, torch.Tensor]:
         if req.prompt is not None:
@@ -189,7 +279,25 @@ class ServeEngine:
         def now() -> float:
             return time.perf_counter() - t0
 
+        def shed(req: ServeRequest) -> None:
+            req.shed = True
+            req.done_s = now()
+            self.shed_count += 1
+
         while pending or active:
+            self._check_faults(decode_steps)
+
+            # admission control: shed the head once it has waited past the
+            # timeout for a slot, and the tail past free slots + queue_limit
+            if self.timeout_s is not None and not free:
+                while pending and pending[0].arrival_s <= now() \
+                        and now() - pending[0].arrival_s > self.timeout_s:
+                    shed(pending.popleft())
+            if self.queue_limit is not None:
+                while sum(1 for r in pending if r.arrival_s <= now()) \
+                        - len(free) > self.queue_limit:
+                    shed(pending.pop())
+
             if pending and free and pending[0].arrival_s <= now():
                 req = pending[0]
                 if self.paged is not None and \
@@ -211,7 +319,7 @@ class ServeEngine:
                     req.accesses += led.accesses - l0[0]
                     req.load_accesses += led.load_accesses - l0[1]
                     self._insert(caches, c1, slot)
-                    first = int(greedy_sample(logits1)[0])
+                    first = int(self.sample(logits1)[0])
                     tok[slot] = first
                     req.tokens.append(first)
                     req.first_token_s = now()
@@ -232,14 +340,29 @@ class ServeEngine:
             ts = time.perf_counter()
             l0 = (led.accesses, led.load_accesses)
             d0 = dispatch.cache_stats()["dispatches"]
-            caches, logits = self.decode_fn(caches, step_in)
+            # one full-batch decode step, retried within the budget when an
+            # ECC verify finds uncorrectable damage (the failing pin is
+            # already invalidated, so the retry re-pins from the weights)
+            attempts = 0
+            while True:
+                try:
+                    caches, logits = self.decode_fn(caches, step_in)
+                    break
+                except faults_mod.UncorrectableFaultError:
+                    attempts += 1
+                    self.repairs += 1
+                    for req in active.values():
+                        req.repairs += 1
+                    if attempts > self.retry_budget:
+                        raise
             _sync(self.device)
             dt = time.perf_counter() - ts
             d_acc = led.accesses - l0[0]
             d_load = led.load_accesses - l0[1]
-            step_accesses.append(d_acc)
+            tok = self.sample(logits).to(torch.int64)
+            # a step's counts include its sampler's accesses (none: greedy)
+            step_accesses.append(led.accesses - l0[0])
             step_dispatches.append(dispatch.cache_stats()["dispatches"] - d0)
-            tok = greedy_sample(logits).to(torch.int64)
             tok_host = tok.tolist()
             n_active = len(active)
             decode_steps += 1
@@ -259,6 +382,8 @@ class ServeEngine:
                     self.paged.extend(req.rid)
                 if req.done:
                     self._retire(req, free, active, now())
+            if self.scrub_every and decode_steps % self.scrub_every == 0:
+                self._scrub()
 
         total_tokens = sum(len(r.tokens) for r in requests)
         decode_tokens = sum(max(0, len(r.tokens) - 1) for r in requests)
@@ -278,11 +403,24 @@ class ServeEngine:
             "p99_ms": _percentile(token_lat_ms, 99),
             "prefill_ms_mean": (sum(r.prefill_ms for r in requests)
                                 / max(1, len(requests))),
-            "completed": sum(1 for r in requests if r.done),
+            "shed": self.shed_count,
+            "completed": sum(1 for r in requests if not r.shed and r.done),
             "step_accesses": step_accesses,
             "step_dispatches": step_dispatches,
             "per_request": [r.report() for r in requests],
         }
+        fm = faults_mod.active()
+        if fm is not None or self.repairs or self.failovers:
+            report["faults"] = {
+                **(fm.stats() if fm is not None else {}),
+                "repairs": self.repairs,
+                "failovers": self.failovers,
+                "shed": self.shed_count,
+                "scrub": dict(self.scrub_report),
+            }
+            rst = array_mod.resident_stats()
+            for k in ("ecc_verifies", "ecc_corrected", "ecc_uncorrected"):
+                report["faults"][k] = rst.get(k, 0)
         if self.paged is not None:
             st = self.paged.stats()
             report["kv"] = {
@@ -304,6 +442,7 @@ class ServeEngine:
                 led.load_accesses / per_tok, 4)
             report["total_accesses_per_token"] = round(
                 led.total_accesses / per_tok, 4)
+            report["offload"] = dict(cost.PLAN_STATS)
         return report
 
     def _retire(self, req: ServeRequest, free, active, t: float) -> None:
@@ -333,6 +472,7 @@ def fresh_cim_state() -> None:
     dispatch.clear_schedule_cache()
     cost.reset_plan_stats()
     set_current_spec(None)
+    faults_mod.reset_fault_stats()
 
 
 def _decode_weight_pins(cfg, slots: int) -> List[int]:
@@ -347,12 +487,14 @@ def _decode_weight_pins(cfg, slots: int) -> List[int]:
     return per_layer * with_mlp
 
 
-def resident_array_spec(cfg, slots: int, max_len: int) -> ArraySpec:
+def resident_array_spec(cfg, slots: int, max_len: int,
+                        ecc: bool = False) -> ArraySpec:
     """The array a --cim-lower run pins weights and KV pages in (see the
     module docstring): the paper's geometry with its bitlines doubled until
     the largest decode weight pin fills one tile, then its rows doubled
     until the registry ResidentSet's budget on each bank holds every decode
-    weight pin and KV reservation that lands there."""
+    weight pin (with its SECDED parity rows when `ecc`) and KV reservation
+    that lands there."""
     if cfg.cim_mlp_bits < 1:
         raise ValueError(f"{cfg.name}: resident pins need cim_mlp_bits > 0")
     pins = _decode_weight_pins(cfg, slots)
@@ -360,11 +502,12 @@ def resident_array_spec(cfg, slots: int, max_len: int) -> ArraySpec:
     while DEFAULT_SPEC.subarrays * words < max(pins, default=0):
         words *= 2
     spec = dataclasses.replace(DEFAULT_SPEC, bitline_words=words)
+    pin_rows = cfg.cim_mlp_bits + (ecc_plane_count(cfg.cim_mlp_bits)
+                                   if ecc else 0)
     rows_by_bank: Dict[int, int] = {}
     for n_words in pins:
         for (_dev, bank), n in spec.plan(n_words).bank_counts(1).items():
-            rows_by_bank[bank] = rows_by_bank.get(bank, 0) \
-                + cfg.cim_mlp_bits * n
+            rows_by_bank[bank] = rows_by_bank.get(bank, 0) + pin_rows * n
     paged = PagedKV.for_model(cfg, spec=spec, slots=slots, max_len=max_len)
     for bid in range(paged.n_blocks):
         bank = paged.bank_of_block(bid)
@@ -384,19 +527,23 @@ def array_line(spec: ArraySpec) -> str:
 
 
 def serve_once(model: Model, args, requests=None) -> Dict[str, Any]:
-    """One pass of the request schedule through a fresh engine."""
+    """One pass of the request schedule through a fresh engine (on the
+    resident array, ECC rows included while `set_resident_ecc` is on)."""
     cfg = model.cfg
     spec = rs = None
     max_len = args.prompt_len + args.gen
     if args.cim_lower:
-        spec = resident_array_spec(cfg, args.slots, max_len)
+        spec = resident_array_spec(cfg, args.slots, max_len,
+                                   ecc=array_mod.resident_ecc_default())
         rs = resident_set(spec)
         model = model.derive(cfg, resident_spec=spec)
     paged = PagedKV.for_model(cfg, spec=spec, slots=args.slots,
                               max_len=max_len, resident_set=rs)
     engine = ServeEngine(model, slots=args.slots, max_len=max_len,
-                         cim_lower=args.cim_lower, paged=paged,
-                         warmup_steps=args.warmup_steps, seed=args.seed)
+                         sampler=args.sampler, cim_lower=args.cim_lower,
+                         paged=paged, warmup_steps=args.warmup_steps,
+                         seed=args.seed, spec=spec,
+                         scrub_every=args.scrub_every)
     return engine.run(requests if requests is not None else make_requests(args))
 
 
@@ -425,6 +572,40 @@ def print_cim_report(tag: str) -> None:
           f"{ps['fused_despite_loss']} losing eqns kept fused")
 
 
+def chaos_phase(model_resident: Model, args,
+                resident: Dict[str, Any]) -> Dict[str, Any]:
+    """The resident run again under the env-configured fault campaign with
+    ECC-protected pins and fail-stop ECC: tokens must equal the fault-free
+    `resident` run's, with 0 uncorrected bits, and ECC must have corrected
+    something when the resident BER is above 0."""
+    fresh_cim_state()
+    array_mod.set_resident_ecc(True)
+    fcfg = faults_mod.FaultConfig.from_env(raise_on_uncorrectable=True)
+    try:
+        with faults_mod.faults(fcfg):
+            chaos = serve_once(model_resident, args)
+    finally:
+        array_mod.set_resident_ecc(False)
+        set_current_spec(None)
+    fr = chaos.get("faults", {})
+    assert [r["token_ids"] for r in chaos["per_request"]] == \
+        [r["token_ids"] for r in resident["per_request"]], \
+        "chaos phase tokens diverged from the fault-free run"
+    assert fr.get("uncorrected", 0) == 0, \
+        f"chaos phase left {fr.get('uncorrected')} uncorrected bits"
+    if fcfg.resident_ber > 0:
+        assert fr.get("corrected", 0) > 0, \
+            "resident BER configured but ECC corrected nothing"
+    print(f"chaos phase (seed {fcfg.seed}, resident BER "
+          f"{fcfg.resident_ber:g}): identical tokens, "
+          f"{fr.get('injected', 0)} bits injected / "
+          f"{fr.get('corrected', 0)} corrected / 0 uncorrected, "
+          f"{fr.get('ecc_verifies', 0)} verifies, repairs "
+          f"{fr.get('repairs', 0)}, {chaos['tok_s_steady']:.2f} tok/s "
+          f"under verify")
+    return chaos
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma-2b")
@@ -440,6 +621,7 @@ def parse_args(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--arrival-interval", type=float, default=0.0)
     ap.add_argument("--warmup-steps", type=int, default=1)
+    ap.add_argument("--sampler", default="greedy", choices=("greedy", "adra"))
     ap.add_argument("--json", default="")
     ap.add_argument("--cim-lower", action="store_true",
                     help="run decode MLPs and attention contractions as CiM "
@@ -450,6 +632,13 @@ def parse_args(argv=None):
     ap.add_argument("--assert-warm", action="store_true",
                     help="replay the resident phase and fail unless every "
                          "program and pin stayed warm")
+    ap.add_argument("--cim-faults", action="store_true",
+                    help="with --cim-lower: run a chaos phase under the "
+                         "REPRO_CIM_FAULT_SEED/BER env fault campaign with "
+                         "ECC-protected pins, asserting tokens identical to "
+                         "the fault-free phase")
+    ap.add_argument("--scrub-every", type=int, default=0,
+                    help="decode steps between ECC scrub passes (0: off)")
     args = ap.parse_args(argv)
     if args.requests <= 0:
         args.requests = args.slots
@@ -475,7 +664,7 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
         "bench": "serve", "arch": args.arch, "preset": args.preset,
         "device": str(device), "slots": args.slots,
         "requests": args.requests, "prompt_len": args.prompt_len,
-        "gen": args.gen,
+        "gen": args.gen, "sampler": args.sampler,
         "cim": {"lower": bool(args.cim_lower), "bits": args.cim_bits,
                 "resident": bool(args.cim_resident)},
     }
@@ -539,6 +728,9 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
               f"{repack['tok_s_steady']:.2f} tok/s (x{ratio:.2f}), total "
               f"accesses/token {resident['total_accesses_per_token']} vs "
               f"{repack['total_accesses_per_token']}")
+        if args.cim_faults:
+            out["phases"]["chaos"] = chaos_phase(model_resident, args,
+                                                 resident)
     if args.json:
         with open(args.json, "w") as f:
             json_lib.dump(out, f, indent=2, sort_keys=True)

@@ -202,8 +202,11 @@ def _lru_get(cache, key, make):
 def _resident_set(resident: bool, resident_spec):
     """The explicit ResidentSet a resident lowering pins into: the registry
     set of `resident_spec` (resolved per call, so clear_resident() takes
-    effect), or None for the registry set of the lowering's own spec."""
-    if resident and resident_spec is not None:
+    effect), or None for the registry set of the lowering's own spec. A
+    failover's spec override wins over `resident_spec`: the pins then move
+    to the degraded geometry's set, as the reference's do."""
+    if resident and resident_spec is not None \
+            and array_mod.spec_override() is None:
         return array_mod.resident_set(resident_spec)
     return None
 

@@ -4,7 +4,9 @@ Port of `repro.train.step`. The train state is a plain dict {"params",
 "opt", "step"} (plus "residuals" with gradient compression), whose
 "params" are the model's own `nn.Parameter`s: a step runs the backward
 into their `.grad`, then `adamw.update` writes the new values into them
-in place. The ADRA tournament sampler waits (ROADMAP A4).
+in place. `adra_sample` is the serve path's quantized argmax through the
+ADRA comparison: a tournament whose every level is one lowered access on
+the fused bit-plane kernel; `adra_sample_ref` is its plain version.
 """
 from __future__ import annotations
 
@@ -122,3 +124,67 @@ def make_decode_step(model: Model) -> Callable:
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     """argmax over the vocab (first index on ties, as jnp.argmax)."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _adra_level(a: torch.Tensor, b: torch.Tensor, ia: torch.Tensor,
+                ib: torch.Tensor):
+    """One tournament level: strict a < b picks the right entrant (ties keep
+    the earlier index, argmax semantics). Captured by the lowering compiler
+    as one region: the comparison is a single-access `lt` and both selects
+    are zero-access writebacks, so a level is a one-access schedule."""
+    take_b = a < b
+    return torch.where(take_b, b, a), torch.where(take_b, ib, ia)
+
+
+_ADRA_LEVEL_LOWERED = None
+
+
+def _adra_quantize(logits: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """The reference's quantization of logits to n_bits for the compare:
+    masked (below -1e29) padded-vocab columns are clamped to the finite
+    floor so they keep the scale, then (x - lo) / ((hi - lo) / (2^n - 2))
+    rounded half to even, as int16 (n_bits <= 15) or int32."""
+    x = logits.to(torch.float32)
+    finite_lo = torch.where(x < -1e29, torch.full_like(x, float("inf")),
+                            x).amin(-1, keepdim=True)
+    x = torch.maximum(x, finite_lo)
+    hi = x.amax(-1, keepdim=True)
+    scale = (hi - finite_lo) / (2 ** n_bits - 2)
+    q = torch.round((x - finite_lo) / torch.clamp_min(scale, 1e-9))
+    return q.to(torch.int16 if n_bits + 1 <= 16 else torch.int32)
+
+
+def adra_sample(logits: torch.Tensor, n_bits: int = 8) -> torch.Tensor:
+    """Quantized argmax through the ADRA comparison primitive: logits
+    [..., V] are quantized to n_bits and the winner found by a tournament
+    of single-access in-memory comparisons, ceil(log2 V) levels, each one
+    dispatch of the level lowered once through `repro_torch.cim.lower`
+    (on the fused kernel for CUDA tensors). An odd level repeats its last
+    entrant. Returns int32 [...] indices (earliest on ties)."""
+    global _ADRA_LEVEL_LOWERED
+    if _ADRA_LEVEL_LOWERED is None:
+        from repro_torch.cim.lower import lower
+
+        _ADRA_LEVEL_LOWERED = lower(_adra_level)
+    level = _ADRA_LEVEL_LOWERED
+
+    vals = _adra_quantize(logits, n_bits)
+    idxs = torch.arange(vals.shape[-1], dtype=torch.int32,
+                        device=vals.device).expand(vals.shape)
+    while vals.shape[-1] > 1:
+        if vals.shape[-1] % 2:
+            vals = torch.cat([vals, vals[..., -1:]], -1)
+            idxs = torch.cat([idxs, idxs[..., -1:]], -1)
+        vals, idxs = level(vals[..., 0::2].contiguous(),
+                           vals[..., 1::2].contiguous(),
+                           idxs[..., 0::2].contiguous(),
+                           idxs[..., 1::2].contiguous())
+    return idxs[..., 0]
+
+
+def adra_sample_ref(logits: torch.Tensor, n_bits: int = 8) -> torch.Tensor:
+    """The plain version of `adra_sample`: the same quantization, then
+    argmax (earliest index on ties). For tests and the card's check; the
+    serve path never calls it."""
+    return torch.argmax(_adra_quantize(logits, n_bits).to(torch.int32),
+                        dim=-1).to(torch.int32)

@@ -311,3 +311,406 @@ def test_cuda_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({}, T_GEMMA.reduced())
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_full_width_residency_bookkeeping_with_ecc():
+    """With ECC-protected pins (the chaos phase) each full-width decode
+    weight pin also holds its 5 parity planes: 13 rows a tile. gemma-2b's
+    54 pins and KV blocks still fit bank 0's 768-row budget (54 x 13 + 16
+    = 718), recurrentgemma-9b's 114 fit its 1536 (1498): the arrays stay
+    as they are without ECC."""
+    for cfg, slots, max_len, n_pins in ((T_GEMMA, 2, 16, 54),
+                                        (T_RG, 2, 14, 114)):
+        plain = tserve.resident_array_spec(with_cim(cfg, 8), slots, max_len)
+        ecc = tserve.resident_array_spec(with_cim(cfg, 8), slots, max_len,
+                                         ecc=True)
+        assert ecc == plain
+        assert n_pins * 13 + 16 <= ecc.rows - ecc.rows // 4
+    # a model whose ECC rows would not fit gets more rows
+    tight = dataclasses.replace(with_cim(T_GEMMA, 8), n_layers=30)
+    assert tserve.resident_array_spec(tight, 2, 16, ecc=True).rows == 2048
+    assert tserve.resident_array_spec(tight, 2, 16).rows == 1024
+
+
+# ---------------------------------------------------------------------------
+# chaos, admission control and the ADRA sampler, against the reference engine
+# ---------------------------------------------------------------------------
+
+#: the reference's chaos-test model (tests/test_serve_engine.py)
+CHAOS_KW = dict(name="serve-chaos-test", family="dense", n_layers=1,
+                d_model=16, n_heads=4, n_kv_heads=2, head_dim=8, d_ff=32,
+                vocab_size=64, dtype="float32", tensor_parallel=False,
+                cim_mlp_bits=8, cim_attention_bits=8, cim_unroll_groups=True,
+                cim_resident=True)
+
+
+def _fresh_both():
+    """Both packages' CiM state reset, as the reference test's `_fresh_cim`
+    does (the reference's compiled programs are kept: they only save
+    compile time, and no count compared here reads them)."""
+    from repro.cim import cost as rcost
+    from repro.cim import faults as rfaults
+    from repro_torch.cim import faults as tfaults
+    RLEDGER.reset()
+    rarray.clear_resident()
+    rcost.reset_plan_stats()
+    rarray.set_current_spec(None)
+    rarray.set_resident_ecc(False)
+    rfaults.uninstall()
+    rfaults.reset_fault_stats()
+    tserve.fresh_cim_state()
+    tarray.set_resident_ecc(False)
+    tfaults.uninstall()
+
+
+class _ChaosEnv:
+    """One reference model and its port twin (the same weights), the
+    reference's jitted prefill per max_len shared across its engines, the
+    reference's prompts, and a memo of reference outcomes."""
+
+    def __init__(self, cim: bool = True):
+        kw = dict(CHAOS_KW) if cim else dict(
+            CHAOS_KW, cim_mlp_bits=0, cim_attention_bits=0,
+            cim_resident=False, name="serve-admission-test")
+        self.rcfg, self.tcfg = RArch(**kw), TArch(**kw)
+        self.rmodel = rbuild(self.rcfg)
+        self.rparams = self.rmodel.init(jax.random.PRNGKey(1))
+        self.tmodel = Model(self.tcfg, params=params_from_jax(
+            jax.tree.map(np.asarray, self.rparams), self.tcfg, device="cpu"))
+        self._prefill = {}
+        self.memo = {}
+
+    def prefill(self, max_len):
+        from repro.train import make_prefill_step
+        if max_len not in self._prefill:
+            self._prefill[max_len] = jax.jit(make_prefill_step(self.rmodel,
+                                                               max_len))
+        return self._prefill[max_len]
+
+    def prompts(self, n, prompt_len):
+        from repro.launch import serve as rserve
+        ns = argparse.Namespace(cfg=self.rcfg, key=jax.random.PRNGKey(0))
+        return [np.asarray(rserve.ServeEngine._prompt_inputs(
+            ns, rserve.ServeRequest(rid=i, prompt_len=prompt_len, gen=1))[
+            "tokens"])[0].tolist() for i in range(n)]
+
+
+@pytest.fixture(scope="module")
+def chaos_env():
+    return _ChaosEnv()
+
+
+def _outcome(rep, engine, requests, fm):
+    return {"tokens": [r["token_ids"] for r in rep["per_request"]],
+            "faults": rep.get("faults"), "completed": rep["completed"],
+            "shed": rep["shed"], "failovers": engine.failovers,
+            "repairs": [r.repairs for r in requests],
+            "disabled": engine.spec.disabled_banks,
+            "fm": fm.stats() if fm is not None else None,
+            "kv_banks": sorted(engine.paged.rs.rows_per_bank())}
+
+
+def _run_ref(env, gen, fault_cfg=None, ecc=False, **kw):
+    from repro.cim import faults as rfaults
+    from repro.launch import serve as rserve
+    if ecc:
+        # trace the reference's lowerings with ECC off first, as its own
+        # tests and CLI do (`ref_lowering` drops them after each test): its
+        # plan_offload raises on a reshape (n_bits 0) while registry ECC is
+        # on (ROADMAP C)
+        env.memo[f"clean{gen}"] = _run_ref(env, gen)
+    _fresh_both()
+    if ecc:
+        rarray.set_resident_ecc(True)
+    try:
+        spec = rarray.DEFAULT_SPEC
+        paged = RPaged.for_model(env.rcfg, spec=spec, slots=2,
+                                 max_len=4 + gen,
+                                 resident_set=rarray.resident_set(spec))
+        eng = rserve.ServeEngine(env.rmodel, env.rparams, slots=2,
+                                 max_len=4 + gen, cim_lower=True, paged=paged,
+                                 warmup_steps=0, spec=spec, **kw)
+        eng.prefill_fn = env.prefill(4 + gen)
+        reqs = [rserve.ServeRequest(rid=i, prompt_len=4, gen=gen)
+                for i in range(2)]
+        if fault_cfg is None:
+            return _outcome(eng.run(reqs), eng, reqs, None)
+        with rfaults.faults(rfaults.FaultConfig(**fault_cfg)) as fm:
+            return _outcome(eng.run(reqs), eng, reqs, fm)
+    finally:
+        _fresh_both()
+
+
+def _run_port(env, gen, fault_cfg=None, ecc=False, **kw):
+    from repro_torch.cim import faults as tfaults
+    _fresh_both()
+    if ecc:
+        tarray.set_resident_ecc(True)
+    try:
+        spec = tarray.DEFAULT_SPEC
+        paged = TPaged.for_model(env.tcfg, spec=spec, slots=2,
+                                 max_len=4 + gen,
+                                 resident_set=tarray.resident_set(spec))
+        eng = tserve.ServeEngine(env.tmodel, slots=2, max_len=4 + gen,
+                                 cim_lower=True, paged=paged, warmup_steps=0,
+                                 spec=spec, **kw)
+        reqs = [tserve.ServeRequest(rid=i, prompt_len=4, gen=gen, prompt=p)
+                for i, p in enumerate(env.prompts(2, 4))]
+        if fault_cfg is None:
+            return _outcome(eng.run(reqs), eng, reqs, None)
+        with tfaults.faults(tfaults.FaultConfig(**fault_cfg)) as fm:
+            return _outcome(eng.run(reqs), eng, reqs, fm)
+    finally:
+        _fresh_both()
+
+
+def _ref(env, key, *args, **kw):
+    if key not in env.memo:
+        env.memo[key] = _run_ref(env, *args, **kw)
+    return env.memo[key]
+
+
+class TestChaos:
+    """tests/test_serve_engine.py::TestChaos, each run through both
+    engines on the same weights and prompts: tokens, the fault report
+    (injected, detected, corrected, uncorrected, verifies, repairs,
+    failovers, scrub, ECC counters) and the fault model's counters equal
+    to the reference's."""
+
+    def test_bit_exact_under_single_bit_resident_faults(self, chaos_env,
+                                                        ref_lowering):
+        cfg = dict(seed=11, resident_ber=1e-3, raise_on_uncorrectable=True)
+        clean = _run_port(chaos_env, 4)
+        assert clean["tokens"] == _ref(chaos_env, "clean4", 4)["tokens"]
+        got = _run_port(chaos_env, 4, cfg, ecc=True)
+        assert got == _ref(chaos_env, "ber", 4, cfg, ecc=True)
+        assert got["tokens"] == clean["tokens"]
+        fm = got["fm"]
+        assert fm["injected"] > 0 and fm["corrected"] == fm["injected"]
+        assert fm["uncorrected"] == 0
+        assert got["faults"]["corrected"] > 0
+        assert got["faults"]["uncorrected"] == 0
+        assert got["faults"]["ecc_uncorrected"] == 0
+
+    def test_uncorrectable_triggers_repair_and_retry(self, chaos_env,
+                                                     ref_lowering):
+        cfg = dict(seed=0, uncorrectable_at_verify=(2,),
+                   raise_on_uncorrectable=True)
+        got = _run_port(chaos_env, 4, cfg, ecc=True)
+        assert got == _ref(chaos_env, "uncorrectable", 4, cfg, ecc=True)
+        assert got["faults"]["repairs"] >= 1
+        assert got["fm"]["uncorrected"] >= 1     # detected, then repaired
+        assert got["tokens"] == _ref(chaos_env, "clean4", 4)["tokens"]
+
+    def test_retry_budget_exhaustion_raises(self, chaos_env, ref_lowering):
+        from repro.cim import faults as rfaults
+        from repro_torch.cim import faults as tfaults
+        cfg = dict(seed=0, uncorrectable_at_verify=tuple(range(200)),
+                   raise_on_uncorrectable=True)
+        with pytest.raises(tfaults.UncorrectableFaultError):
+            _run_port(chaos_env, 4, cfg, ecc=True, retry_budget=1)
+        with pytest.raises(rfaults.UncorrectableFaultError):
+            _run_ref(chaos_env, 4, cfg, ecc=True, retry_budget=1)
+
+    def test_mid_run_bank_kill_completes_all_requests(self, chaos_env,
+                                                      ref_lowering):
+        cfg = dict(seed=5, kill_bank_at=(2, 1))
+        got = _run_port(chaos_env, 6, cfg)
+        assert got == _ref(chaos_env, "kill1", 6, cfg)
+        assert got["fm"]["bank_kills"] == 1 and got["failovers"] == 1
+        assert got["disabled"] == (1,)
+        assert tarray.spec_override() is None     # reset after the run
+        assert all(len(t) == 6 for t in got["tokens"])
+        assert got["completed"] == 2 and got["shed"] == 0
+        assert got["faults"]["failovers"] == 1
+        assert got["faults"]["uncorrected"] == 0
+        assert got["faults"]["ecc_uncorrected"] == 0
+        assert 1 not in got["kv_banks"]           # KV off the dead bank
+
+    def test_bank_kill_tokens_match_healthy_run(self, chaos_env,
+                                                ref_lowering):
+        cfg = dict(seed=5, kill_bank_at=(2, 0))
+        clean = _run_port(chaos_env, 6)
+        assert clean == _ref(chaos_env, "clean6", 6)
+        got = _run_port(chaos_env, 6, cfg)
+        assert got == _ref(chaos_env, "kill0", 6, cfg)
+        assert got["tokens"] == clean["tokens"]
+
+
+@pytest.fixture(scope="module")
+def float_env():
+    return _ChaosEnv(cim=False)
+
+
+def _admission(env, pkg, slots, n_reqs, **kw):
+    """One float-path engine run of `n_reqs` requests (prompt 4, gen 3)."""
+    if pkg == "ref":
+        from repro.launch import serve as rserve
+        eng = rserve.ServeEngine(env.rmodel, env.rparams, slots=slots,
+                                 max_len=7, warmup_steps=0, **kw)
+        reqs = [rserve.ServeRequest(rid=i, prompt_len=4, gen=3)
+                for i in range(n_reqs)]
+    else:
+        eng = tserve.ServeEngine(env.tmodel, slots=slots, max_len=7,
+                                 warmup_steps=0, **kw)
+        reqs = [tserve.ServeRequest(rid=i, prompt_len=4, gen=3, prompt=p)
+                for i, p in enumerate(env.prompts(n_reqs, 4))]
+    rep = eng.run(reqs)
+    return {"shed": rep["shed"], "shed_count": eng.shed_count,
+            "completed": rep["completed"],
+            "total_tokens": rep["total_tokens"],
+            "decode_tokens": rep["decode_tokens"],
+            "per_request": [(r["rid"], r["shed"], r["tokens"])
+                            for r in rep["per_request"]],
+            "done": [r.done for r in reqs], "p50": rep["p50_ms"] == 0.0,
+            "tok_s": rep["tok_s_steady"] == 0.0}
+
+
+class TestAdmissionControl:
+    """tests/test_serve_engine.py::TestAdmissionControl through both engines
+    on the same tiny float model: the same requests shed, completed and
+    reported."""
+
+    def test_timeout_sheds_stale_requests(self, float_env):
+        got = _admission(float_env, "port", 1, 2, timeout_s=0.0)
+        assert got == _admission(float_env, "ref", 1, 2, timeout_s=0.0)
+        assert got["shed"] == got["shed_count"] == 1
+        assert got["per_request"][1] == (1, True, 0)
+        assert got["done"][0] and got["completed"] == 1
+
+    def test_queue_limit_sheds_excess_from_tail(self, float_env):
+        got = _admission(float_env, "port", 1, 4, queue_limit=1)
+        assert got == _admission(float_env, "ref", 1, 4, queue_limit=1)
+        # 1 admitted at once + 1 queued; the rest shed from the tail
+        assert got["shed"] == 2 and sum(got["done"]) == 2
+        assert got["per_request"][3][1]
+
+    def test_all_shed_report_is_safe(self, float_env):
+        kw = dict(queue_limit=0, timeout_s=0.0)
+        got = _admission(float_env, "port", 0, 3, **kw)
+        assert got == _admission(float_env, "ref", 0, 3, **kw)
+        assert got["shed"] == 3 and got["completed"] == 0
+        assert got["total_tokens"] == got["decode_tokens"] == 0
+        assert got["p50"] and got["tok_s"]
+        assert all(shed for _, shed, _ in got["per_request"])
+
+
+def _select_level(a, b, ia, ib):
+    take_b = a < b
+    return jax.lax.select(take_b, b, a), jax.lax.select(take_b, ib, ia)
+
+
+@pytest.fixture
+def ref_select_level(monkeypatch):
+    """The reference's sampler level as its lax.select twin (its jnp.where
+    stays a host eqn under JAX 0.9: ROADMAP C), lowered afresh."""
+    import repro.train.step as rstep
+    from repro_torch.train import step as tstep
+    monkeypatch.setattr(rstep, "_adra_level", _select_level)
+    monkeypatch.setattr(rstep, "_ADRA_LEVEL_LOWERED", None)
+    yield
+    monkeypatch.setattr(rstep, "_ADRA_LEVEL_LOWERED", None)
+    tstep._ADRA_LEVEL_LOWERED = None
+
+
+@pytest.mark.parametrize("resident", [False, True])
+def test_adra_sampler_decode_step_matches_reference(ref_lowering,
+                                                    ref_select_level,
+                                                    resident):
+    """The bench config's decode step followed by the ADRA sampler: 188 + 8
+    accesses (vocab 64 padded to 256 columns: eight levels of one access)
+    and 10 + 8 dispatches; loads, per-op counts and the sampled tokens equal
+    to the reference's."""
+    from repro.train.step import adra_sample as r_adra
+    from repro_torch.train import adra_sample as t_adra
+    rcfg, tcfg = _bench_cfgs(resident)
+    rmodel = rbuild(rcfg)
+    rparams = rmodel.init(jax.random.PRNGKey(2))
+    tmodel = Model(tcfg, params=params_from_jax(
+        jax.tree.map(np.asarray, rparams), tcfg, device="cpu"))
+    rcaches, tcaches = rmodel.init_caches(2, 8), tmodel.init_caches(2, 8)
+    rstep = {"tokens": jnp.array([[1], [2]], jnp.int32),
+             "positions": jnp.array([3, 5], jnp.int32)}
+    tstep = {"tokens": torch.tensor([[1], [2]]),
+             "positions": torch.tensor([3, 5], dtype=torch.int32)}
+    rarray.clear_resident()
+    for step in range(2):
+        RLEDGER.reset()
+        TLEDGER.reset()
+        r0, t0 = rdisp.cache_stats(), tdisp.cache_stats()
+        _, rlog = rmodel.decode_step(rparams, rcaches, rstep)
+        rtok = np.asarray(r_adra(rlog))
+        _, tlog = tmodel.decode_step(tcaches, tstep)
+        ttok = t_adra(tlog)
+        r1, t1 = rdisp.cache_stats(), tdisp.cache_stats()
+        np.testing.assert_array_equal(ttok.numpy(), rtok)
+        assert tcfg.vocab_padded == 256
+        assert TLEDGER.accesses == RLEDGER.accesses == 188 + 8
+        assert t1["dispatches"] - t0["dispatches"] == \
+            r1["dispatches"] - r0["dispatches"] == 10 + 8
+        for f in ("load_accesses", "load_words32", "resident_reuses",
+                  "words32", "per_op"):
+            assert getattr(TLEDGER, f) == getattr(RLEDGER, f), (step, f)
+
+
+def test_serve_engine_adra_tokens_match_reference(ref_lowering,
+                                                  ref_select_level):
+    """`--sampler adra` through both engines at the bench config (2 slots,
+    2 requests, prompt 4 + gen 4): the same tokens, and every port decode
+    step 188 + 8 accesses and 10 + 8 dispatches (eight sampler levels)."""
+    from repro.launch import serve as rserve
+    from repro.train import make_prefill_step
+    rcfg, tcfg = _bench_cfgs(True)
+    rmodel = rbuild(rcfg)
+    rparams = rmodel.init(jax.random.PRNGKey(2))
+    rserve._fresh_cim_state()
+    eng = rserve.ServeEngine(rmodel, rparams, slots=2, max_len=8,
+                             sampler="adra", cim_lower=True, warmup_steps=1)
+    eng.prefill_fn = make_prefill_step(rmodel, 8)
+    rrep = eng.run([rserve.ServeRequest(rid=i, prompt_len=4, gen=4)
+                    for i in range(2)])
+    prompts = [np.asarray(eng._prompt_inputs(rserve.ServeRequest(
+        rid=i, prompt_len=4, gen=4))["tokens"])[0].tolist() for i in range(2)]
+    tmodel = Model(tcfg, params=params_from_jax(
+        jax.tree.map(np.asarray, rparams), tcfg, device="cpu"))
+    tserve.fresh_cim_state()
+    teng = tserve.ServeEngine(tmodel, slots=2, max_len=8, sampler="adra",
+                              cim_lower=True, warmup_steps=1)
+    trep = teng.run([tserve.ServeRequest(rid=i, prompt_len=4, gen=4,
+                                         prompt=prompts[i])
+                     for i in range(2)])
+    assert [r["token_ids"] for r in trep["per_request"]] == \
+        [r["token_ids"] for r in rrep["per_request"]]
+    assert set(trep["step_accesses"]) == {188 + 8}
+    assert set(trep["step_dispatches"]) == {10 + 8}
+    assert trep["decode_steps"] == rrep["decode_steps"] == 3
+    with pytest.raises(ValueError, match="sampler"):
+        tserve.ServeEngine(tmodel, slots=1, max_len=8, sampler="top-k")
+
+
+def test_serve_main_chaos_phase_on_cpu(monkeypatch):
+    """--sampler adra --cim-faults --scrub-every 2 on reduced gemma-2b: the
+    chaos phase's tokens equal the fault-free resident run's, 0 bits stay
+    uncorrected and ECC corrected what the resident BER flipped; every
+    decode step adds the sampler's eight levels (vocab 256) to the greedy
+    step's 202 accesses and 10 dispatches."""
+    monkeypatch.setenv("REPRO_CIM_FAULT_SEED", "0")
+    monkeypatch.setenv("REPRO_CIM_FAULT_RESIDENT_BER", "1e-4")
+    out = tserve.main(["--preset", "reduced", "--device", "cpu", "--slots",
+                       "2", "--requests", "2", "--prompt-len", "4", "--gen",
+                       "3", "--cim-lower", "--cim-resident", "--sampler",
+                       "adra", "--cim-faults", "--scrub-every", "2"])
+    ph = out["phases"]
+    assert out["sampler"] == "adra"
+    chaos, resident = ph["chaos"], ph["resident"]
+    assert [r["token_ids"] for r in chaos["per_request"]] == \
+        [r["token_ids"] for r in resident["per_request"]]
+    f = chaos["faults"]
+    assert f["uncorrected"] == 0 and f["corrected"] == f["injected"] > 0
+    assert f["scrub"]["scanned"] > 0 and f["ecc_verifies"] > 0
+    assert "faults" not in resident
+    assert tarray.spec_override() is None
+    assert not tarray.resident_ecc_default()
+    for name in ("repack", "resident", "chaos"):
+        assert set(ph[name]["step_accesses"]) == {202 + 8}, name
+        assert set(ph[name]["step_dispatches"]) == {10 + 8}, name
