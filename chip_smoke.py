@@ -87,6 +87,20 @@ Phases, each fatal on failure (nothing is caught):
                composed integer graph (elementwise, compare/select, mul,
                full sum, a contraction; int8 and int16) equal to torch's
                own integer ops, under the default policy and "never";
+  2d. analog — the paper's FeFET device model on the card through the
+               analog-oracle backend: the four level currents and the
+               current and voltage margins against the same computed on the
+               CPU (rtol 1e-5), the symmetric scheme's collapse; all 65536
+               8-bit pairs through cim_add, cim_sub, cim_compare,
+               cim_add_sub and the 16 Boolean functions in analog mode,
+               equal to exact integers and to mode="boolean"; the main
+               path's largest access (29 planes x 2^21 columns, seeded) with
+               every op alone and all in one, the fused kernel equal to the
+               bit to the device model, both timed; gemma-2b's decode MLP at
+               full width through `mlp_cim(backend="analog-oracle")` equal
+               to the fused backend's output and ledger, one `execute_tiled`
+               access on the paper's array likewise; `analyze` of that MLP
+               equal to its executed accesses;
   3. gemma   — gemma-2b at full width through the port's serve entry point
                (int8 CiM decode through `lower()`, streamed repack phase, resident phase, warm
                replay), asserting 2214 accesses and 90 dispatches per decode
@@ -143,9 +157,9 @@ Phases, each fatal on failure (nothing is caught):
                4096, float32 (so the SIMT flash kernel): the first batch's
                gradients and 2 train steps on the card and on the CPU from
                the same weights.
-The launch counts of each serve, banked, adra-faults and train path are set
-to 0 just before it and read just after; the kernel checks' and timings' own
-launches are not counted. Earlier lines
+The launch counts of each serve, banked, analog MLP, adra-faults and train
+path are set to 0 just before it and read just after; the kernel checks'
+and timings' own launches are not counted. Earlier lines
 carry the metrics and one JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. `--profile` adds a torch.profiler breakdown of one warm
@@ -903,6 +917,235 @@ def phase_lower(dev) -> dict:
         assert LEDGER.accesses == 0
         assert all(torch.equal(g_, w_) for g_, w_ in zip(got, want)), name
         record(name, res, len(comp.regions), never_equal=True)
+    serve.fresh_cim_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the analog phase's full-width access: the main path's largest (the last
+#: tree-reduction add of gemma-2b's down projection at 2 slots)
+ANALOG_FULL = (29, (2 * 16384 * 2048) // 32)
+#: card-vs-CPU tolerance of the device model's currents and voltages: both
+#: compute in float32, and torch's exp/log1p differ by ulps between builds;
+#: every margin is above 1 uA or 50 mV
+ANALOG_RTOL = 1e-5
+
+
+def phase_analog(dev) -> dict:
+    """The paper's FeFET device model on the card, through the analog-oracle
+    backend: (a) the level currents and sense margins on the card against
+    the CPU; (b) every 8-bit (x, y) pair in analog mode through cim_add,
+    cim_sub, cim_compare, cim_add_sub and the 16 Boolean functions, equal
+    to exact integers and to mode="boolean"; (c) the main path's largest
+    access (29 planes x 2^21 columns, seeded random planes): every op of
+    the catalogue alone and all in one access, the fused kernel equal to
+    the bit to the device model, both timed; (d) gemma-2b's decode MLP at
+    full width through `mlp_cim(backend="analog-oracle")` against the fused
+    backend (output, accesses, loads, per-op charges), and one
+    `execute_tiled` access on the paper's banked array; (e) `analyze` of
+    that MLP on CUDA tensors against its executed ledger."""
+    import torch
+
+    from repro_torch.cim import array, backends, cost, dispatch, fused_kernel
+    from repro_torch.cim import opset
+    from repro_torch.cim.accounting import LEDGER
+    from repro_torch.cim.planepack import PlanePack
+    from repro_torch.configs import preset_config
+    from repro_torch.core import adra, sensing
+    from repro_torch.core.array import AdraArrayConfig, level_currents
+    from repro_torch.core.offload import analyze
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+
+    fused = fused_kernel.fused_planes_op
+    analog = backends.get_backend("analog-oracle")
+    cpu = torch.device("cpu")
+    out = {}
+
+    # (a) the device model, on the card and on the CPU
+    acfg = AdraArrayConfig()
+    model = {}
+    for name, fn in (
+            ("levels", lambda d: level_currents(acfg, True, device=d)),
+            ("levels_symmetric", lambda d: level_currents(acfg, False,
+                                                          device=d)),
+            ("current_margins",
+             lambda d: sensing.current_sense_margins(acfg, device=d)),
+            ("voltage_margins",
+             lambda d: sensing.voltage_sense_margins(acfg, 1e-9, device=d))):
+        got, want = fn(dev), fn(cpu)
+        assert got.device.type == "cuda", name
+        torch.testing.assert_close(got.cpu(), want, rtol=ANALOG_RTOL, atol=0)
+        model[name] = got.cpu().tolist()
+    lv = model["levels"]
+    assert lv[0] < lv[1] < lv[2] < lv[3], lv
+    assert min(model["current_margins"]) > 1e-6, model
+    assert min(model["voltage_margins"]) > 50e-3, model
+    assert sensing.symmetric_sense_is_ambiguous(acfg, device=dev)
+    out["device_model"] = model
+    print("analog[device]: I_SL (uA) 00 {:.6g}, 10 {:.6g}, 01 {:.6g}, 11 "
+          "{:.6g}; current margins (uA) {}; voltage margins at 1 ns (mV) {};"
+          " symmetric levels (uA) {}: many-to-one; card within rtol {:g} of "
+          "the CPU".format(
+              *(v * 1e6 for v in lv),
+              [f"{v * 1e6:.6g}" for v in model["current_margins"]],
+              [f"{v * 1e3:.6g}" for v in model["voltage_margins"]],
+              [f"{v * 1e6:.6g}" for v in model["levels_symmetric"]],
+              ANALOG_RTOL))
+
+    # (b) exhaustive 8-bit, analog mode against integers and boolean mode
+    t = time.perf_counter()
+    v = torch.arange(-128, 128, dtype=torch.int32, device=dev)
+    x, y = (g.reshape(-1) for g in torch.meshgrid(v, v, indexing="ij"))
+    pa, pb, m = x & 255, y & 255, 255
+    bool_ref = {
+        "false": torch.zeros_like(pa), "true": torch.full_like(pa, m),
+        "and": pa & pb, "or": pa | pb, "xor": pa ^ pb,
+        "nand": ~(pa & pb) & m, "nor": ~(pa | pb) & m,
+        "xnor": ~(pa ^ pb) & m, "a": pa, "b": pb, "not_a": ~pa & m,
+        "not_b": ~pb & m, "a_and_not_b": pa & ~pb & m,
+        "not_a_and_b": ~pa & m & pb, "a_or_not_b": (pa | (~pb & m)) & m,
+        "not_a_or_b": ((~pa & m) | pb) & m}
+    checked = 0
+
+    def same(got, want, what):
+        nonlocal checked
+        assert got.is_cuda and torch.equal(got, want), what
+        checked += 1
+
+    for mode in ("analog", "boolean"):
+        ad, sb = adra.cim_add(x, y, 8, mode), adra.cim_sub(x, y, 8, mode)
+        same(ad.value, x + y, (mode, "add"))
+        same(sb.value, x - y, (mode, "sub"))
+        c = adra.cim_compare(x, y, 8, mode)
+        for got, want in zip(c, (x < y, x == y, x > y)):
+            same(got, want.to(torch.int32), (mode, "compare"))
+        both = adra.cim_add_sub(x, y, 8, mode)
+        same(both.add, x + y, (mode, "add_sub"))
+        same(both.sub, x - y, (mode, "add_sub"))
+        for fn in adra.BOOLEAN_FUNCTIONS:
+            same(adra.cim_boolean(x, y, fn, 8, mode), bool_ref[fn],
+                 (mode, fn))
+    for fn_name in ("cim_add", "cim_sub"):
+        fa = getattr(adra, fn_name)(x, y, 8, "analog")
+        fb = getattr(adra, fn_name)(x, y, 8, "boolean")
+        for got, want in zip(fa, fb):
+            same(got, want, (fn_name, "analog vs boolean"))
+    torch.cuda.synchronize()
+    out["exhaustive"] = {"pairs": int(x.numel()), "checks": checked,
+                         "s": time.perf_counter() - t}
+    print(f"analog[8-bit]: {x.numel()} pairs x (add, sub, compare, add_sub, "
+          f"16 Boolean) in analog and boolean mode: {checked} checks exact "
+          f"in {out['exhaustive']['s']:.2f} s")
+
+    # (c) the largest access at full width: kernel against the device model
+    n_bits, w = ANALOG_FULL
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a, b = (torch.randint(-2 ** 31, 2 ** 31, (n_bits, w), dtype=torch.int32,
+                          device=dev, generator=gen) for _ in range(2))
+    t = time.perf_counter()
+    requests = [(op,) for op in opset.ALL_OPS] + [opset.ALL_OPS]
+    for ops in requests:
+        for op, g, s in zip(ops, fused(a, b, ops), analog(a, b, ops)):
+            assert torch.equal(g, s), f"kernel != device model for {op}"
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    timing = {}
+    for name, ops in (("add", ("add",)), ("all", opset.ALL_OPS)):
+        start.record()
+        analog(a, b, ops)
+        stop.record()
+        torch.cuda.synchronize()
+        timing[f"analog_{name}_ms"] = start.elapsed_time(stop)
+        timing[f"kernel_{name}_ms"] = cuda_ms(lambda: fused(a, b, ops),
+                                              reps=10)
+    out["full_width"] = {"shape": [n_bits, w], "requests": len(requests),
+                         "s": full_s, **timing}
+    print(f"analog[full]: {len(requests)} accesses (each op alone, then all "
+          f"{len(opset.ALL_OPS)} in one) at {n_bits} planes x {w} columns: "
+          f"fused kernel == device model to the bit, in {full_s:.1f} s; add "
+          f"pass {timing['analog_add_ms']:.1f} ms on the device model "
+          f"against {timing['kernel_add_ms']:.4f} ms on the kernel; all ops "
+          f"{timing['analog_all_ms']:.1f} ms against "
+          f"{timing['kernel_all_ms']:.4f} ms ({smi_line()})")
+    del a, b
+
+    # (d) the lowered path: gemma-2b's decode MLP at full width, seed 0
+    cfg = preset_config("gemma-2b", "full")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    act = cfg.activation_dtype()
+    p = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gating, act, dev)
+    xs = torch.randn((2, 1, cfg.d_model), generator=gen, device=dev).to(act)
+    runs = {}
+    for bk in ("fused", "analog-oracle"):
+        LEDGER.reset()
+        fused.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y_out = layers.mlp_cim(p, xs, cfg.gating, 8, backend=bk)
+        torch.cuda.synchronize()
+        runs[bk] = {"y": y_out, "s": time.perf_counter() - t,
+                    "accesses": LEDGER.accesses,
+                    "loads": LEDGER.load_accesses,
+                    "per_op": dict(LEDGER.per_op),
+                    "launches": fused.launches}
+    rf, ra = runs["fused"], runs["analog-oracle"]
+    assert torch.equal(rf["y"], ra["y"]), "analog MLP != fused MLP"
+    for k in ("accesses", "loads", "per_op"):
+        assert rf[k] == ra[k], (k, rf[k], ra[k])
+    assert rf["launches"] == rf["accesses"] and ra["launches"] == 0
+    out["launches"] = rf["launches"]
+    out["mlp"] = {k: {f: r[f] for f in ("s", "accesses", "loads",
+                                        "launches")}
+                  for k, r in runs.items()}
+    print(f"analog[mlp]: gemma-2b decode MLP (2 x {cfg.d_model}, "
+          f"{cfg.gating} {cfg.d_ff}, int8) through mlp_cim: analog-oracle "
+          f"== fused to the bit, {ra['accesses']} accesses and "
+          f"{ra['loads']} loads each; {rf['s']:.2f} s fused "
+          f"({rf['launches']} launches), {ra['s']:.1f} s on the device model")
+
+    n_words = 1 << 26
+    planes = [torch.randint(-2 ** 31, 2 ** 31, (n_bits, n_words // 32),
+                            dtype=torch.int32, device=dev, generator=gen)
+              for _ in range(2)]
+    pa_, pb_ = (PlanePack(planes=q, n_bits=n_bits, signed=True,
+                          shape=(n_words,)) for q in planes)
+    ops = ("add", "lt", "xor")
+    tiled = {}
+    for bk in ("fused", "analog-oracle"):
+        LEDGER.reset()
+        res = dispatch.execute_tiled(pa_, pb_, ops, spec=array.DEFAULT_SPEC,
+                                     backend=bk)
+        tiled[bk] = (res, LEDGER.accesses, dict(LEDGER.bank_accesses),
+                     LEDGER.activated_words32)
+    for op in ops:
+        assert torch.equal(tiled["fused"][0][op].planes,
+                           tiled["analog-oracle"][0][op].planes), op
+    assert tiled["fused"][1:] == tiled["analog-oracle"][1:]
+    out["tiled"] = {"tiles": tiled["fused"][1],
+                    "banks": len(tiled["fused"][2])}
+    print(f"analog[tiled]: one {ops} access of {n_words} words on the "
+          f"paper's array ({tiled['fused'][1]} tiles over "
+          f"{len(tiled['fused'][2])} banks): analog-oracle == fused to the "
+          f"bit, ledgers equal")
+    del planes, pa_, pb_, tiled
+
+    # (e) the estimator on the card's tensors equals the executed ledger
+    rep = analyze(lambda q, z: layers._mlp_quantized(q, z, cfg.gating, 8),
+                  p, xs, policy=cost.DEFAULT_POLICY)
+    assert rep.adra_accesses == rf["accesses"], (rep.adra_accesses,
+                                                  rf["accesses"])
+    out["analyze"] = {"adra_accesses": rep.adra_accesses,
+                      "op_histogram": rep.op_histogram,
+                      "words32": rep.words32,
+                      "edp_decrease_pct": rep.edp_decrease_pct}
+    print(f"analog[analyze]: {rep.adra_accesses} projected accesses == "
+          f"{rf['accesses']} executed; histogram {rep.op_histogram}, "
+          f"words32 {rep.words32}, EDP -{rep.edp_decrease_pct:.1f}%")
+    del p, xs, runs, rf, ra
+    layers._LOWERED_MLP.clear()
     serve.fresh_cim_state()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2435,6 +2678,9 @@ def main() -> int:
     low = phase_lower(dev)
     phases["lower_s"] = time.perf_counter() - t
     t = time.perf_counter()
+    ana = phase_analog(dev)
+    phases["analog_s"] = time.perf_counter() - t
+    t = time.perf_counter()
     rg = phase_rglru(dev, sm_mhz)
     phases["rglru_s"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -2484,9 +2730,11 @@ def main() -> int:
              "source": "src/repro_torch/cim/csrc/fused_planes.cu",
              "replaces": "src/repro/cim/fused_kernel.py:137",
              "launches": sum(r["fused_launches"] for r in runs.values())
-             + banked["launches"] + low["launches"] + adra["launches"],
+             + banked["launches"] + low["launches"] + adra["launches"]
+             + ana["launches"],
              "launches_banked": banked["launches"],
              "launches_lower": low["launches"],
+             "launches_analog": ana["launches"],
              "launches_adra_faults": adra["launches"],
              "launches_serve": {a: r["fused_launches"]
                                 for a, r in runs.items()},
@@ -2497,7 +2745,9 @@ def main() -> int:
                  "timing", "cap", "cases", "mlp_s")},
              "lower": {k: low[k] for k in ("cases", "plan_stats")},
              "adra_faults": {k: adra[k] for k in (
-                 "paper", "sampler", "chaos", "failover")}}
+                 "paper", "sampler", "chaos", "failover")},
+             "analog": {k: ana[k] for k in (
+                 "full_width", "mlp", "tiled", "analyze")}}
     # the main path's RG-LRU launches: the hybrid's CiM serve and its float
     # prefill phase, per kernel
     rec_launches = {k: runs["recurrentgemma-9b"]["rglru_launches"][k]

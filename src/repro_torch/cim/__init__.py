@@ -5,7 +5,8 @@
                  the SECDED codec across the plane index
   fused_kernel — the fused single-pass kernel (CUDA, sm_90a) and its plain
                  PyTorch version
-  backends     — registry: fused / torch-boolean
+  backends     — registry: fused / torch-boolean / analog-oracle (the
+                 FeFET device model per bit), set_default_backend
   engine       — execute / execute_unfused, the integer-level add, sub,
                  compare and boolean wrappers, the traffic model
   accounting   — the access ledger: per-(device, bank) activations,
@@ -85,6 +86,7 @@ from .backends import (  # noqa: F401
     default_backend_name,
     get_backend,
     register_backend,
+    set_default_backend,
 )
 from .dispatch import (  # noqa: F401
     BoundedLRU,

@@ -131,7 +131,8 @@ def test_kernel_source_and_build_location():
 
 
 def test_backend_registry_resolution(monkeypatch):
-    assert set(tbk.available_backends()) == {"fused", "torch-boolean"}
+    assert set(tbk.available_backends()) == {"fused", "torch-boolean",
+                                             "analog-oracle"}
     monkeypatch.delenv(tbk.ENV_VAR, raising=False)
     assert tbk.get_backend().name == "fused"
     monkeypatch.setenv(tbk.ENV_VAR, "torch-boolean")

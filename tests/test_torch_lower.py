@@ -14,9 +14,9 @@ op left on the host raises NotImplementedError, asserted by its own test
 (ROADMAP C). The reference's lowering needs the
 `jax.core.Literal`/`Var` aliases under JAX 0.9, applied per test; its
 `jnp.where` becomes a nested `jit` there that it no longer inlines, so its
-twins use `jax.lax.select`. Cases that wait on later items (the
-analog-oracle backend, `core/offload.py`, `kernels/ops.py`, mesh) are
-listed in ROADMAP.md.
+twins use `jax.lax.select`. The analog-oracle and offload-estimator
+cases are in `tests/test_torch_analog.py` and `tests/test_torch_offload.py`;
+the mesh case waits on ROADMAP A12.
 """
 import dataclasses
 
