@@ -156,9 +156,24 @@ Phases, each fatal on failure (nothing is caught):
   8. train-agree — gemma's attention shape at 2 layers, d_model 512, vocab
                4096, float32 (so the SIMT flash kernel): the first batch's
                gradients and 2 train steps on the card and on the CPU from
-               the same weights.
-The launch counts of each serve, banked, analog MLP, adra-faults and train
-path are set to 0 just before it and read just after; the kernel checks'
+               the same weights;
+  9. configs — the registry's other families, one model at a time, each
+               freed before the next and its peak memory printed:
+               llama3.2-1b and deepseek-v2-lite-16b at full width through
+               the serve entry point with --cim-lower (as phase 3: 1920 /
+               80 and 81 / 3 accesses / dispatches a decode step, tokens
+               equal the host twin's; deepseek's MoE layers and MLA run in
+               float, only its dense layer 0 lowers); qwen3-14b,
+               granite-3-8b, musicgen-large and internvl2-26b on the float
+               path (the last two on seeded embed-stub inputs), built by
+               `serve.main` with bf16 layer weights only: every request
+               completes, 0 ledger accesses, 0 kernel launches; llama3.2-1b
+               training at full width (2 steps of 2 x 2048, 32 flash
+               launches a step, all on the wgmma/TMA kernel); reduced
+               deepseek in float32 on the card against the CPU (prefill, 4
+               greedy steps, first-batch loss and gradients, atol 1e-4).
+The launch counts of each serve, banked, analog MLP, adra-faults, train
+and configs path are set to 0 just before it and read just after; the kernel checks'
 and timings' own launches are not counted. Earlier lines
 carry the metrics and one JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -224,14 +239,18 @@ RGLRU_TIMED = [((1, 2048, 4096), False), ((1, 2040, 4096), False),
 SLSTM_GATE_OPS = 33
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 #: flash attention shapes (B, Tq, Tk, Hq, Hkv, D): the reference test's
-#: four (tests/test_kernels.py:90-115), then gemma-2b's train shape, a
-#: ragged one, one with Tq < Tk, and two head widths that are not a whole
-#: number of 64-column boxes (the wgmma/TMA kernel pads D = 96 to 128 and
-#: D = 200 to 256 by the box's zero fill)
+#: four (tests/test_kernels.py:90-115), then gemma-2b's train shape,
+#: llama3.2-1b's (the configs phase's training: D = 64 over many key tiles,
+#: 32 q heads over 8 kv heads), a ragged one, one with Tq < Tk, and two
+#: head widths that are not a whole number of 64-column boxes (the
+#: wgmma/TMA kernel pads D = 96 to 128 and D = 200 to 256 by the box's
+#: zero fill)
 FLASH_REF_SHAPES = [(1, 128, 128, 4, 4, 64), (2, 128, 128, 4, 2, 64),
                     (1, 256, 256, 8, 1, 64), (1, 64, 192, 4, 2, 32)]
 FLASH_TRAIN_SHAPE = (1, 2048, 2048, 8, 1, 256)
-FLASH_WIDE_SHAPES = [FLASH_TRAIN_SHAPE, (1, 1000, 1000, 8, 1, 256),
+FLASH_LLAMA_TRAIN_SHAPE = (2, 2048, 2048, 32, 8, 64)
+FLASH_WIDE_SHAPES = [FLASH_TRAIN_SHAPE, FLASH_LLAMA_TRAIN_SHAPE,
+                     (1, 1000, 1000, 8, 1, 256),
                      (2, 37, 300, 4, 2, 128), (1, 200, 260, 4, 2, 96),
                      (2, 130, 130, 2, 1, 200)]
 #: bfloat16 o's relative L2 distance from the plain version, ||o - want|| /
@@ -1604,13 +1623,14 @@ def phase_slstm(dev) -> dict:
 
 
 def flash_bounds(b: int, tq: int, tk: int, hq: int, d: int, itemsize: int,
-                 causal: bool) -> dict:
-    """Least time of one call: q, k, v read once, o and lse written once;
+                 causal: bool, hkv: int = 1) -> dict:
+    """Least time of one call: q, k, v read once (`hkv` kv heads), o and
+    lse written once;
     4 D operations (QK^T and PV multiply-adds) per visible (query, key)
     pair. Float32 inputs at the float32 rate outside the tensor cores (TF32
     would not compute the same function); bfloat16 inputs at the bf16
     tensor-core rate, whose products are exact and sums float32."""
-    hkv_bytes = 2 * b * tk * d * itemsize          # k and v of one kv head
+    hkv_bytes = 2 * b * tk * hkv * d * itemsize    # k and v
     moved = 2 * b * tq * hq * d * itemsize + hkv_bytes + 4 * b * hq * tq
     shift = tk - tq
     pairs = sum(min(tk, max(0, r + shift + 1)) for r in range(tq)) \
@@ -1760,6 +1780,30 @@ def phase_flash(dev) -> dict:
               f"{lib[2]:.4f} ms (its o {lib_err:.2e} from the kernel's), "
               f"bound {bounds['bound_ms']:.6f} ms ({bounds['bound_by']}, "
               f"{bounds['bytes']} B, {bounds['ops']} operations){extra}")
+    # llama3.2-1b's train shape (the configs phase), bf16 causal: the
+    # routed kernel, the plain version and SDPA on the same inputs
+    b, tq, tk, hq, hkv, d = FLASH_LLAMA_TRAIN_SHAPE
+    q = torch.randn((b, tq, hq, d), generator=gen, device=dev).to(bf16)
+    k, v = (torch.randn((b, tk, hkv, d), generator=gen, device=dev).to(bf16)
+            for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rounds = sorted(cuda_ms(lambda: fm.flash_attention(q, k, v), reps=10)
+                    for _ in range(5))
+    plain = sorted(cuda_ms(lambda: mha_ref(q, k, v), reps=3)
+                   for _ in range(3))
+    lib = sorted(cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+        for _ in range(5))
+    bounds = flash_bounds(b, tq, tk, hq, d, q.element_size(), True, hkv)
+    llama = dict(ms=rounds[2], plain_ms=plain[1], library_ms=lib[2],
+                 bound_ms=bounds["bound_ms"], bound_by=bounds["bound_by"],
+                 shape=list(FLASH_LLAMA_TRAIN_SHAPE))
+    print(f"flash: llama train shape {FLASH_LLAMA_TRAIN_SHAPE} bfloat16 "
+          f"causal: median {rounds[2]:.4f} ms (rounds {rounds[0]:.4f}-"
+          f"{rounds[-1]:.4f}), plain median {plain[1]:.4f} ms, library "
+          f"(SDPA) median {lib[2]:.4f} ms, bound {bounds['bound_ms']:.6f} ms "
+          f"({bounds['bound_by']}, {bounds['bytes']} B, {bounds['ops']} "
+          f"operations)")
     print(f"flash: {cases} cases within tolerance (max abs diff float32 "
           f"{max_err[f32]:.3e}, bfloat16 {max_err[bf16]:.3e}, SIMT kernel in "
           f"bfloat16 {max_err['simt_bf16']:.3e}; bfloat16 o relative L2 at "
@@ -1773,7 +1817,7 @@ def phase_flash(dev) -> dict:
             "library_ms": main["library_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "shape": list(FLASH_TRAIN_SHAPE),
             "simt_bf16_ms": main["simt_ms"], "ms_again": main["ms_again"],
-            "cases": cases, "float32": {
+            "cases": cases, "llama_train": llama, "float32": {
                 k: timings["float32"][k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
@@ -1795,10 +1839,12 @@ def rglru_expected(model, slots: int, prompt_len: int, prefills: int,
     return want
 
 
-def phase_serve(arch: str, dev, profile: bool) -> dict:
+def phase_serve(arch: str, dev, profile: bool, spec=None) -> dict:
     """One model at full width through `serve.main`: repack, resident and
-    warm phases with their counts asserted, then the host twin's tokens.
-    Returns the model too, for the float prefill phase."""
+    warm phases with their counts asserted (`spec`, by default PATHS'),
+    then the host twin's tokens. The model is built as the serve entry
+    point builds it (cast layer weights in bf16 only). Returns the model
+    too, for the float prefill phase."""
     import torch
     from repro_torch.cim import fused_kernel
     from repro_torch.configs import preset_config
@@ -1807,14 +1853,14 @@ def phase_serve(arch: str, dev, profile: bool) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models.model import build, with_cim
 
-    spec = PATHS[arch]
+    spec = spec or PATHS[arch]
     argv = ["--arch", arch] + SERVE + spec["args"]
     args = serve.parse_args(argv)
     times = {}
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
     model = build(with_cim(preset_config(arch, args.preset), args.cim_bits),
-                  device=dev, seed=args.seed)
+                  device=dev, seed=args.seed, for_serving=True)
     torch.cuda.synchronize()
     times["init_s"] = time.perf_counter() - t
 
@@ -2243,7 +2289,7 @@ def phase_xlstm(dev, profile: bool) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
     model = build(preset_config(args.arch, args.preset), device=dev,
-                  seed=args.seed)
+                  seed=args.seed, for_serving=True)
     torch.cuda.synchronize()
     times["init_s"] = time.perf_counter() - t
     n_params = sum(p.numel() for p in model.parameters())
@@ -2284,23 +2330,28 @@ def phase_xlstm(dev, profile: bool) -> dict:
         t = time.perf_counter()
         phase_profile(model, dev, args.prompt_len + args.gen, args.prompt_len)
         times["profile_s"] = time.perf_counter() - t
-    return {"model": model, "slstm_launches": slstm_launches,
+    return {"slstm_launches": slstm_launches,
             "sm90_launches": sm90_launches,
             "prefill_ms": rep["prefill_ms_mean"],
             "tok_s_steady": rep["tok_s_steady"],
             "peak_gib": peak_gib, "times": times}
 
 
-def phase_agree(model, dev, prompt_len: int = 512, steps: int = 8) -> dict:
-    """The card's float32 path against the port on the CPU, on the same
-    weights: one prompt, then greedy decode steps on each side. Tokens must
-    be equal; logits within AGREE_ATOL. The CPU side runs on one intra-op
-    thread, as the CPU tests do."""
+def phase_agree(dev, prompt_len: int = 512, steps: int = 8) -> dict:
+    """xlstm-125m's float32 path on the card against the port on the CPU,
+    on the same weights (the xLSTM serve's seed, float32 throughout): one
+    prompt, then greedy decode steps on each side. Tokens must be equal;
+    logits within AGREE_ATOL. The CPU side runs on one intra-op thread, as
+    the CPU tests do."""
     import torch
-    from repro_torch.models.model import Model
+    from repro_torch.configs import preset_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model, build
 
-    cfg = dataclasses.replace(model.cfg, dtype="float32")
-    card = model.derive(cfg)
+    args = serve.parse_args(XLSTM_SERVE)
+    cfg = dataclasses.replace(preset_config(args.arch, args.preset),
+                              dtype="float32")
+    card = build(cfg, device=dev, seed=args.seed)
 
     def to_cpu(tree):
         if isinstance(tree, dict):
@@ -2568,6 +2619,387 @@ def phase_train_agree(dev) -> dict:
             "max_param_diff": float(diff.max())}
 
 
+#: the configs phase: the registry's other families at full width
+CONFIG_SERVE_ARGS = ["--requests", "2", "--gen", "4"]
+CONFIG_PATHS = {
+    # 16 layers x [K = 2048, 2048, 8192 (MLP), 64 (QK^T), 12 (AV: Tmax 12)]
+    "llama3.2-1b": dict(args=CONFIG_SERVE_ARGS,
+                        step_accesses=16 * (26 + 26 + 28 + 21 + 19),
+                        step_dispatches=16 * 5),
+    # layer 0's dense MLP alone, K = 2048, 2048, 10944; the 26 MoE layers
+    # and MLA are float, as in the reference
+    "deepseek-v2-lite-16b": dict(args=CONFIG_SERVE_ARGS,
+                                 step_accesses=26 + 26 + 29,
+                                 step_dispatches=3),
+}
+#: the float path at full width (2 slots, 2 requests, prompt 8 + gen 4);
+#: musicgen-large and internvl2-26b take embed-stub inputs
+CONFIG_FLOAT = ("qwen3-14b", "granite-3-8b", "musicgen-large",
+                "internvl2-26b")
+CONFIG_TRAIN = ["--arch", "llama3.2-1b", "--preset", "full", "--device",
+                "cuda", "--steps", "2", "--batch", "2", "--seq", "2048",
+                "--ckpt-every", "1000", "--log-every", "1"]
+#: card-vs-CPU tolerance of the float32 reduced agreements (deepseek's
+#: serve and train step, the hybrid's and xLSTM's train step)
+CONFIG_AGREE_ATOL = 1e-4
+#: the recurrent families' train path at full width through the train
+#: entry point, 2 steps of 2 x 1024: xlstm-125m whole; recurrentgemma-9b
+#: cut to one pattern period (rec, rec, local: 3 of its 38 layers; the
+#: whole model's float32 weights, gradients and moments would take 144
+#: GB). 1024 positions, not 2048: the sLSTM backward reruns its plain
+#: version one step at a time (8.2 s a step at 2048 on an H100 SXM)
+CONFIG_RECURRENT_TRAIN = {"xlstm-125m": None, "recurrentgemma-9b": 3}
+CONFIG_RECURRENT_ARGS = ["--preset", "full", "--device", "cuda", "--steps",
+                         "2", "--batch", "2", "--seq", "1024",
+                         "--ckpt-every", "1000", "--log-every", "1"]
+
+
+def _free(dev) -> int:
+    """Drop what the last model left and return the bytes still held."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
+def phase_configs(dev, profile: bool = False) -> dict:
+    """The seven configs the earlier phases do not run, through the port's
+    serve and train entry points, one model on the card at a time:
+      (a) llama3.2-1b at full width, int8 CiM decode (repack, resident,
+          warm, host twin), 1920 accesses and 80 dispatches a step;
+      (b) deepseek-v2-lite-16b at full width the same way: 81 accesses and
+          3 dispatches a step (layer 0's dense MLP; MoE and MLA float);
+      (c) qwen3-14b, granite-3-8b, musicgen-large and internvl2-26b at full
+          width on the float path (serve.main builds them: cast layer
+          weights in bf16 only): every request completes, 0 ledger
+          accesses, 0 fused launches;
+      (d) llama3.2-1b training at full width, 2 steps of 2 x 2048: finite
+          losses, 16 x 2 flash launches a step, all on the wgmma/TMA
+          kernel;
+      (e) reduced deepseek-v2-lite-16b in float32 on the card against the
+          CPU from the same weights: prefill, 4 greedy decode steps, the
+          first batch's loss and gradients within CONFIG_AGREE_ATOL;
+      (f) the hybrid's and xLSTM's train path (CONFIG_RECURRENT_TRAIN):
+          finite losses, the RG-LRU and sLSTM kernels launched once per
+          recurrent layer, microbatch and forward (remat: twice), no
+          flash launch; then both reduced in float32, the card's loss
+          and gradients (kernel forward, plain-version backward) against
+          the CPU's within CONFIG_AGREE_ATOL.
+    grok-1-314b (628 GB of bf16 parameters) runs reduced only, in the CPU
+    tests. Each model's peak device memory is printed. With `profile`, (a)
+    and (b) also profile one warm resident decode step each."""
+    import math
+
+    import torch
+    from repro_torch.cim import accounting, fused_kernel
+    from repro_torch.configs import preset_config
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import slstm as sm
+    from repro_torch.launch import serve, train
+    from repro_torch.models.model import build
+
+    torch.empty(0, device=dev)      # a context, when the phase runs alone
+    out = {"peak_gib": {}, "serve": {}, "times": {}}
+    for arch, spec in CONFIG_PATHS.items():
+        t = time.perf_counter()
+        run = phase_serve(arch, dev, profile, spec=spec)
+        del run["model"]
+        held = _free(dev)
+        out["serve"][arch] = {k: run[k] for k in ("fused_launches",
+                                                   "peak_gib")}
+        out["peak_gib"][arch] = run["peak_gib"]
+        out["times"][arch] = time.perf_counter() - t
+        print(f"configs[{arch}]: {out['times'][arch]:.1f} s, "
+              f"{held} bytes held after")
+    fused_launches = sum(r["fused_launches"] for r in out["serve"].values())
+
+    for arch in CONFIG_FLOAT:
+        t = time.perf_counter()
+        argv = ["--arch", arch, "--preset", "full", "--device", "cuda",
+                "--slots", "2", "--prompt-len", "8"] + CONFIG_SERVE_ARGS
+        assert _free(dev) < 2 ** 30
+        torch.cuda.reset_peak_memory_stats(dev)
+        serve.fresh_cim_state()
+        fused_kernel.fused_planes_op.launches = 0
+        rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
+        sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
+        fm.flash_attention_sm90.launches = 0
+        fm.flash_attention_simt.launches = 0
+        rep = serve.main(argv)
+        counts = (fused_kernel.fused_planes_op.launches, rg.launches(),
+                  sm.launches(), fm.launches())
+        led = accounting.ledger()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        args = serve.parse_args(argv)
+        assert rep["completed"] == args.requests, (arch, rep["completed"])
+        assert all(len(r["token_ids"]) == args.gen
+                   for r in rep["per_request"]), arch
+        assert (led.accesses, led.load_accesses) == (0, 0), arch
+        assert counts == (0, 0, 0, 0), (arch, counts)
+        assert peak < 80, (arch, peak)
+        out["peak_gib"][arch] = peak
+        out["serve"][arch] = {k: rep[k] for k in (
+            "tok_s_steady", "p50_ms", "prefill_ms_mean", "decode_steps")}
+        out["times"][arch] = time.perf_counter() - t
+        print(f"configs[{arch} float]: {rep['tok_s_steady']:.4f} tok/s "
+              f"steady, p50 {rep['p50_ms']:.2f} ms, prefill "
+              f"{rep['prefill_ms_mean']:.1f} ms mean, "
+              f"{rep['decode_steps']} decode steps, {rep['completed']} of "
+              f"{args.requests} requests, 0 ledger accesses, 0 kernel "
+              f"launches; peak memory {peak:.2f} GiB; "
+              f"{out['times'][arch]:.1f} s; tokens "
+              f"{[r['token_ids'] for r in rep['per_request']]}")
+        del rep
+
+    t = time.perf_counter()
+    held = _free(dev)
+    assert held < 2 ** 30, f"{held} bytes still allocated before training"
+    targs = train.parse_args(CONFIG_TRAIN)
+    cfg = preset_config(targs.arch, targs.preset)
+    per_step = cfg.n_layers * cfg.microbatches * (2 if cfg.remat else 1)
+    fm.flash_attention_sm90.launches = 0
+    fm.flash_attention_simt.launches = 0
+    fused_kernel.fused_planes_op.launches = 0
+    trep = train.main(CONFIG_TRAIN)
+    flash_launches = fm.launches()
+    sm90 = fm.flash_attention_sm90.launches
+    losses = [r["loss"] for r in trep["records"]]
+    assert len(losses) == targs.steps and trep["restarts"] == 0, trep
+    assert all(math.isfinite(x) for x in losses), losses
+    assert flash_launches == per_step * targs.steps == 32 * targs.steps, \
+        (flash_launches, per_step)
+    assert sm90 == flash_launches, (sm90, flash_launches)
+    assert fused_kernel.fused_planes_op.launches == 0
+    out["peak_gib"]["llama3.2-1b train"] = trep["peak_gib"]
+    out["train"] = {"losses": losses, "step_ms": [r["ms"] for r in
+                                                  trep["records"]],
+                    "tok_s_steady": trep["tok_s_steady"],
+                    "flash_launches": flash_launches, "per_step": per_step}
+    out["times"]["llama3.2-1b train"] = time.perf_counter() - t
+    print(f"configs[llama3.2-1b train]: {trep['n_params']} parameters; "
+          f"losses {losses}; step ms "
+          f"{[round(r['ms'], 2) for r in trep['records']]}; "
+          f"{flash_launches} flash launches = {per_step} per step x "
+          f"{targs.steps}, {sm90} on the wgmma/TMA kernel; peak memory "
+          f"{trep['peak_gib']:.2f} GiB")
+    del trep
+    _free(dev)
+
+    t = time.perf_counter()
+    out["agree"] = configs_agree(dev)
+    out["times"]["deepseek agree"] = time.perf_counter() - t
+
+    out["recurrent_train"] = {}
+    split = {"rglru_sm90": 0, "rglru_rows": 0, "slstm_sm90": 0,
+             "slstm_rows": 0}
+    for arch, layers in CONFIG_RECURRENT_TRAIN.items():
+        t = time.perf_counter()
+        held = _free(dev)
+        assert held < 2 ** 30, f"{held} bytes still allocated before {arch}"
+        cfg = preset_config(arch, "full")
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build(cfg, device=dev, seed=0)
+        argv = ["--arch", arch] + CONFIG_RECURRENT_ARGS
+        targs = train.parse_args(argv)
+        per = cfg.microbatches * (2 if cfg.remat else 1)
+        want = {"rglru": model.kinds.count("rec") * per * targs.steps,
+                "slstm": model.kinds.count("slstm") * per * targs.steps}
+        fm.flash_attention_sm90.launches = 0
+        fm.flash_attention_simt.launches = 0
+        rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
+        sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
+        trep = train.main(argv, model=model)
+        got = {"rglru": rg.launches(), "slstm": sm.launches()}
+        losses = [r["loss"] for r in trep["records"]]
+        assert len(losses) == targs.steps and trep["restarts"] == 0, trep
+        assert all(math.isfinite(x) for x in losses), (arch, losses)
+        assert got == want, (arch, got, want)
+        assert fm.launches() == 0, (arch, fm.launches())
+        for k, n in launch_split().items():
+            split[k] += n
+        key = f"{arch} train" + ("" if layers is None else f" ({layers} "
+                                                            f"layers)")
+        out["peak_gib"][key] = trep["peak_gib"]
+        out["recurrent_train"][arch] = {
+            "layers": len(model.kinds), "n_params": trep["n_params"],
+            "losses": losses, "step_ms": [r["ms"] for r in trep["records"]],
+            "tok_s_steady": trep["tok_s_steady"], "launches": got}
+        out["times"][key] = time.perf_counter() - t
+        print(f"configs[{key}]: {trep['n_params']} parameters; losses "
+              f"{losses}; step ms "
+              f"{[round(r['ms'], 2) for r in trep['records']]}; launches "
+              f"{got} (rglru sm90 {rg.rglru_sm90.launches}, slstm sm90 "
+              f"{sm.slstm_sm90.launches}), 0 flash; peak memory "
+              f"{trep['peak_gib']:.2f} GiB; {out['times'][key]:.1f} s")
+        del model, trep
+    _free(dev)
+    t = time.perf_counter()
+    out["recurrent_agree"] = recurrent_agree(dev)
+    out["times"]["recurrent agree"] = time.perf_counter() - t
+    out["fused_launches"] = fused_launches
+    out["flash_launches"] = flash_launches
+    for arch in CONFIG_RECURRENT_TRAIN:
+        for k, n in out["recurrent_agree"][arch]["split"].items():
+            split[k] += n
+    out["recurrent_launches"] = split
+    return out
+
+
+def launch_split() -> dict:
+    """The RG-LRU and sLSTM kernels' launch counts, per kernel."""
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import slstm as sm
+    return {"rglru_sm90": rg.rglru_sm90.launches,
+            "rglru_rows": rg.rglru_rows.launches,
+            "slstm_sm90": sm.slstm_sm90.launches,
+            "slstm_rows": sm.slstm_rows.launches}
+
+
+def recurrent_agree(dev, seq: int = 64) -> dict:
+    """Reduced recurrentgemma-9b and xlstm-125m in float32 on the card and
+    on the CPU from the same weights: the first batch (2 x `seq`) gives the
+    same loss and every gradient within CONFIG_AGREE_ATOL. On the card the
+    RG-LRU and sLSTM kernels run the forward (one launch per recurrent
+    layer) and their backward reruns the plain versions; on the CPU the
+    plain versions run both. The CPU side runs on one intra-op thread."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import slstm as sm
+    from repro_torch.models.model import Model, build
+
+    out = {}
+    for arch, kind, mod in (("recurrentgemma-9b", "rec", rg),
+                            ("xlstm-125m", "slstm", sm)):
+        cfg = get_config(arch).reduced()
+        host = build(cfg, device="cpu", seed=0)
+        card = Model(cfg, params=tree.tree_map(
+            lambda p: p.detach().to(dev, copy=True), host.params()))
+        batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+            0, DataConfig(vocab_size=cfg.vocab_size, batch=2,
+                          seq_len=seq)).items()}
+
+        def run(m):
+            leaves = tree.leaves(m.params())
+            for p in leaves:
+                p.requires_grad_(True)
+                p.grad = None
+            loss, _ = m.loss({k: v.to(m.device) for k, v in batch.items()})
+            loss.backward()
+            return float(loss.detach()), [p.grad.detach().cpu()
+                                          for p in leaves]
+
+        rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
+        sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
+        c = run(card)
+        torch.cuda.synchronize(dev)
+        launches = mod.launches()
+        split = launch_split()
+        n_threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            h = run(host)
+        finally:
+            torch.set_num_threads(n_threads)
+        loss_d = abs(c[0] - h[0])
+        grad_d = max(float((a - b).abs().max()) for a, b in zip(c[1], h[1]))
+        out[arch] = {"loss_diff": loss_d, "max_grad_diff": grad_d,
+                     "n_grads": len(c[1]), "launches": launches,
+                     "split": split}
+        print(f"configs[{arch} reduced f32 train agree]: loss {c[0]:.6f} vs "
+              f"{h[0]:.6f}, {len(c[1])} gradients max abs diff "
+              f"{grad_d:.3e} (atol {CONFIG_AGREE_ATOL:g}); {launches} "
+              f"{kind} kernel launches")
+        assert launches == card.kinds.count(kind) > 0, (arch, launches)
+        assert loss_d <= CONFIG_AGREE_ATOL, (arch, loss_d)
+        assert grad_d <= CONFIG_AGREE_ATOL, (arch, grad_d)
+    return out
+
+
+def configs_agree(dev, steps: int = 4) -> dict:
+    """Reduced deepseek-v2-lite-16b (MLA, one dense layer, MoE with the
+    published capacity factor, so drops happen) in float32 on the card and
+    on the CPU from the same weights: prefill and `steps` greedy decode
+    steps give equal tokens and logits, and the first batch's loss and
+    every gradient agree, within CONFIG_AGREE_ATOL. The scatter dispatch
+    (`index_put_(accumulate=True)`) and its backward are the device-specific
+    code here. The CPU side runs on one intra-op thread."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models.model import Model, build
+
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    host = build(cfg, device="cpu", seed=0)
+
+    def copy(node, device):
+        if isinstance(node, dict):
+            return {k: copy(v, device) for k, v in node.items()}
+        if isinstance(node, list):
+            return [copy(v, device) for v in node]
+        return node.detach().to(device, copy=True)
+
+    card = Model(cfg, params=copy(host.params(), dev))
+    gen = torch.Generator().manual_seed(11)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(
+        0, DataConfig(vocab_size=cfg.vocab_size, batch=2, seq_len=32))
+        .items()}
+
+    def run(m):
+        d = m.device
+        caches, logits = m.prefill({"tokens": prompt.to(d)},
+                                   max_len=12 + steps)
+        all_logits, toks = [logits.cpu()], [logits.argmax(-1).cpu()]
+        for i in range(steps):
+            caches, logits = m.decode_step(caches, {
+                "tokens": toks[-1][:, None].to(d),
+                "positions": torch.full((2,), 12 + i, dtype=torch.int32,
+                                        device=d)})
+            all_logits.append(logits.cpu())
+            toks.append(logits.argmax(-1).cpu())
+        leaves = tree.leaves(m.params())
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        loss, parts = m.loss({k: v.to(d) for k, v in batch.items()})
+        loss.backward()
+        grads = [p.grad.detach().cpu() for p in leaves]
+        return (torch.stack(toks), torch.cat(all_logits),
+                float(loss.detach()), float(parts["aux"].detach()), grads)
+
+    c = run(card)
+    torch.cuda.synchronize(dev)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        h = run(host)
+    finally:
+        torch.set_num_threads(n_threads)
+    logit_d = float((c[1] - h[1]).abs().max())
+    grad_d = max(float((a - b).abs().max()) for a, b in zip(c[4], h[4]))
+    res = {"tokens_equal": bool(torch.equal(c[0], h[0])),
+           "max_logit_diff": logit_d, "loss_diff": abs(c[2] - h[2]),
+           "aux_diff": abs(c[3] - h[3]), "max_grad_diff": grad_d,
+           "n_grads": len(c[4])}
+    print(f"configs[deepseek-v2-lite-16b reduced f32 agree]: tokens equal "
+          f"{res['tokens_equal']}, logits max abs diff {logit_d:.3e}, loss "
+          f"{c[2]:.6f} vs {h[2]:.6f}, aux {c[3]:.6f} vs {h[3]:.6f}, "
+          f"{len(c[4])} gradients max abs diff {grad_d:.3e} (atol "
+          f"{CONFIG_AGREE_ATOL:g})")
+    assert res["tokens_equal"], (c[0], h[0])
+    assert logit_d <= CONFIG_AGREE_ATOL, logit_d
+    assert res["loss_diff"] <= CONFIG_AGREE_ATOL, res
+    assert res["aux_diff"] <= CONFIG_AGREE_ATOL, res
+    assert grad_d <= CONFIG_AGREE_ATOL, grad_d
+    return res
+
+
 def phase_profile(m, dev, max_len: int, position: int) -> None:
     """One decode step at 2 slots under torch.profiler (after one warm-up
     step, which pins a resident model's weights): device time by PyTorch op
@@ -2716,7 +3148,7 @@ def main() -> int:
     for k, v in xl["times"].items():
         phases[f"xlstm-125m_{k}"] = v
     t = time.perf_counter()
-    agree = phase_agree(xl.pop("model"), dev)
+    agree = phase_agree(dev)
     phases["agree_s"] = time.perf_counter() - t
     t = time.perf_counter()
     tr = phase_train(dev, profile)
@@ -2724,6 +3156,11 @@ def main() -> int:
     t = time.perf_counter()
     tra = phase_train_agree(dev)
     phases["train_agree_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    conf = phase_configs(dev, profile)
+    phases["configs_s"] = time.perf_counter() - t
+    for k, v in conf["times"].items():
+        phases[f"configs_{k}"] = v
 
     print("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
     fused = {"name": "fused_planes", "route": "cuda",
@@ -2731,13 +3168,16 @@ def main() -> int:
              "replaces": "src/repro/cim/fused_kernel.py:137",
              "launches": sum(r["fused_launches"] for r in runs.values())
              + banked["launches"] + low["launches"] + adra["launches"]
-             + ana["launches"],
+             + ana["launches"] + conf["fused_launches"],
              "launches_banked": banked["launches"],
              "launches_lower": low["launches"],
              "launches_analog": ana["launches"],
              "launches_adra_faults": adra["launches"],
              "launches_serve": {a: r["fused_launches"]
                                 for a, r in runs.items()},
+             "launches_configs": {a: r["fused_launches"] for a, r in
+                                  conf["serve"].items()
+                                  if "fused_launches" in r},
              "max_abs_err": kern["max_abs_err"],
              "ms": kern["ms"], "plain_ms": kern["plain_ms"],
              "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
@@ -2748,10 +3188,12 @@ def main() -> int:
                  "paper", "sampler", "chaos", "failover")},
              "analog": {k: ana[k] for k in (
                  "full_width", "mlp", "tiled", "analyze")}}
-    # the main path's RG-LRU launches: the hybrid's CiM serve and its float
-    # prefill phase, per kernel
+    # the main path's RG-LRU launches: the hybrid's CiM serve, its float
+    # prefill phase and the configs phase's training, per kernel
     rec_launches = {k: runs["recurrentgemma-9b"]["rglru_launches"][k]
-                    + pre["launches"][k] for k in ("sm90", "rows")}
+                    + pre["launches"][k]
+                    + conf["recurrent_launches"][f"rglru_{k}"]
+                    for k in ("sm90", "rows")}
     rec = {"name": "rglru", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/rglru_sm90.cu",
            "replaces": "src/repro/kernels/rglru.py:79",
@@ -2763,6 +3205,11 @@ def main() -> int:
            "launches": sum(rec_launches.values()),
            "launches_sm90": rec_launches["sm90"],
            "launches_rows": rec_launches["rows"],
+           "launches_serve": sum(runs["recurrentgemma-9b"]
+                                 ["rglru_launches"].values()),
+           "launches_hybrid_prefill": sum(pre["launches"].values()),
+           "launches_train": conf["recurrent_launches"]["rglru_sm90"]
+           + conf["recurrent_launches"]["rglru_rows"],
            "max_abs_err": rg["max_abs_err"],
            "max_abs_err_rows": rg["max_abs_err_rows"],
            "ms": rg["ms"], "call_ms": rg["call_ms"],
@@ -2776,6 +3223,8 @@ def main() -> int:
                "prefill_ms", "prefill_ms_mean", "tok_s_steady", "peak_gib",
                "profiled_wall_ms", "profiled_rglru_ms", "prefill_turns_ms",
                "prefill_gain_ms")}}
+    slstm_train = {k: conf["recurrent_launches"][f"slstm_{k}"]
+                   for k in ("sm90", "rows")}
     cell = {"name": "slstm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/slstm_sm90.cu",
             "replaces": "src/repro/kernels/slstm.py:97",
@@ -2783,9 +3232,13 @@ def main() -> int:
                        "shared memory, one grid barrier a step; wider D and "
                        "B > 32 on the one-block-per-row kernel",
             "rows_source": "src/repro_torch/kernels/csrc/slstm.cu",
-            "launches": xl["slstm_launches"],
-            "launches_sm90": xl["sm90_launches"],
-            "launches_rows": xl["slstm_launches"] - xl["sm90_launches"],
+            "launches": xl["slstm_launches"] + slstm_train["sm90"]
+            + slstm_train["rows"],
+            "launches_sm90": xl["sm90_launches"] + slstm_train["sm90"],
+            "launches_rows": xl["slstm_launches"] - xl["sm90_launches"]
+            + slstm_train["rows"],
+            "launches_serve": xl["slstm_launches"],
+            "launches_train": slstm_train["sm90"] + slstm_train["rows"],
             "max_abs_err": sl["max_abs_err"],
             "ms": sl["ms"], "ms_again": sl["ms_again"],
             "plain_ms": sl["plain_ms"],
@@ -2808,16 +3261,22 @@ def main() -> int:
              "max_abs_err_simt_bf16": fl["max_abs_err_simt_bf16"],
              "o_rel_l2": fl["o_rel_l2"], "o_rel_l2_simt": fl["o_rel_l2_simt"],
              "ms_again": fl["ms_again"],
-             "launches": tr["flash_launches"],
-             "launches_sm90": tr["sm90_launches"],
+             "launches": tr["flash_launches"] + conf["flash_launches"],
+             "launches_gemma_train": tr["flash_launches"],
+             "launches_llama_train": conf["flash_launches"],
+             "launches_sm90": tr["sm90_launches"] + conf["flash_launches"],
              "launches_simt": tr["simt_launches"],
              "max_abs_err": fl["max_abs_err"],
              "ms": fl["ms"], "plain_ms": fl["plain_ms"],
              "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
              "library_ms": fl["library_ms"], "shape": fl["shape"],
              "dtype": "bfloat16",
-             "float32": fl["float32"], "launches_per_step": tr["per_step"],
+             "float32": fl["float32"], "llama_train": fl["llama_train"],
+             "launches_per_step": tr["per_step"],
              "train_agree": tra}
+    print("configs: " + json.dumps({k: conf[k] for k in (
+        "peak_gib", "serve", "train", "agree", "recurrent_train",
+        "recurrent_agree")}))
     print(json.dumps({"kernels": [fused, rec, cell, flash]}))
     print(f"gpu: {smi_line()}")
     print(json.dumps({"ok": True, "device": {

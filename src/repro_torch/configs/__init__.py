@@ -1,4 +1,6 @@
-"""Architecture configurations of the port."""
+"""Architecture configurations of the port: the reference's ten."""
 from .base import ArchConfig, MLAConfig, MoEConfig  # noqa: F401
-from .registry import (ARCH_IDS, GEMMA_2B, RECURRENTGEMMA_9B,  # noqa: F401
+from .registry import (ARCH_IDS, DEEPSEEK_V2_LITE, GEMMA_2B,  # noqa: F401
+                       GRANITE_3_8B, GROK_1_314B, INTERNVL2_26B, LLAMA32_1B,
+                       MUSICGEN_LARGE, QWEN3_14B, RECURRENTGEMMA_9B,
                        XLSTM_125M, get_config, preset_config)

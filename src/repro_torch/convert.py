@@ -3,10 +3,15 @@
 `params_from_jax(np_params, cfg)` takes a `repro` model's parameter tree
 with every leaf already converted to a numpy array (the caller does
 `jax.tree.map(np.asarray, params)`), unstacks the scanned `groups` into
-per-layer dicts in stack order, and returns the port's parameter tree of
+per-layer dicts in stack order (the `first_dense` prefix, the groups, the
+remainder), and returns the port's parameter tree of
 torch tensors on `device` (`cuda` unless the caller passes
 `device="cpu"`), so both packages compute the same function on the same
-weights. This module never imports jax.
+weights. Every leaf goes over as it is, nested dicts included: the MoE
+layer's `router`, its expert stacks `w_in`/`w_gate`/`w_out` ([G, E, ...]
+in the reference's groups, [E, ...] per layer here) and `shared_*`, and
+MLA's `wq`, `w_kv_a`, `kv_a_norm`, `w_uk`, `w_uv` and `wo`. This module
+never imports jax.
 """
 from __future__ import annotations
 

@@ -1,2 +1,3 @@
 """Synthetic data of the port."""
-from .pipeline import DataConfig, iterator, synthetic_batch  # noqa: F401
+from .pipeline import (DataConfig, embed_stub_batch, iterator,  # noqa: F401
+                       synthetic_batch)

@@ -3,9 +3,10 @@
 Port of `repro.data.pipeline`'s host part (numpy only, copied so the port
 imports nothing of `repro`): tokens are a stateless function of (seed,
 step, position), so resuming from a checkpoint at step k reproduces batch
-k bit for bit with no iterator state to persist. `sharded_batch` and
-`embed_stub_batch` wait with the mesh (ROADMAP A12); the train driver moves
-the numpy batch to its device.
+k bit for bit with no iterator state to persist. `embed_stub_batch` is
+the audio/VLM stand-in: seeded pseudo-embeddings beside the same token
+targets. `sharded_batch` waits with the mesh (ROADMAP A12); the train
+driver moves the numpy batch to its device.
 """
 from __future__ import annotations
 
@@ -55,3 +56,16 @@ def iterator(cfg: DataConfig,
     while True:
         yield synthetic_batch(step, cfg)
         step += 1
+
+
+def embed_stub_batch(step: int, arch, batch: int, seq: int,
+                     seed: int = 0) -> Dict[str, np.ndarray]:
+    """Precomputed-frontend stand-in for embed-stub configs (audio, VLM):
+    deterministic pseudo-embeddings [batch, seq, d_model] * 0.02 in float32
+    and token targets, the reference's arrays to the bit."""
+    dcfg = DataConfig(seed=seed, vocab_size=arch.vocab_size, batch=batch,
+                      seq_len=seq)
+    toks = _tokens_for(step, dcfg, 0, batch)
+    rng = np.random.RandomState((seed * 1_000_003 + step) % (2 ** 31))
+    emb = rng.randn(batch, seq, arch.d_model).astype(np.float32) * 0.02
+    return {"embeds": emb, "targets": toks[:, 1:][:, :seq]}

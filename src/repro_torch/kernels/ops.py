@@ -16,6 +16,9 @@ backward is the blockwise FlashAttention-2 recomputation
 (`repro_torch.models.blockwise_attention._bwd`, plain PyTorch; the
 reference has no backward kernel either). `p = exp(s - lse)` there reads
 the forward's log-sum-exp, so lse is part of the kernel's contract.
+`rglru_scan` and `slstm_scan` are differentiable the same way: the
+kernel's forward, and a backward that reruns the plain version under
+autograd (the reference differentiates its jnp scans).
 """
 from __future__ import annotations
 
@@ -184,15 +187,72 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _Attention.apply(q, k, v, causal)
 
 
+def _replay(plain, inputs, grads_out, needs):
+    """The gradients of `plain(*inputs)` (a recurrence's plain version,
+    its outputs flattened to a tuple) with respect to the inputs that
+    `needs` marks, given the output gradients: the plain version rerun
+    under autograd. Unmarked inputs get None."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(bool(need))
+               for t, need in zip(inputs, needs)]
+        outs = plain(*ins)
+        wrt = [t for t in ins if t is not None and t.requires_grad]
+        pairs = [(o, g) for o, g in zip(outs, grads_out)
+                 if g is not None and o.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+    return tuple(next(got) if t is not None and t.requires_grad else None
+                 for t in ins)
+
+
+class _RGLRU(torch.autograd.Function):
+    """The RG-LRU kernel's forward; its backward reruns `rglru_ref` (the
+    same function) under autograd, as the reference differentiates its
+    jnp scan: there is no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, r, i, log_lambda, h0, c):
+        ctx.save_for_backward(x, r, i, log_lambda, h0)
+        ctx.c = c
+        return rglru(x, r, i, log_lambda, h0=h0, c=c)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        c = ctx.c
+        return _replay(lambda x, r, i, ll, h0: ref.rglru_ref(
+            x, r, i, ll, h0=h0, c=c), ctx.saved_tensors, (dy, dh),
+            ctx.needs_input_grad[:5]) + (None,)
+
+
+class _SLSTM(torch.autograd.Function):
+    """The sLSTM kernel's forward; its backward reruns `slstm_ref` under
+    autograd, as `_RGLRU`'s."""
+
+    @staticmethod
+    def forward(ctx, wx, r_gates, b_gates, h0, c0, n0, m0):
+        ctx.save_for_backward(wx, r_gates, b_gates, h0, c0, n0, m0)
+        y, state = slstm(wx, r_gates, b_gates, h0, c0, n0, m0)
+        return (y, *state)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        def plain(*ins):
+            y, state = ref.slstm_ref(*ins)
+            return (y, *state)
+        return _replay(plain, ctx.saved_tensors, grads,
+                       ctx.needs_input_grad)
+
+
 def rglru_scan(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
                log_lambda: torch.Tensor, h0: Optional[torch.Tensor] = None,
                c: float = 8.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """RG-LRU over [B, T, D]: returns (y in x's dtype, h_T in float32).
     CPU tensors take `rglru_ref`, CUDA tensors the kernel `rglru.route`
-    picks (one launch)."""
+    picks (one launch), differentiable through `_RGLRU`."""
     if x.device.type == "cpu":
         return ref.rglru_ref(x, r, i, log_lambda, h0=h0, c=c)
-    return rglru(x, r, i, log_lambda, h0=h0, c=c)
+    return _RGLRU.apply(x, r, i, log_lambda, h0, c)
 
 
 def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor,
@@ -200,7 +260,9 @@ def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor,
                m0: torch.Tensor):
     """sLSTM over wx [B, T, 4, D]: returns (y [B, T, D] in wx's dtype,
     (h, c, n, m) [B, D] in float32). CPU tensors take `slstm_ref`, CUDA
-    tensors the kernel `slstm.route` picks (one launch)."""
+    tensors the kernel `slstm.route` picks (one launch), differentiable
+    through `_SLSTM`."""
     if wx.device.type == "cpu":
         return ref.slstm_ref(wx, r_gates, b_gates, h0, c0, n0, m0)
-    return slstm(wx, r_gates, b_gates, h0, c0, n0, m0)
+    y, *state = _SLSTM.apply(wx, r_gates, b_gates, h0, c0, n0, m0)
+    return y, tuple(state)

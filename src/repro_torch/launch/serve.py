@@ -1,11 +1,18 @@
 """Continuous-batching serve engine over the CiM-quantized model.
 
-Port of `repro.launch.serve`. It serves the dense family
-(gemma-2b), the hybrid one (recurrentgemma-9b: RG-LRU recurrent blocks,
-each launching the RG-LRU kernel on the card, and sliding-window local
-attention, both float, with int8 CiM MLPs in every layer) and the ssm one
-(xlstm-125m: mLSTM blocks in plain PyTorch and sLSTM blocks, each
-launching the sLSTM kernel on the card, on the float path only):
+Port of `repro.launch.serve`. It serves every family of the registry:
+dense (gemma-2b, llama3.2-1b, qwen3-14b, granite-3-8b), MoE with MLA
+(deepseek-v2-lite-16b: only its dense layer 0's MLP lowers to CiM; the MoE
+layers and MLA run in float, as in the reference), embed stub
+(musicgen-large, internvl2-26b: seeded pseudo-embeddings stand in for the
+frontend, 0.02 x normal as the reference draws them), the hybrid
+(recurrentgemma-9b: RG-LRU recurrent blocks, each launching the RG-LRU
+kernel on the card, and sliding-window local attention, both float, with
+int8 CiM MLPs in every layer) and the ssm one (xlstm-125m: mLSTM blocks in
+plain PyTorch and sLSTM blocks, each launching the sLSTM kernel on the
+card, on the float path only). The model it builds holds its cast layer
+weights in the compute dtype only (`build(..., for_serving=True)`). For
+example:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
       --preset full --device cuda --slots 2 --requests 4 --prompt-len 8 \
@@ -103,7 +110,9 @@ from repro_torch.cim.array import (DEFAULT_SPEC, ArraySpec, clear_resident,
 from repro_torch.cim.planepack import ecc_plane_count
 from repro_torch.configs import preset_config
 from repro_torch.launch.paged_kv import PagedKV
-from repro_torch.models.model import XLSTM_CELLS, Model, build, with_cim
+from repro_torch.models.model import (XLSTM_CELLS, Model, build,
+                                      dense_mlp_width, is_moe_layer,
+                                      stack_kinds, with_cim)
 from repro_torch.train import (adra_sample, greedy_sample, make_decode_step,
                                make_prefill_step)
 
@@ -244,14 +253,35 @@ class ServeEngine:
         for k in self.scrub_report:
             self.scrub_report[k] += r.get(k, 0)
 
+    def _gen(self, stream: int) -> torch.Generator:
+        return torch.Generator().manual_seed(self.seed * 1_000_003 + stream)
+
     def _prompt_inputs(self, req: ServeRequest) -> Dict[str, torch.Tensor]:
+        """A request's prompt: its tokens, or for an embed-stub config
+        seeded pseudo-embeddings [1, prompt_len, d_model] * 0.02 (the
+        reference's scale), from the engine's generator stream `rid`."""
+        if self.cfg.embed_stub:
+            emb = torch.randn((1, req.prompt_len, self.cfg.d_model),
+                              generator=self._gen(req.rid)) * 0.02
+            return {"embeds": emb.to(self.device)}
         if req.prompt is not None:
             toks = torch.tensor([req.prompt], dtype=torch.int64)
         else:
-            gen = torch.Generator().manual_seed(self.seed * 1_000_003 + req.rid)
             toks = torch.randint(0, self.cfg.vocab_size, (1, req.prompt_len),
-                                 generator=gen)
+                                 generator=self._gen(req.rid))
         return {"tokens": toks.to(self.device)}
+
+    def _step_inputs(self, tok: torch.Tensor, positions: List[int],
+                     step: int) -> Dict[str, torch.Tensor]:
+        """One decode step's inputs: the sampled tokens, or for an
+        embed-stub config fresh pseudo-embeddings [slots, 1, d_model] *
+        0.02 from stream 10000 + step, as the reference draws them."""
+        pos = torch.tensor(positions, dtype=torch.int32, device=self.device)
+        if self.cfg.embed_stub:
+            emb = torch.randn((self.slots, 1, self.cfg.d_model),
+                              generator=self._gen(10_000 + step)) * 0.02
+            return {"embeds": emb.to(self.device), "positions": pos}
+        return {"tokens": tok[:, None], "positions": pos}
 
     def _insert(self, caches, single, slot: int) -> None:
         """Land a batch-1 prefill cache in slot `slot` (in place: the
@@ -334,9 +364,7 @@ class ServeEngine:
                     time.sleep(max(0.0, pending[0].arrival_s - now()))
                 continue
 
-            step_in = {"tokens": tok[:, None],
-                       "positions": torch.tensor(positions, dtype=torch.int32,
-                                                 device=self.device)}
+            step_in = self._step_inputs(tok, positions, decode_steps)
             ts = time.perf_counter()
             l0 = (led.accesses, led.load_accesses)
             d0 = dispatch.cache_stats()["dispatches"]
@@ -478,13 +506,19 @@ def fresh_cim_state() -> None:
 def _decode_weight_pins(cfg, slots: int) -> List[int]:
     """Word counts of the int8 MLP weight pins of one decode step: the
     [slots, K_pad, N] broadcast layouts (`matmul_rhs_pack`) of every layer
-    that has an MLP (xLSTM layers have none)."""
-    shapes = [(cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)]
-    if cfg.gating in ("swiglu", "geglu"):
-        shapes.append((cfg.d_model, cfg.d_ff))
-    per_layer = [slots * (1 << planner._log2_ceil(k)) * n for k, n in shapes]
-    with_mlp = sum(k not in XLSTM_CELLS for k in cfg.pattern_layers())
-    return per_layer * with_mlp
+    whose MLP runs on CiM, at its own width. xLSTM layers have no MLP and
+    MoE layers run their experts in float (the reference lowers only dense
+    MLPs): DeepSeek pins its dense layer 0 alone, at d_ff_first_dense."""
+    pins: List[int] = []
+    for i, kind in enumerate(stack_kinds(cfg)):
+        if kind in XLSTM_CELLS or is_moe_layer(cfg, i):
+            continue
+        f = dense_mlp_width(cfg, kind)
+        shapes = [(cfg.d_model, f), (f, cfg.d_model)]
+        if cfg.gating in ("swiglu", "geglu"):
+            shapes.append((cfg.d_model, f))
+        pins += [slots * (1 << planner._log2_ceil(k)) * n for k, n in shapes]
+    return pins
 
 
 def resident_array_spec(cfg, slots: int, max_len: int,
@@ -656,7 +690,7 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
     if args.cim_resident and not args.cim_lower:
         cfg = dataclasses.replace(cfg, cim_resident=True)
     if model is None:
-        model = build(cfg, device=device, seed=args.seed)
+        model = build(cfg, device=device, seed=args.seed, for_serving=True)
     else:
         model = model.derive(cfg)
 

@@ -1,7 +1,8 @@
 """End-to-end training driver with fault tolerance.
 
-Port of `repro.launch.train`. It trains the dense family (gemma-2b) at the
-published width on one card:
+Port of `repro.launch.train`. It trains every config of the registry
+(dense, MoE and MLA, embed stub, the RG-LRU hybrid, xLSTM) on one card;
+`--arch` defaults to llama3.2-1b, as the reference's does:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
       --preset full --device cuda --steps 4 --batch 2 --seq 2048
@@ -9,7 +10,9 @@ published width on one card:
 and its CPU rehearsal with `--preset reduced --device cpu`. Presets:
 reduced (CPU-test size), 100m (~100M-parameter variant), full (the
 published config). Weights are random from `--seed`; the data is the
-deterministic synthetic stream of `repro_torch.data`. The loop runs under
+deterministic synthetic stream of `repro_torch.data` (embed-stub configs
+take `embed_stub_batch`: pseudo-embeddings and the same token targets).
+The loop runs under
 the `Supervisor`: async checkpoints every `--ckpt-every` steps, NaN
 sentinel, restore on failure. At full width one checkpoint is about 40 GB
 of npz (f32 params and both Adam moments): keep `--ckpt-every` above
@@ -20,8 +23,8 @@ reference's sharding specs, `jax.jit` and donation (ROADMAP A12). Each
 step is timed between two device synchronizes, so its wall ms covers the
 device's work as well as the host's. It
 prints every `--log-every`-th step's loss, ce, grad norm and wall ms; at
-the end the steady tokens/s (the first step excluded), the flash kernel's
-launches and the peak device memory.
+the end the steady tokens/s (the first step excluded), the flash, RG-LRU
+and sLSTM kernels' launches and the peak device memory.
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ import torch
 from repro_torch import kernel_build, resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import preset_config
-from repro_torch.data import DataConfig, synthetic_batch
+from repro_torch.data import DataConfig, embed_stub_batch, synthetic_batch
 from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import rglru, slstm
 from repro_torch.models.model import Model, build
 from repro_torch.optim import AdamWConfig, cosine_schedule
 from repro_torch.runtime import Supervisor, SupervisorConfig
@@ -47,7 +51,7 @@ DEFAULT_CKPT_DIR = str(kernel_build.BUILD_DIR.parent / "repro_torch_ckpt")
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--preset", default="reduced",
                     choices=("reduced", "100m", "full"))
     ap.add_argument("--steps", type=int, default=100)
@@ -90,8 +94,9 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
           f"{time.perf_counter() - t_init:.2f} s", flush=True)
 
     def make_batch(step: int):
-        return {k: torch.from_numpy(v).to(dev)
-                for k, v in synthetic_batch(step, dcfg).items()}
+        host = (embed_stub_batch(step, cfg, args.batch, args.seq)
+                if cfg.embed_stub else synthetic_batch(step, dcfg))
+        return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
 
     step_fn = make_train_step(model, opt_cfg, lr_schedule=sched,
                               compress_grads=args.compress_grads)
@@ -117,11 +122,13 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
     ckpt = CheckpointManager(args.ckpt_dir)
     sup = Supervisor(logging_step, make_batch, ckpt,
                      SupervisorConfig(ckpt_every=args.ckpt_every))
-    launches0 = flash.launches()
+    counters = (flash.launches, rglru.launches, slstm.launches)
+    launches0 = [f() for f in counters]
     t0 = time.perf_counter()
     state, metrics = sup.run(state, args.steps)
     wall_s = time.perf_counter() - t0
-    flash_launches = flash.launches() - launches0
+    flash_launches, rglru_launches, slstm_launches = (
+        f() - n for f, n in zip(counters, launches0))
     steady = records[1:]
     tok_s = (len(steady) * args.batch * args.seq
              / (sum(r["ms"] for r in steady) / 1e3)) if steady else None
@@ -131,12 +138,15 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
           f"{float(metrics['loss']):.4f}; steady "
           + (f"{tok_s:.1f} tokens/s" if tok_s else "tokens/s not measured "
              "(one step)")
-          + f"; {flash_launches} flash launches; peak device memory "
+          + f"; {flash_launches} flash launches; {rglru_launches} rglru "
+          f"launches; {slstm_launches} slstm launches; peak device memory "
           + (f"{peak_gib:.2f} GiB" if on_card else "not measured (CPU)"),
           flush=True)
     return {"steps": args.steps, "records": records,
             "restarts": len(sup.events), "tok_s_steady": tok_s,
-            "flash_launches": flash_launches, "peak_gib": peak_gib,
+            "flash_launches": flash_launches,
+            "rglru_launches": rglru_launches,
+            "slstm_launches": slstm_launches, "peak_gib": peak_gib,
             "wall_s": wall_s, "n_params": n_params,
             "final_loss": float(metrics["loss"])}
 

@@ -5,9 +5,12 @@ Port of the dense path of `repro.models.attention`: `_sdpa`, the quantized
 core and its CiM form, `_attend`, `gqa_apply` (the train path's attention),
 `gqa_prefill`, `gqa_decode` and `gqa_decode_cim`, and the sliding-window
 local attention with its ring buffer (`local_*`; float, as in the
-reference, which lowers only `gqa_decode` to CiM). Sequences of
+reference, which lowers only `gqa_decode` to CiM), and DeepSeek-V2's
+multi-head latent attention (`mla_*`: a latent c_kv / k_rope cache, the
+absorbed form below `BLOCKWISE_MIN_LEN` and in decode, the explicit
+blockwise form from it; float, as in the reference). Sequences of
 `BLOCKWISE_MIN_LEN` tokens or more take the blockwise attention
-(`blockwise_attention.py`), as the reference's `_attend` does. MLA waits.
+(`blockwise_attention.py`), as the reference's `_attend` does.
 
 `sdpa_cim` is a `lower()` application of the quantized core, as in the
 reference: its two regions each hold one batched contraction (QK^T, AV),
@@ -309,3 +312,126 @@ def local_decode(p, cfg: ArchConfig, x, cache: Params,
     valid = (abs_pos >= 0) & (abs_pos >= positions[:, None] - (w - 1))
     o = _sdpa(q, ck, cv, valid[:, None, :], 1.0 / cfg.head_dim ** 0.5)
     return _out_proj(o, p["wo"], x.dtype), {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 Multi-head Latent Attention (MLA): a latent KV cache
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, cfg: ArchConfig, dtype, device) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    r = m.kv_lora_rank
+    return {
+        "wq": _dense_init(gen, (d, h, qd), d, dtype, device),
+        "w_kv_a": _dense_init(gen, (d, r + m.qk_rope_dim), d, dtype, device),
+        "kv_a_norm": rmsnorm_init(r, dtype, device),
+        "w_uk": _dense_init(gen, (r, h, m.qk_nope_dim), r, dtype, device),
+        "w_uv": _dense_init(gen, (r, h, m.v_head_dim), r, dtype, device),
+        "wo": _dense_init(gen, (h, m.v_head_dim, d), h * m.v_head_dim, dtype,
+                          device),
+    }
+
+
+def _mla_project(p, cfg: ArchConfig, x, positions):
+    """(q_nope, q_rope [B,T,H,*], c_kv [B,T,R] normed, k_rope [B,T,rope])."""
+    m = cfg.mla
+    q = _proj(x, p["wq"])
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = torch.matmul(x.float(), p["w_kv_a"].float()).to(x.dtype)
+    c_kv, k_rope = kv_a[..., :m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
+    c_kv = rmsnorm(p["kv_a_norm"], c_kv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    return 1.0 / (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim) ** 0.5
+
+
+def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope, mask):
+    """The absorbed form, float32: W_uk folded into q, scores against the
+    latent, values combined in the latent and decompressed once per query
+    (per-head K is never expanded for the context). mask broadcasts to
+    [B, T, S]. Returns o [B, T, H, v_head_dim] in float32."""
+    q_lat = torch.einsum("bthk,rhk->bthr", q_nope.float(), p["w_uk"].float())
+    s_nope = torch.einsum("bthr,bsr->bhts", q_lat, c_kv.float())
+    s_rope = torch.einsum("bthk,bsk->bhts", q_rope.float(), k_rope.float())
+    logits = (s_nope + s_rope) * _mla_scale(cfg)
+    logits = torch.where(mask[:, None], logits,
+                         torch.tensor(-1e30, dtype=logits.dtype,
+                                      device=logits.device))
+    probs = torch.softmax(logits, dim=-1)
+    o_lat = torch.einsum("bhts,bsr->bthr", probs, c_kv.float())
+    return torch.einsum("bthr,rhv->bthv", o_lat, p["w_uv"].float())
+
+
+def _mla_attend_blockwise(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope):
+    """The explicit form for long prefill and train: per-head K_nope and V
+    decompressed from the latent once, then blockwise attention over
+    (nope + rope)-wide heads (the absorbed form's score work grows with
+    kv_lora_rank, which long sequences cannot afford)."""
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv.float(),
+                          p["w_uk"].float()).to(c_kv.dtype)
+    v = torch.einsum("bsr,rhv->bshv", c_kv.float(),
+                     p["w_uv"].float()).to(c_kv.dtype)
+    h = k_nope.shape[2]
+    k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        k_rope.shape[:2] + (h, k_rope.shape[-1]))], dim=-1)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    return blockwise_attention(q_cat, k_cat, v, True, _mla_scale(cfg), 0, 512)
+
+
+def _mla_full(p, cfg: ArchConfig, x, positions):
+    """MLA over a whole sequence: the output and the latent K/V."""
+    q_nope, q_rope, c_kv, k_rope = _mla_project(p, cfg, x, positions)
+    if x.shape[1] >= BLOCKWISE_MIN_LEN:
+        o = _mla_attend_blockwise(p, cfg, q_nope, q_rope, c_kv, k_rope)
+    else:
+        mask = _causal_mask(x.shape[1], x.shape[1], x.device)
+        o = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, mask)
+    return _out_proj(o.to(x.dtype), p["wo"], x.dtype), c_kv, k_rope
+
+
+def mla_apply(p, cfg: ArchConfig, x, positions) -> torch.Tensor:
+    return _mla_full(p, cfg, x, positions)[0]
+
+
+def mla_make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                   device) -> Params:
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_prefill(p, cfg: ArchConfig, x, positions,
+                max_len: int) -> Tuple[torch.Tensor, Params]:
+    y, c_kv, k_rope = _mla_full(p, cfg, x, positions)
+    t = c_kv.shape[1]
+    cache = mla_make_cache(cfg, x.shape[0], max_len, x.dtype, x.device)
+    cache["c_kv"][:, :t] = c_kv
+    cache["k_rope"][:, :t] = k_rope
+    return y, cache
+
+
+def mla_decode(p, cfg: ArchConfig, x, cache: Params,
+               positions) -> Tuple[torch.Tensor, Params]:
+    """x: [B, 1, D]; positions: [B]. Float on every path: MLA decode never
+    lowers to CiM, in the reference either."""
+    q_nope, q_rope, c_kv, k_rope = _mla_project(p, cfg, x, positions[:, None])
+    bidx = torch.arange(x.shape[0], device=x.device)
+    pos = positions.long()
+    cc, cr = cache["c_kv"].clone(), cache["k_rope"].clone()
+    cc[bidx, pos] = c_kv[:, 0]
+    cr[bidx, pos] = k_rope[:, 0]
+    valid = torch.arange(cc.shape[1], device=x.device)[None, :] \
+        <= positions[:, None]
+    o = _mla_attend(p, cfg, q_nope, q_rope, cc, cr, valid[:, None, :])
+    return _out_proj(o.to(x.dtype), p["wo"], x.dtype), \
+        {"c_kv": cc, "k_rope": cr}

@@ -20,8 +20,11 @@ contractions accumulate in float32 and round to the activation dtype;
 where the reference contracts float32 with a bfloat16 weight (JAX promotes
 to float32: `w_ifo`, `r_gates`, and the biases `b_if`, `b_gates` after the
 model's compute cast), the weight is upcast and the product is float32.
-The reference's `jax.checkpoint` of the chunk body and its `chunked_scan`
-only bound the memory of a backward pass; serving needs neither.
+Both cells train under autograd: the chunkwise mLSTM checkpoints each
+chunk, as the reference's `jax.checkpoint` of its chunk body does; the
+sequential scans are Python loops (the reference's `chunked_scan` only
+bounds its backward pass's memory), and the sLSTM kernel's backward
+reruns its plain version (`kernels.ops.slstm_scan`).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
@@ -131,10 +135,8 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state: State, chunk: int = 256):
     is_, fs = gate_chunks(i_pre), gate_chunks(f_pre)
     causal = torch.tril(torch.ones((L, L), dtype=torch.float32,
                                    device=q.device))
-    c, n, m_in = state["C"], state["n"], state["m"]
-    outs = []
-    for ci in range(nc):
-        qc, kc, vc, ic, fc = qs[ci], ks[ci], vs[ci], is_[ci], fs[ci]
+
+    def chunk_body(c, n, m_in, qc, kc, vc, ic, fc):
         big_f = torch.cumsum(fc, dim=-1)                       # [B, H, L]
         big_d = ic - big_f
         big_m = torch.cummax(big_d, dim=2).values
@@ -148,7 +150,7 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state: State, chunk: int = 256):
         num = alpha[..., None] * torch.einsum("bhkv,bhlk->bhlv", c, qc) \
             + intra
         den = alpha * torch.einsum("bhk,bhlk->bhl", n, qc) + qkw.sum(-1)
-        outs.append(num / torch.clamp(den.abs(), min=1.0)[..., None])
+        h_out = num / torch.clamp(den.abs(), min=1.0)[..., None]
 
         g_l = g[..., -1]                                       # [B, H]
         decay = torch.exp(big_d - g_l[..., None])[..., None]   # [B, H, L, 1]
@@ -156,7 +158,19 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state: State, chunk: int = 256):
         c = beta[..., None, None] * c + torch.einsum("bhsk,bhsv->bhkv",
                                                      kc * decay, vc)
         n = beta[..., None] * n + (kc * decay).sum(2)
-        m_in = big_f[..., -1] + g_l
+        return h_out, c, n, big_f[..., -1] + g_l
+
+    # under autograd each chunk is recomputed in the backward pass, as the
+    # reference checkpoints its chunk body: only the carries stay saved
+    train = torch.is_grad_enabled() and q.requires_grad
+    c, n, m_in = state["C"], state["n"], state["m"]
+    outs = []
+    for ci in range(nc):
+        xs = (qs[ci], ks[ci], vs[ci], is_[ci], fs[ci])
+        h_out, c, n, m_in = (checkpoint(chunk_body, c, n, m_in, *xs,
+                                        use_reentrant=False)
+                             if train else chunk_body(c, n, m_in, *xs))
+        outs.append(h_out)
     hs = torch.stack(outs, 0).movedim(0, 2).reshape(b, h, t, dh)
     return hs.permute(0, 2, 1, 3), {"C": c, "n": n, "m": m_in}
 

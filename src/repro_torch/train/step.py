@@ -45,9 +45,11 @@ def accumulate_grads(model: Model, batch: Dict[str, torch.Tensor],
     caller has cleared): with n_micro > 1 the batch is split along dim 0
     into n parts and `(loss_i / n).backward()` runs on each, so the summed
     `.grad` is the reference's averaged grads and activations are held for
-    one part at a time. Returns the (averaged) loss, ce and aux."""
+    one part at a time. Returns the (averaged) loss, ce and aux, each the
+    mean over the parts as the reference's accumulation scan takes it (aux
+    is the MoE layers' load-balancing loss; 0 without MoE)."""
     n = max(n_micro, 1)
-    rows = batch["tokens"].shape[0]
+    rows = batch["targets"].shape[0]
     if rows % n:
         raise ValueError(f"batch of {rows} rows does not split into {n} "
                          f"microbatches")

@@ -293,3 +293,50 @@ def test_slstm_sm90_kernel_matches_plain_version():
         atol = 1e-5 if t <= 64 else 1e-4
         for got, want in zip([*state, y], [*statep, yp]):
             torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the recurrences' train path: kernel forward, plain-version backward
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, weights):
+    """Every input's gradient of sum(w * out) over `fn`'s outputs."""
+    ins = [a.detach().clone().requires_grad_(True) for a in inputs]
+    outs = fn(*ins)
+    sum(torch.sum(w * o.float()) for w, o in zip(weights, outs)).backward()
+    return [a.grad for a in ins]
+
+
+def test_recurrence_gradients_match_plain_version():
+    """`ops.rglru_scan` and `ops.slstm_scan` under autograd on the card
+    (one kernel launch per forward; the backward reruns the plain version)
+    against the plain version's autograd on the CPU, float32."""
+    x, r, i, ll, h0 = _rglru_inputs(6, 2, 64, 256)
+    gen = torch.Generator().manual_seed(6)
+    w = [torch.randn((2, 64, 256), generator=gen),
+         torch.randn((2, 256), generator=gen)]
+    before = trglru.launches()
+    got = _grads(lambda *a: tops.rglru_scan(*a[:4], h0=a[4]),
+                 (x, r, i, ll, h0), [a.cuda() for a in w])
+    assert trglru.launches() == before + 1
+    want = _grads(lambda *a: tref.rglru_ref(*a[:4], h0=a[4]),
+                  [a.cpu() for a in (x, r, i, ll, h0)], w)
+    for g, gw in zip(got, want):
+        torch.testing.assert_close(g.cpu(), gw, atol=1e-5, rtol=1e-5)
+
+    args = _slstm_inputs(7, 2, 48, 256)
+    w = [torch.randn((2, 48, 256), generator=gen)] + [
+        torch.randn((2, 256), generator=gen) for _ in range(4)]
+
+    def flat(fn):
+        def call(*a):
+            y, state = fn(*a)
+            return (y, *state)
+        return call
+    before = tslstm.launches()
+    got = _grads(flat(tops.slstm_scan), args, [a.cuda() for a in w])
+    assert tslstm.launches() == before + 1
+    want = _grads(flat(tref.slstm_ref), [a.cpu() for a in args], w)
+    for g, gw in zip(got, want):
+        torch.testing.assert_close(g.cpu(), gw, atol=1e-4, rtol=1e-4)
