@@ -172,8 +172,26 @@ Phases, each fatal on failure (nothing is caught):
                launches a step, all on the wgmma/TMA kernel); reduced
                deepseek in float32 on the card against the CPU (prefill, 4
                greedy steps, first-batch loss and gradients, atol 1e-4).
-The launch counts of each serve, banked, analog MLP, adra-faults, train
-and configs path are set to 0 just before it and read just after; the kernel checks'
+  10. mesh  — the mesh slice: (a) the geometry autotuner on gemma-2b's
+               full-width decode MLP through `lower()` over
+               DEFAULT_CANDIDATES, measured (predicted EDP per candidate,
+               measured ms, default and tuned ms, the winner and its
+               launches; tuned <= default; a warm call searches nothing;
+               the winners file round-trips); (b) a one-rank NCCL group
+               and a (1,) "data" mesh: `execute_sharded` of the largest
+               access and the MLP through `lower(mesh=)` on the paper's
+               array equal to the unsharded calls (planes, outputs,
+               ledgers; 81 launches); (c) a (1, 1) mesh: llama3.2-1b
+               trained through the train entry point on DTensor state (2
+               steps of 2 x 2048, losses equal to phase 9's to 1e-6, 32
+               flash launches a step on the wgmma/TMA kernel, peak
+               memory), and `moe_apply_ep` of one full-width
+               deepseek-v2-lite-16b layer (4096 tokens) equal to
+               `moe_apply`'s routed output; (d) one dry-run cell
+               (llama3.2-1b x decode_32k on a 256-rank fake group), its
+               roofline against the H100 row and its seconds.
+The launch counts of each serve, banked, analog MLP, adra-faults, train,
+configs and mesh path are set to 0 just before it and read just after; the kernel checks'
 and timings' own launches are not counted. Earlier lines
 carry the metrics and one JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -3000,6 +3018,234 @@ def configs_agree(dev, steps: int = 4) -> dict:
     return res
 
 
+#: the mesh phase's one-cell dry run (256 fake ranks, 16x16)
+MESH_DRYRUN = ("llama3.2-1b", "decode_32k", "single")
+#: MoE equality on one rank: the routed output of one full-width
+#: deepseek-v2-lite-16b layer, 4096 seeded tokens
+MESH_MOE_TOKENS = (2, 2048)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(dev, llama_losses) -> dict:
+    """The mesh slice on one card:
+      (a) `Autotuner().tune` of gemma-2b's full-width decode MLP through
+          `lower()` over DEFAULT_CANDIDATES, measured: tuned <= default,
+          a warm call with no new search, the winners file round-tripped;
+      (b) a one-rank NCCL process group and a (1,) "data" mesh:
+          `execute_sharded` of the largest access and the MLP through
+          `lower(mesh=)` on the paper's array equal to the unsharded
+          calls, planes, outputs and ledgers, 81 launches a call;
+      (c) on a (1, 1) mesh: llama3.2-1b trained 2 steps at full width
+          through the train entry point on DTensor state (losses equal to
+          the configs phase's unsharded run), and `moe_apply_ep` of one
+          deepseek-v2-lite-16b layer equal to `moe_apply`'s routed output;
+      (d) one dry-run cell on a 256-rank fake group, its roofline printed.
+    The fused and flash launches of (a)-(c) are counted from 0 each."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.cim import array, dispatch, fused_kernel
+    from repro_torch.cim.accounting import LEDGER
+    from repro_torch.cim.autotune import DEFAULT_CANDIDATES, Autotuner
+    from repro_torch.cim.lower import lower
+    from repro_torch.cim.planepack import PlanePack
+    from repro_torch.configs import preset_config
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers, moe, moe_ep
+
+    fused = fused_kernel.fused_planes_op
+    out = {"times": {}}
+    cfg = preset_config("gemma-2b", "full")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    act = cfg.activation_dtype()
+    p = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gating, act, dev)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen, device=dev).to(act)
+
+    def mlp(p_, x_):
+        return layers._mlp_quantized(p_, x_, cfg.gating, 8)
+
+    # (a) the autotuner, measured on the card
+    t = time.perf_counter()
+    tuner = Autotuner()
+    fused.launches = 0
+    res = tuner.tune(mlp, (p, x), candidates=DEFAULT_CANDIDATES,
+                     measure=True)
+    torch.cuda.synchronize()
+    launches_tune = fused.launches
+    assert not res.from_cache and tuner.searches == 1
+    assert res.tuned_ms <= res.default_ms, (res.tuned_ms, res.default_ms)
+    assert res.tuned_vs_default_walltime_ratio >= 1.0
+    warm = tuner.tune(mlp, (p, x), candidates=DEFAULT_CANDIDATES,
+                      measure=True)
+    assert warm.from_cache and warm.winner == res.winner and \
+        tuner.searches == 1
+    path = os.path.join(ROOT, "build", "autotune_winners.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tuner.save(path)
+    fresh = Autotuner()
+    assert fresh.load(path) == 1
+    again = fresh.tune(mlp, (p, x), candidates=DEFAULT_CANDIDATES)
+    assert again.from_cache and again.winner == res.winner and \
+        fresh.searches == 0
+    fused.launches = 0
+    win = lower(mlp, spec=res.winner.spec(), policy="always")
+    y_win = win(p, x)
+    torch.cuda.synchronize()
+    winner_launches = fused.launches
+    assert torch.equal(y_win, mlp(p, x))
+    out["autotune"] = {
+        "predicted_edp": res.predicted_edp, "measured_ms": res.measured_ms,
+        "default_ms": res.default_ms, "tuned_ms": res.tuned_ms,
+        "winner": repr(res.winner), "winner_launches": winner_launches,
+        "walltime_ratio": res.tuned_vs_default_walltime_ratio,
+        "edp_ratio": res.tuned_vs_default_edp_ratio,
+        "launches": launches_tune}
+    out["times"]["autotune"] = time.perf_counter() - t
+    for name, edp in res.predicted_edp.items():
+        print(f"mesh[autotune]: predicted_edp {edp:.6g} "
+              f"measured_ms {res.measured_ms.get(name)} {name}")
+    print(f"mesh[autotune]: default_ms {res.default_ms:.3f} tuned_ms "
+          f"{res.tuned_ms:.3f} (ratio {res.tuned_vs_default_walltime_ratio:.3f},"
+          f" edp ratio {res.tuned_vs_default_edp_ratio:.3f}); winner "
+          f"{res.winner!r}, {winner_launches} fused launches a call; "
+          f"{launches_tune} launches in the search; warm: 0 new searches; "
+          f"winners file round-tripped; {out['times']['autotune']:.1f} s")
+
+    # (b) a one-rank NCCL group: the tiled access and lower() over a mesh
+    t = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_mesh((1,), ("data",), "cuda")
+        spec = array.DEFAULT_SPEC
+        n_bits, w = 29, (2 * 16384 * 2048) // 32
+
+        def planes():
+            return torch.randint(-2 ** 31, 2 ** 31, (n_bits, w),
+                                 dtype=torch.int32, device=dev,
+                                 generator=gen)
+        pa = PlanePack(planes(), n_bits, True, (w * 32,))
+        pb = PlanePack(planes(), n_bits, True, (w * 32,))
+        ledgers, outs, access_launches = [], [], []
+        for m in (None, mesh):
+            LEDGER.reset()
+            fused.launches = 0
+            o = (dispatch.execute_tiled(pa, pb, ("add",), spec=spec)
+                 if m is None else
+                 dispatch.execute_sharded(pa, pb, ("add",), m, spec=spec))
+            torch.cuda.synchronize()
+            access_launches.append(fused.launches)
+            outs.append(o["add"].planes)
+            ledgers.append(dataclasses.asdict(LEDGER))
+        assert torch.equal(outs[0], outs[1])
+        assert ledgers[0] == ledgers[1], (ledgers[0], ledgers[1])
+        assert access_launches == [1, 1], access_launches
+        mlp_res = []
+        for m in (None, mesh):
+            LEDGER.reset()
+            dispatch.clear_schedule_cache()
+            fused.launches = 0
+            y = lower(mlp, spec=spec, policy="always", mesh=m)(p, x)
+            torch.cuda.synchronize()
+            mlp_res.append((y, dataclasses.asdict(LEDGER), fused.launches))
+        assert torch.equal(mlp_res[0][0], mlp_res[1][0])
+        assert mlp_res[0][1] == mlp_res[1][1]
+        assert mlp_res[0][2] == mlp_res[1][2] == 81, \
+            (mlp_res[0][2], mlp_res[1][2])
+        out["sharded"] = {"access_accesses": ledgers[1]["accesses"],
+                          "access_launches": access_launches[1],
+                          "mlp_accesses": mlp_res[1][1]["accesses"],
+                          "mlp_launches": mlp_res[1][2]}
+        out["launches_mesh"] = access_launches[1] + mlp_res[1][2]
+        out["times"]["sharded"] = time.perf_counter() - t
+        print(f"mesh[sharded]: execute_sharded of {n_bits} planes x {w} "
+              f"columns on a (1,) data mesh: planes and ledger equal to the "
+              f"unsharded call ({ledgers[1]['accesses']} activations, "
+              f"{access_launches[1]} launch); "
+              f"gemma-2b MLP through lower(mesh=): output and ledger equal, "
+              f"{mlp_res[1][1]['accesses']} accesses, {mlp_res[1][2]} "
+              f"launches; {out['times']['sharded']:.1f} s")
+
+        # (c) llama3.2-1b on DTensor state over a (1, 1) mesh
+        t = time.perf_counter()
+        del pa, pb, outs, mlp_res
+        held = _free(dev)
+        assert held < 2 ** 30, f"{held} bytes still allocated"
+        fm.flash_attention_sm90.launches = 0
+        fm.flash_attention_simt.launches = 0
+        fused.launches = 0
+        trep = train.main(CONFIG_TRAIN)
+        losses = [r["loss"] for r in trep["records"]]
+        assert trep["restarts"] == 0 and len(losses) == 2
+        assert max(abs(a - b) for a, b in zip(losses, llama_losses)) <= \
+            1e-6, (losses, llama_losses)
+        assert fm.flash_attention_sm90.launches == fm.launches() == 64
+        assert fused.launches == 0
+        out["train"] = {"losses": losses, "unsharded": llama_losses,
+                        "step_ms": [r["ms"] for r in trep["records"]],
+                        "peak_gib": trep["peak_gib"],
+                        "flash_launches": fm.launches()}
+        out["times"]["train"] = time.perf_counter() - t
+        print(f"mesh[train]: llama3.2-1b on a (1, 1) mesh, DTensor state: "
+              f"losses {losses} (unsharded {llama_losses}); step ms "
+              f"{[round(r['ms'], 2) for r in trep['records']]}; "
+              f"{fm.launches()} flash launches (32 a step, wgmma/TMA); "
+              f"peak {trep['peak_gib']:.2f} GiB; "
+              f"{out['times']['train']:.1f} s")
+        del trep
+        _free(dev)
+
+        t = time.perf_counter()
+        mcfg = preset_config("deepseek-v2-lite-16b", "full")
+        mcfg = dataclasses.replace(
+            mcfg, moe=dataclasses.replace(mcfg.moe, n_shared=0))
+        mgen = torch.Generator(device=dev).manual_seed(0)
+        mp = moe.moe_init(mgen, mcfg, mcfg.activation_dtype(), dev)
+        xm = torch.randn(MESH_MOE_TOKENS + (mcfg.d_model,), generator=mgen,
+                         device=dev).to(mcfg.activation_dtype())
+        mesh2 = make_mesh((1, 1), ("data", "model"), "cuda")
+        with torch.no_grad():
+            want, _ = moe.moe_apply(mp, mcfg, xm)
+            got = moe_ep.moe_apply_ep(mp, mcfg, xm, mesh2)
+        moe_err = float((got.float() - want.float()).abs().max())
+        assert moe_err <= 1e-6, moe_err
+        out["moe"] = {"max_abs_err": moe_err, "bit_equal":
+                      bool(torch.equal(got, want)),
+                      "tokens": MESH_MOE_TOKENS[0] * MESH_MOE_TOKENS[1]}
+        out["times"]["moe"] = time.perf_counter() - t
+        print(f"mesh[moe]: moe_apply_ep on a (1, 1) mesh, deepseek-v2-lite-"
+              f"16b, {out['moe']['tokens']} tokens: max |diff| {moe_err:.3e} "
+              f"against moe_apply (bit-equal {out['moe']['bit_equal']})")
+        del mp, xm, want, got
+    finally:
+        dist.destroy_process_group()
+    _free(dev)
+
+    # (d) one dry-run cell on 256 fake ranks
+    t = time.perf_counter()
+    arch, shape, mesh_name = MESH_DRYRUN
+    cell = dryrun.run_cell(arch, shape, mesh_name,
+                           os.path.join(ROOT, "build", "dryrun"), force=True)
+    assert cell.get("status") == "ok", cell.get("traceback")
+    out["dryrun"] = {"roofline": cell["roofline"],
+                     "seconds": time.perf_counter() - t,
+                     "trace_seconds": cell["compile_seconds"],
+                     "memory": cell["memory"],
+                     "collectives": cell["collectives"]}
+    print(f"mesh[dryrun]: {arch} x {shape} x {mesh_name}: "
+          f"{json.dumps(cell['roofline'])}; {out['dryrun']['seconds']:.2f} s")
+    return out
+
+
 def phase_profile(m, dev, max_len: int, position: int) -> None:
     """One decode step at 2 slots under torch.profiler (after one warm-up
     step, which pins a resident model's weights): device time by PyTorch op
@@ -3161,6 +3407,11 @@ def main() -> int:
     phases["configs_s"] = time.perf_counter() - t
     for k, v in conf["times"].items():
         phases[f"configs_{k}"] = v
+    t = time.perf_counter()
+    mesh = phase_mesh(dev, conf["train"]["losses"])
+    phases["mesh_s"] = time.perf_counter() - t
+    for k, v in mesh["times"].items():
+        phases[f"mesh_{k}"] = v
 
     print("phases: " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
     fused = {"name": "fused_planes", "route": "cuda",
@@ -3168,8 +3419,11 @@ def main() -> int:
              "replaces": "src/repro/cim/fused_kernel.py:137",
              "launches": sum(r["fused_launches"] for r in runs.values())
              + banked["launches"] + low["launches"] + adra["launches"]
-             + ana["launches"] + conf["fused_launches"],
+             + ana["launches"] + conf["fused_launches"]
+             + mesh["launches_mesh"] + mesh["autotune"]["launches"],
              "launches_banked": banked["launches"],
+             "launches_mesh": mesh["launches_mesh"],
+             "launches_autotune": mesh["autotune"]["launches"],
              "launches_lower": low["launches"],
              "launches_analog": ana["launches"],
              "launches_adra_faults": adra["launches"],
@@ -3187,7 +3441,9 @@ def main() -> int:
              "adra_faults": {k: adra[k] for k in (
                  "paper", "sampler", "chaos", "failover")},
              "analog": {k: ana[k] for k in (
-                 "full_width", "mlp", "tiled", "analyze")}}
+                 "full_width", "mlp", "tiled", "analyze")},
+             "autotune": mesh["autotune"], "sharded": mesh["sharded"],
+             "moe_ep": mesh["moe"]}
     # the main path's RG-LRU launches: the hybrid's CiM serve, its float
     # prefill phase and the configs phase's training, per kernel
     rec_launches = {k: runs["recurrentgemma-9b"]["rglru_launches"][k]
@@ -3261,10 +3517,13 @@ def main() -> int:
              "max_abs_err_simt_bf16": fl["max_abs_err_simt_bf16"],
              "o_rel_l2": fl["o_rel_l2"], "o_rel_l2_simt": fl["o_rel_l2_simt"],
              "ms_again": fl["ms_again"],
-             "launches": tr["flash_launches"] + conf["flash_launches"],
+             "launches": tr["flash_launches"] + conf["flash_launches"]
+             + mesh["train"]["flash_launches"],
              "launches_gemma_train": tr["flash_launches"],
              "launches_llama_train": conf["flash_launches"],
-             "launches_sm90": tr["sm90_launches"] + conf["flash_launches"],
+             "launches_mesh": mesh["train"]["flash_launches"],
+             "launches_sm90": tr["sm90_launches"] + conf["flash_launches"]
+             + mesh["train"]["flash_launches"],
              "launches_simt": tr["simt_launches"],
              "max_abs_err": fl["max_abs_err"],
              "ms": fl["ms"], "plain_ms": fl["plain_ms"],
@@ -3273,7 +3532,9 @@ def main() -> int:
              "dtype": "bfloat16",
              "float32": fl["float32"], "llama_train": fl["llama_train"],
              "launches_per_step": tr["per_step"],
-             "train_agree": tra}
+             "train_agree": tra, "mesh_train": mesh["train"]}
+    print("mesh: " + json.dumps({k: mesh[k] for k in (
+        "sharded", "train", "moe", "dryrun")}))
     print("configs: " + json.dumps({k: conf[k] for k in (
         "peak_gib", "serve", "train", "agree", "recurrent_train",
         "recurrent_agree")}))

@@ -15,6 +15,17 @@ at first use into `build/repro_torch_kernels/`. The serve entry point is
 """
 import torch
 
+#: devices whose tensors take a kernel's plain PyTorch version: the CPU
+#: (tests, rehearsals) and `meta` (the dry run's tensors, shapes and dtypes
+#: only). A CUDA tensor is never among them: it launches its kernel or
+#: raises.
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def takes_plain(t: torch.Tensor) -> bool:
+    """Whether `t` takes a kernel's plain version (`PLAIN_DEVICES`)."""
+    return t.device.type in PLAIN_DEVICES
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `cuda` by default; raises when

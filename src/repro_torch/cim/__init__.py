@@ -32,12 +32,15 @@
   cost         — spec-driven cost model: DeviceSpec host roofline (an H100
                  SXM row by default) vs CiM energy/latency/EDP per op, and
                  the offload policy that decides whether lowering pays
+  autotune     — geometry/bits autotuner: cost-model-pruned, walltime-
+                 confirmed search with a bounded, JSON-persisted winners table
   lower        — the lowering compiler: fuse eligible node runs into region
                  Schedules, run each as one dispatch through ChainExecutor,
                  run the rest on the host
 """
 from . import (  # noqa: F401
     accounting,
+    autotune,
     array,
     backends,
     cost,
@@ -64,6 +67,7 @@ from .array import (  # noqa: F401
     set_current_spec,
     set_resident_ecc,
 )
+from .autotune import Autotuner, Candidate, TuneResult  # noqa: F401
 from .faults import (  # noqa: F401
     FaultConfig,
     FaultModel,

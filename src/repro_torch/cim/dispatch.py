@@ -8,14 +8,20 @@ grid, as the reference's vmap does — and stitches the outputs back
 together. It is bit-exact with the untiled engine: elementwise CiM ops touch
 each word independently and tiles cut the packed lane axis on uint32
 boundaries. The ledger is charged one activation per tile, attributed to
-its (device, bank) slot. A mesh (the reference's shard_map path) is refused.
-An installed fault model corrupts the streamed operands of the eager
-`execute_tiled` (BER flips and the stuck-at rows of the banks its tiles land
-on); the traced form a schedule program runs never injects.
+its (device, bank) slot. With a mesh (a `DeviceMesh` of
+`repro_torch.launch.mesh`, the reference's shard_map path), the tile axis
+is padded to a multiple of the `axis` size and block-distributed over its
+ranks: each rank runs its own block of tiles through the backend on its
+device, the raw output planes are all-gathered over the axis, and every
+rank's ledger is charged the whole access with each tile on its
+(device, bank) slot, as the reference's one controller charges it. An
+installed fault model corrupts the streamed operands of the eager
+`execute_tiled` (BER flips and the stuck-at rows of the banks its tiles
+land on); the traced form a schedule program runs never injects.
 
 The module also holds the compiled-schedule cache: a bounded LRU of
 programs keyed by schedule structure. It holds the per-access tiled
-programs built here (key: ops, n_bits, tile shape, backend) and the
+programs built here (key: ops, n_bits, tile shape, backend, mesh) and the
 whole-schedule programs of `repro_torch.cim.macro` (one `CompiledSchedule`
 per key). `cache_stats()` exposes hit/miss/eviction counters and
 `dispatches`, the number of program invocations — the deterministic
@@ -164,19 +170,47 @@ def program_cache_put(key, prog) -> None:
     _PROGRAMS.put(key, prog)
 
 
-def _tiled_program(ops, bk: Backend):
+def _mesh_axis(mesh, axis: str):
+    """(size, this rank's coordinate) of the mesh axis the tiles spread
+    over; a mesh without it is refused."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if axis not in names:
+        raise opset.CimOpError(f"mesh has axes {names}, no {axis!r}")
+    return mesh.size(names.index(axis)), mesh.get_local_rank(axis)
+
+
+def _tiled_program(ops, bk: Backend, mesh=None, axis: Optional[str] = None):
     """One access over a whole tile stack: the backend's own [T, n, lanes]
-    form (the fused kernel's grid walks the tile axis)."""
-    return lambda ta, tb: bk(ta, tb, ops)
+    form (the fused kernel's grid walks the tile axis). With a mesh, this
+    rank's block of the tiles, then the raw planes all-gathered over
+    `axis`."""
+    if mesh is None:
+        return lambda ta, tb: bk(ta, tb, ops)
+    from torch.distributed.tensor import DTensor, Shard
+
+    n_dev, coord = _mesh_axis(mesh, axis)
+    sub = mesh[axis]
+
+    def run(ta, tb):
+        per = ta.shape[0] // n_dev
+        local = bk(ta[coord * per:(coord + 1) * per],
+                   tb[coord * per:(coord + 1) * per], ops)
+        return tuple(DTensor.from_local(r.contiguous(), sub, [Shard(0)],
+                                        run_check=False).full_tensor()
+                     for r in local)
+    return run
 
 
-def _cached_program(ops, n_bits: int, tile_shape: tuple, bk: Backend):
+def _cached_program(ops, n_bits: int, tile_shape: tuple, bk: Backend,
+                    mesh=None, axis: Optional[str] = None):
     """The tiled program of one schedule key. The bank count is not part of
-    the key: the same tile shape is the same program."""
-    key = (ops, n_bits, tile_shape, bk.name, None)
+    the key: the same tile shape is the same program. The mesh is (two
+    meshes of the same shape over other ranks must not share one)."""
+    key = (ops, n_bits, tile_shape, bk.name,
+           None if mesh is None else (mesh, axis))
     prog = program_cache_get(key)
     if prog is None:
-        prog = _tiled_program(ops, bk)
+        prog = _tiled_program(ops, bk, mesh, axis)
         program_cache_put(key, prog)
     return prog
 
@@ -186,18 +220,22 @@ def _cached_program(ops, n_bits: int, tile_shape: tuple, bk: Backend):
 # ---------------------------------------------------------------------------
 
 
-def _tile(planes: torch.Tensor, plan: TilePlan) -> torch.Tensor:
-    """[n_bits, W] -> contiguous [n_tiles, n_bits, lanes_per_tile], the last
-    tile's pad lanes zero: one pass over the planes."""
+def _tile(planes: torch.Tensor, plan: TilePlan,
+          n_tiles: Optional[int] = None) -> torch.Tensor:
+    """[n_bits, W] -> contiguous [n_tiles, n_bits, lanes_per_tile]
+    (`n_tiles` defaults to the plan's; the last tile's pad lanes and any
+    pad tiles are zero): one pass over the planes."""
     n_bits, w = planes.shape
     lanes = plan.lanes_per_tile
+    n_tiles = plan.n_tiles if n_tiles is None else n_tiles
     full = w // lanes
-    out = planes.new_empty((plan.n_tiles, n_bits, lanes))
+    out = planes.new_empty((n_tiles, n_bits, lanes))
     if full:
         out[:full].copy_(planes[:, :full * lanes]
                          .reshape(n_bits, full, lanes).transpose(0, 1))
-    if full < plan.n_tiles:
+    if full < n_tiles:
         out[full:].zero_()
+    if full * lanes < w:
         out[full, :, :w - full * lanes].copy_(planes[:, full * lanes:])
     return out
 
@@ -221,18 +259,22 @@ def _untile(raw: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def _prepare_tiles(a: PlanePack, b: PlanePack, ops: Sequence[str],
-                   spec: Optional[ArraySpec], mesh):
+                   spec: Optional[ArraySpec], mesh, axis: str):
     """The shared front half of the tiled paths: operand alignment, the
-    rows budget beside the resident region, placement and tile stacks."""
+    rows budget beside the resident region, placement and tile stacks (the
+    tile axis padded to a multiple of the mesh axis; pad tiles hold no
+    operands and are not charged)."""
+    n_devices = 1
     if mesh is not None:
-        raise opset.CimOpError(
-            "the port's dispatcher runs on one device: mesh must be None")
+        n_devices = _mesh_axis(mesh, axis)[0]
     a, b, ops = engine.prepare_operands(a, b, ops)
     spec = spec or DEFAULT_SPEC
     spec.check_fits(a.n_bits, ops,
                     resident_rows=array_mod.resident_rows_for(spec))
     plan = spec.plan(a.n_words)
-    return a, b, ops, plan, _tile(a.planes, plan), _tile(b.planes, plan)
+    exec_tiles = -(-plan.n_tiles // n_devices) * n_devices
+    return (a, b, ops, plan, n_devices, _tile(a.planes, plan, exec_tiles),
+            _tile(b.planes, plan, exec_tiles))
 
 
 def _fault_overlay(a: PlanePack, b: PlanePack, plan: TilePlan, ta, tb):
@@ -247,10 +289,10 @@ def _fault_overlay(a: PlanePack, b: PlanePack, plan: TilePlan, ta, tb):
     pb, nb = fm.corrupt_streamed(b.planes, plan)
     if na:
         a = dataclasses.replace(a, planes=pa)
-        ta = _tile(a.planes, plan)
+        ta = _tile(a.planes, plan, ta.shape[0])
     if nb:
         b = dataclasses.replace(b, planes=pb)
-        tb = _tile(b.planes, plan)
+        tb = _tile(b.planes, plan, tb.shape[0])
     return a, b, ta, tb
 
 
@@ -263,31 +305,48 @@ def _wrap_tiled(a: PlanePack, ops, raws) -> engine.Outputs:
 def execute_tiled(a: PlanePack, b: PlanePack, ops: Sequence[str],
                   spec: Optional[ArraySpec] = None,
                   backend: Optional[str] = None,
-                  mesh=None) -> engine.Outputs:
+                  mesh=None, axis: str = "data") -> engine.Outputs:
     """One logical ADRA access on a banked array (the paper's DEFAULT_SPEC
-    when `spec` is None): bank-sized tiles, one backend call over them all.
+    when `spec` is None): bank-sized tiles, one backend call over them all
+    (with `mesh`, one per rank of its `axis` over its block of tiles).
 
     Bit-exact with `engine.execute`; the ledger is charged one activation
     per tile, attributed to its (device, bank), and the last tile's idle
     columns as activated-but-idle words. One dispatch."""
-    a, b, ops, plan, ta, tb = _prepare_tiles(a, b, ops, spec, mesh)
+    a, b, ops, plan, n_devices, ta, tb = _prepare_tiles(a, b, ops, spec,
+                                                        mesh, axis)
     a, b, ta, tb = _fault_overlay(a, b, plan, ta, tb)
     bk = get_backend(backend)
-    raws = _cached_program(ops, a.n_bits, tuple(ta.shape[1:]), bk)(ta, tb)
+    raws = _cached_program(ops, a.n_bits, tuple(ta.shape[1:]), bk, mesh,
+                           axis if mesh is not None else None)(ta, tb)
     count_dispatch()      # invoke first, account after (as CompiledSchedule)
-    LEDGER.charge_banked(ops, a.n_bits, a.n_words, plan)
+    LEDGER.charge_banked(ops, a.n_bits, a.n_words, plan, n_devices=n_devices)
     return _wrap_tiled(a, ops, raws)
 
 
 def execute_tiled_traced(a: PlanePack, b: PlanePack, ops: Sequence[str],
                          spec: Optional[ArraySpec] = None,
                          backend: Optional[str] = None, mesh=None,
+                         axis: str = "data",
                          charges: Optional[list] = None) -> engine.Outputs:
     """The side-effect-free inner form of `execute_tiled` for a schedule
     program: no cache lookup, no dispatch count, no ledger mutation. With
     `charges`, appends the record `execute_tiled` would have charged."""
-    a, _, ops, plan, ta, tb = _prepare_tiles(a, b, ops, spec, mesh)
-    raws = _tiled_program(ops, get_backend(backend))(ta, tb)
+    a, _, ops, plan, n_devices, ta, tb = _prepare_tiles(a, b, ops, spec,
+                                                        mesh, axis)
+    raws = _tiled_program(ops, get_backend(backend), mesh,
+                          axis if mesh is not None else None)(ta, tb)
     if charges is not None:
-        charges.append(("banked", ops, a.n_bits, a.n_words, plan, 1))
+        charges.append(("banked", ops, a.n_bits, a.n_words, plan,
+                        n_devices))
     return _wrap_tiled(a, ops, raws)
+
+
+def execute_sharded(a: PlanePack, b: PlanePack, ops: Sequence[str], mesh,
+                    spec: Optional[ArraySpec] = None,
+                    backend: Optional[str] = None,
+                    axis: str = "data") -> engine.Outputs:
+    """`execute_tiled` with a mandatory mesh (the multi-device entry point —
+    make_smoke_mesh / make_production_mesh from repro_torch.launch.mesh)."""
+    return execute_tiled(a, b, ops, spec=spec, backend=backend,
+                         mesh=mesh, axis=axis)

@@ -30,7 +30,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch import kernel_build
+from repro_torch import kernel_build, takes_plain
 from . import opset
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_planes.cu"
@@ -146,7 +146,7 @@ def fused_planes_op(a_planes: torch.Tensor, b_planes: torch.Tensor,
     if a_planes.device != b_planes.device:
         raise opset.CimOpError(
             f"operands on {a_planes.device} and {b_planes.device}")
-    if a_planes.device.type == "cpu":
+    if takes_plain(a_planes):
         return fused_planes_op_ref(a_planes, b_planes, ops)
     if a_planes.device.type != "cuda":
         raise opset.CimOpError(

@@ -373,10 +373,11 @@ class LoweredComputation:
                  spec: Optional[ArraySpec] = None,
                  resident_leaf_idx: Tuple[int, ...] = (),
                  resident_set=None, policy: Optional[str] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.trace = tr
         self.backend = backend
         self.spec = spec
+        self.mesh = mesh
         self.resident_leaf_idx = tuple(resident_leaf_idx)
         # resident_set=None -> the registry set for `spec`: resolved fresh
         # on every execute (clear_resident() replaces the registry object;
@@ -652,7 +653,7 @@ class LoweredComputation:
             body = self._region_body(region, device)
         outs = macro.run_schedule_program(
             schedule, body, leaves, body_key=body_key, backend=self.backend,
-            spec=self.spec)
+            spec=self.spec, mesh=self.mesh)
         del leaves
         for j in dead:
             env.pop(region.in_atoms[j], None)
@@ -884,10 +885,11 @@ class LoweredFunction:
                  spec: Optional[ArraySpec] = None,
                  resident_argnums: Tuple[int, ...] = (),
                  resident_set=None, policy: Optional[str] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.fn = fn
         self.backend = backend
         self.spec = spec
+        self.mesh = mesh
         self.resident_argnums = tuple(resident_argnums)
         self.resident_set = resident_set
         self.policy = cost_mod.normalize_policy(policy)
@@ -923,7 +925,7 @@ class LoweredFunction:
                 spec=self.spec,
                 resident_leaf_idx=self._resident_leaf_idx(args),
                 resident_set=self.resident_set, policy=self.policy,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
             self._cache[key] = comp
             while len(self._cache) > SIGNATURE_CACHE_CAPACITY:
                 self._cache.popitem(last=False)
@@ -947,7 +949,9 @@ def lower(fn, backend: Optional[str] = None,
     spec    : optional banked ArraySpec: region accesses tile over banks
               through the dispatch layer and the ledger charges per
               (device, bank) activations.
-    mesh    : not ported (ROADMAP A12); anything but None raises.
+    mesh    : optional DeviceMesh forwarded to the tiling dispatcher: on a
+              banked `spec`, each region access spreads its tiles over the
+              mesh's "data" axis (`dispatch.execute_tiled`).
     resident_argnums : argument positions whose (pure) derivatives may be
               pinned in the resident region: region inputs derived solely
               from these arguments skip their per-call entry pack once
@@ -964,10 +968,7 @@ def lower(fn, backend: Optional[str] = None,
     device  : DeviceSpec for the host side of the comparison
               (cost.DEFAULT_DEVICE, an H100 SXM, when None).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "lower(mesh=...) waits for the mesh port (ROADMAP A12)")
     return LoweredFunction(fn, backend=backend, spec=spec,
                            resident_argnums=resident_argnums,
                            resident_set=resident_set, policy=policy,
-                           device=device)
+                           device=device, mesh=mesh)

@@ -55,7 +55,8 @@ class ScheduleCursor:
     """Executes a Schedule one access at a time, refusing to deviate.
 
     With a `spec` every access runs through the banked tiling dispatcher
-    and costs `plan.n_tiles` activations. With `charges` (a list) the
+    and costs `plan.n_tiles` activations; a `mesh` spreads the tiles over
+    its "data" axis (`dispatch.execute_tiled`). With `charges` (a list) the
     cursor is in traced mode: accesses run through the side-effect-free
     `execute_traced` forms and every planned charge is appended to
     `charges`, the record `run_schedule_program` replays per call; without
@@ -63,11 +64,12 @@ class ScheduleCursor:
 
     def __init__(self, schedule: planner.Schedule,
                  backend: Optional[str] = None,
-                 spec: Optional[ArraySpec] = None,
+                 spec: Optional[ArraySpec] = None, mesh=None,
                  charges: Optional[list] = None):
         self.schedule = schedule
         self.backend = backend
         self.spec = spec
+        self.mesh = mesh
         self.charges = charges
         self._i = 0
 
@@ -93,11 +95,12 @@ class ScheduleCursor:
                                              charges=self.charges)
             return dispatch.execute_tiled_traced(
                 a, b, step.ops, spec=self.spec, backend=self.backend,
+                mesh=self.mesh,
                 charges=self.charges)
         if self.spec is None:
             return engine.execute(a, b, step.ops, backend=self.backend)
         return dispatch.execute_tiled(a, b, step.ops, spec=self.spec,
-                                      backend=self.backend)
+                                      backend=self.backend, mesh=self.mesh)
 
     def charge_reduction(self, words32: float) -> None:
         """Inter-bank reduction traffic of one strided step."""
@@ -174,7 +177,7 @@ def _leaf_sig(x) -> Tuple:
 
 def run_schedule_program(schedule: planner.Schedule, body, operands,
                          body_key=(), backend: Optional[str] = None,
-                         spec: Optional[ArraySpec] = None):
+                         spec: Optional[ArraySpec] = None, mesh=None):
     """Execute `body(cursor, *operands)` as ONE schedule program.
 
     Cached in the dispatch layer's bounded LRU under the schedule, the body
@@ -188,13 +191,14 @@ def run_schedule_program(schedule: planner.Schedule, body, operands,
     bk_name = get_backend(backend).name
     leaves = tuple(operands)
     key = ("step-program", schedule, tuple(body_key),
-           tuple(_leaf_sig(x) for x in leaves), bk_name, spec)
+           tuple(_leaf_sig(x) for x in leaves), bk_name, spec, mesh)
     prog = dispatch.program_cache_get(key)
     if prog is not None:
         return prog(*leaves)
 
     def run(charges: list, *args):
-        cur = ScheduleCursor(schedule, bk_name, spec=spec, charges=charges)
+        cur = ScheduleCursor(schedule, bk_name, spec=spec, mesh=mesh,
+                             charges=charges)
         out = body(cur, *args)
         cur.finish()
         return out
@@ -281,7 +285,7 @@ def _multiply_with(cur: ScheduleCursor, a: PlanePack,
 
 
 def multiply(a: PlanePack, b: PlanePack, backend: Optional[str] = None,
-             spec: Optional[ArraySpec] = None) -> PlanePack:
+             spec: Optional[ArraySpec] = None, mesh=None) -> PlanePack:
     """Exact product, (n_a + n_b)-plane result, 2*n_b - 1 accesses (times
     the tile count on a banked `spec`) — one dispatch."""
     if a.shape != b.shape:
@@ -290,7 +294,7 @@ def multiply(a: PlanePack, b: PlanePack, backend: Optional[str] = None,
                                          signed_b=b.signed), spec, a.n_words)
     return run_schedule_program(sched, _multiply_with, (a, b),
                                 body_key=("multiply",), backend=backend,
-                                spec=spec)
+                                spec=spec, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -319,38 +323,38 @@ def _maximum_with(cur: ScheduleCursor, a: PlanePack,
 
 
 def abs_(a: PlanePack, backend: Optional[str] = None,
-         spec: Optional[ArraySpec] = None) -> PlanePack:
+         spec: Optional[ArraySpec] = None, mesh=None) -> PlanePack:
     """|a| in one access: (0 - a, 0 < a) together, then select a vs -a. The
     result has n+1 planes, so abs(INT_MIN) is exact."""
     sched = _place(planner.plan_abs(a.n_bits), spec, a.n_words)
     return run_schedule_program(sched, _abs_with, (a,), body_key=("abs",),
-                                backend=backend, spec=spec)
+                                backend=backend, spec=spec, mesh=mesh)
 
 
 def relu(a: PlanePack, backend: Optional[str] = None,
-         spec: Optional[ArraySpec] = None) -> PlanePack:
+         spec: Optional[ArraySpec] = None, mesh=None) -> PlanePack:
     """max(a, 0) in one access: the a > 0 predicate gates the writeback."""
     sched = _place(planner.plan_relu(a.n_bits), spec, a.n_words)
     return run_schedule_program(sched, _relu_with, (a,), body_key=("relu",),
-                                backend=backend, spec=spec)
+                                backend=backend, spec=spec, mesh=mesh)
 
 
 def minimum(a: PlanePack, b: PlanePack, backend: Optional[str] = None,
-            spec: Optional[ArraySpec] = None) -> PlanePack:
+            spec: Optional[ArraySpec] = None, mesh=None) -> PlanePack:
     sched = _place(planner.plan_minimum(max(a.n_bits, b.n_bits)), spec,
                    a.n_words)
     return run_schedule_program(sched, _minimum_with, (a, b),
                                 body_key=("minimum",), backend=backend,
-                                spec=spec)
+                                spec=spec, mesh=mesh)
 
 
 def maximum(a: PlanePack, b: PlanePack, backend: Optional[str] = None,
-            spec: Optional[ArraySpec] = None) -> PlanePack:
+            spec: Optional[ArraySpec] = None, mesh=None) -> PlanePack:
     sched = _place(planner.plan_maximum(max(a.n_bits, b.n_bits)), spec,
                    a.n_words)
     return run_schedule_program(sched, _maximum_with, (a, b),
                                 body_key=("maximum",), backend=backend,
-                                spec=spec)
+                                spec=spec, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -372,13 +376,13 @@ def _popcount_with(cur: ScheduleCursor, a: PlanePack) -> PlanePack:
 
 
 def popcount(a: PlanePack, backend: Optional[str] = None,
-             spec: Optional[ArraySpec] = None) -> PlanePack:
+             spec: Optional[ArraySpec] = None, mesh=None) -> PlanePack:
     """Set bits of each word's n-bit two's-complement pattern: pairwise
     plane tree, n - 1 add accesses."""
     sched = _place(planner.plan_popcount(a.n_bits), spec, a.n_words)
     return run_schedule_program(sched, _popcount_with, (a,),
                                 body_key=("popcount",), backend=backend,
-                                spec=spec)
+                                spec=spec, mesh=mesh)
 
 
 def _reduce_with(cur: ScheduleCursor, acc: PlanePack,
@@ -414,14 +418,14 @@ def _reduce_sum_body(cur: ScheduleCursor, a: PlanePack) -> PlanePack:
 
 
 def reduce_sum(a: PlanePack, backend: Optional[str] = None,
-               spec: Optional[ArraySpec] = None) -> PlanePack:
+               spec: Optional[ArraySpec] = None, mesh=None) -> PlanePack:
     """Sum of ALL logical elements, ceil(log2(n_words)) accesses; returns a
     scalar-shaped pack (element 0 of the tree)."""
     sched = _place(planner.plan_reduce_sum(a.n_words, stride=1,
                                            n_bits=a.n_bits), spec, a.n_words)
     return run_schedule_program(sched, _reduce_sum_body, (a,),
                                 body_key=("reduce_sum",), backend=backend,
-                                spec=spec)
+                                spec=spec, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -510,7 +514,7 @@ def _contract_with(cur: ScheduleCursor, a2: torch.Tensor, b3, m: int,
 def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
            n_bits: int = 8, backend: Optional[str] = None,
            spec: Optional[ArraySpec] = None,
-           b_pack: Optional[PlanePack] = None) -> torch.Tensor:
+           b_pack: Optional[PlanePack] = None, mesh=None) -> torch.Tensor:
     """Exact intN x intN -> int32 matmul through the CiM array.
 
     a : int [M, K], b : int [K, N], entries representable in n_bits signed.
@@ -538,7 +542,7 @@ def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
         return run_schedule_program(
             sched, body_res, (a, b_pack),
             body_key=("matmul", n_bits, "resident"),
-            backend=backend, spec=spec)
+            backend=backend, spec=spec, mesh=mesh)
     if b is None or b.dim() != 2 or int(b.shape[0]) != k:
         raise CimOpError(f"matmul needs [M,K] x [K,N], got {tuple(a.shape)} "
                          f"{None if b is None else tuple(b.shape)}")
@@ -553,13 +557,14 @@ def matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
 
     return run_schedule_program(sched, body, (a, b),
                                 body_key=("matmul", n_bits),
-                                backend=backend, spec=spec)
+                                backend=backend, spec=spec, mesh=mesh)
 
 
 def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
                    n_bits: int = 8, backend: Optional[str] = None,
                    spec: Optional[ArraySpec] = None,
-                   b_pack: Optional[PlanePack] = None) -> torch.Tensor:
+                   b_pack: Optional[PlanePack] = None,
+                   mesh=None) -> torch.Tensor:
     """Exact batched intN x intN -> int32 contraction through the CiM array.
 
     a : int [*B, M, K], b : int [*B, K, N]. The batch dims flatten onto the
@@ -580,7 +585,7 @@ def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
         return run_schedule_program(
             sched, body_res, (a, b_pack),
             body_key=("batched_matmul", n_bits, "resident"),
-            backend=backend, spec=spec)
+            backend=backend, spec=spec, mesh=mesh)
     n = _check_batched_rhs(a, b, bdims, k)
     k_pad = 1 << planner._log2_ceil(k)
     sched = _place(planner.plan_batched_matmul(bf, k, n, n_bits=n_bits,
@@ -594,7 +599,7 @@ def batched_matmul(a: torch.Tensor, b: Optional[torch.Tensor] = None,
 
     return run_schedule_program(sched, body, (a, b),
                                 body_key=("batched_matmul", n_bits),
-                                backend=backend, spec=spec)
+                                backend=backend, spec=spec, mesh=mesh)
 
 
 def _batch_dims(a: torch.Tensor):
@@ -623,10 +628,10 @@ def _check_batched_rhs(a: torch.Tensor, b: Optional[torch.Tensor],
 
 def dot(a: torch.Tensor, b: torch.Tensor, n_bits: int = 8,
         backend: Optional[str] = None,
-        spec: Optional[ArraySpec] = None) -> torch.Tensor:
+        spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     """Exact intN x intN -> int32 dot product of two [K] vectors."""
     return matmul(a.reshape(1, -1), b.reshape(-1, 1), n_bits=n_bits,
-                  backend=backend, spec=spec)[0, 0]
+                  backend=backend, spec=spec, mesh=mesh)[0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -643,9 +648,9 @@ class ChainExecutor:
 
     def __init__(self, schedule: planner.Schedule,
                  backend: Optional[str] = None,
-                 spec: Optional[ArraySpec] = None,
+                 spec: Optional[ArraySpec] = None, mesh=None,
                  charges: Optional[list] = None):
-        self.cursor = ScheduleCursor(schedule, backend, spec=spec,
+        self.cursor = ScheduleCursor(schedule, backend, spec=spec, mesh=mesh,
                                      charges=charges)
 
     @classmethod
@@ -726,49 +731,49 @@ class ChainExecutor:
 
 def multiply_ints(x: torch.Tensor, y: torch.Tensor, n_bits: int = 16,
                   signed: bool = True, backend: Optional[str] = None,
-                  spec: Optional[ArraySpec] = None) -> torch.Tensor:
+                  spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     return multiply(PlanePack.pack(x, n_bits, signed=signed),
                     PlanePack.pack(y, n_bits, signed=signed),
-                    backend=backend, spec=spec).unpack()
+                    backend=backend, spec=spec, mesh=mesh).unpack()
 
 
 def relu_ints(x: torch.Tensor, n_bits: int = 16,
               backend: Optional[str] = None,
-              spec: Optional[ArraySpec] = None) -> torch.Tensor:
+              spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     return relu(PlanePack.pack(x, n_bits), backend=backend,
-                spec=spec).unpack()
+                spec=spec, mesh=mesh).unpack()
 
 
 def abs_ints(x: torch.Tensor, n_bits: int = 16,
              backend: Optional[str] = None,
-             spec: Optional[ArraySpec] = None) -> torch.Tensor:
+             spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     return abs_(PlanePack.pack(x, n_bits), backend=backend,
-                spec=spec).unpack()
+                spec=spec, mesh=mesh).unpack()
 
 
 def minimum_ints(x: torch.Tensor, y: torch.Tensor, n_bits: int = 16,
                  backend: Optional[str] = None,
-                 spec: Optional[ArraySpec] = None) -> torch.Tensor:
+                 spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     return minimum(PlanePack.pack(x, n_bits), PlanePack.pack(y, n_bits),
-                   backend=backend, spec=spec).unpack()
+                   backend=backend, spec=spec, mesh=mesh).unpack()
 
 
 def maximum_ints(x: torch.Tensor, y: torch.Tensor, n_bits: int = 16,
                  backend: Optional[str] = None,
-                 spec: Optional[ArraySpec] = None) -> torch.Tensor:
+                 spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     return maximum(PlanePack.pack(x, n_bits), PlanePack.pack(y, n_bits),
-                   backend=backend, spec=spec).unpack()
+                   backend=backend, spec=spec, mesh=mesh).unpack()
 
 
 def popcount_ints(x: torch.Tensor, n_bits: int = 16,
                   backend: Optional[str] = None,
-                  spec: Optional[ArraySpec] = None) -> torch.Tensor:
+                  spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     return popcount(PlanePack.pack(x, n_bits), backend=backend,
-                    spec=spec).unpack()
+                    spec=spec, mesh=mesh).unpack()
 
 
 def reduce_sum_ints(x: torch.Tensor, n_bits: int = 16, signed: bool = True,
                     backend: Optional[str] = None,
-                    spec: Optional[ArraySpec] = None) -> torch.Tensor:
+                    spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     return reduce_sum(PlanePack.pack(x, n_bits, signed=signed),
-                      backend=backend, spec=spec).unpack()
+                      backend=backend, spec=spec, mesh=mesh).unpack()

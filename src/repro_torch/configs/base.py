@@ -1,13 +1,15 @@
 """Architecture configuration.
 
 Port of `repro.configs.base`: `ArchConfig` with the reference's fields and
-derived properties, and `reduced()` for CPU tests. The workload shape table
-and `input_specs` wait (they exist for the dry-run, which is not ported).
+derived properties, and `reduced()` for CPU tests; the dry run's workload
+shapes (`ShapeSpec`, `SHAPES`, `shape_applicable`) and `input_specs`, whose
+stand-ins for the reference's `jax.ShapeDtypeStruct`s are `meta` tensors of
+the same shapes and dtypes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -121,3 +123,63 @@ class ArchConfig:
             head_dim=16, d_ff=128 if self.d_ff else 0, vocab_size=256,
             moe=moe, mla=mla, local_window=32, microbatches=1,
             dtype="float32", param_dtype="float32", remat=False)
+
+
+# ---------------------------------------------------------------------------
+# Workload shapes (the dry run's cells)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """long_500k needs sub-quadratic attention (DESIGN.md §5)."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, "full-attention arch: O(S^2) attention at 512k is out of scope (DESIGN.md §5)"
+    return True, ""
+
+
+def input_specs(arch: ArchConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """`meta` stand-ins for every model input of this cell.
+
+    train:   tokens/embeds + targets over the full sequence
+    prefill: tokens/embeds (cache is an output)
+    decode:  one new token + position (the KV/state cache of seq_len is part
+             of the step signature and built on `meta` by the caller)
+    """
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    act = arch.activation_dtype()
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        if arch.embed_stub:
+            return {"embeds": meta((b, s, arch.d_model), act),
+                    "targets": meta((b, s), i32)}
+        return {"tokens": meta((b, s), i32), "targets": meta((b, s), i32)}
+    if shape.kind == "prefill":
+        if arch.embed_stub:
+            return {"embeds": meta((b, s, arch.d_model), act)}
+        return {"tokens": meta((b, s), i32)}
+    if shape.kind == "decode":
+        tok = ({"embeds": meta((b, 1, arch.d_model), act)} if arch.embed_stub
+               else {"tokens": meta((b, 1), i32)})
+        tok["positions"] = meta((b,), i32)
+        return tok
+    raise ValueError(shape.kind)

@@ -5,8 +5,9 @@ imports nothing of `repro`): tokens are a stateless function of (seed,
 step, position), so resuming from a checkpoint at step k reproduces batch
 k bit for bit with no iterator state to persist. `embed_stub_batch` is
 the audio/VLM stand-in: seeded pseudo-embeddings beside the same token
-targets. `sharded_batch` waits with the mesh (ROADMAP A12); the train
-driver moves the numpy batch to its device.
+targets. `sharded_batch` builds each rank's shard of the same global
+batch as a DTensor on a mesh; a single-process training run moves the
+numpy batch to its device.
 """
 from __future__ import annotations
 
@@ -48,6 +49,23 @@ def synthetic_batch(step: int, cfg: DataConfig) -> Dict[str, np.ndarray]:
     (next-token prediction packing)."""
     block = _tokens_for(step, cfg, 0, cfg.batch)
     return {"tokens": block[:, :-1], "targets": block[:, 1:]}
+
+
+def sharded_batch(step: int, cfg: DataConfig, mesh,
+                  batch_sharding) -> Dict[str, "torch.Tensor"]:
+    """The global batch of `step` as DTensors placed by `batch_sharding`
+    (name -> `repro_torch.sharding.NamedSharding`): every rank builds the
+    same host batch and keeps its own rows, with no communication."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    out = {}
+    for name, host_arr in synthetic_batch(step, cfg).items():
+        shd = batch_sharding[name]
+        out[name] = distribute_tensor(
+            torch.from_numpy(np.ascontiguousarray(host_arr)).to(
+                mesh.device_type), mesh, shd.placements, src_data_rank=None)
+    return out
 
 
 def iterator(cfg: DataConfig,

@@ -2,9 +2,10 @@
 ADRA integer ops and macros through the CiM engine, attention and the
 recurrences (RG-LRU, and sLSTM, which the reference reaches through
 `repro.kernels.slstm.slstm_scan`). The reference picks Pallas or its jnp
-oracle by a flag; here the tensor's device decides: CPU tensors take the
-plain version, CUDA tensors the kernel (which raises on what it does not
-take). There is no switch and no fallback.
+oracle by a flag; here the tensor's device decides: CPU and meta tensors
+take the plain version (`repro_torch.PLAIN_DEVICES`: meta for the dry
+run), CUDA tensors the kernel (which raises on what it does not take).
+There is no switch and no fallback.
 
 The ADRA wrappers take `backend=` (a `repro_torch.cim.backends` name; the
 registry default when None). The reference's `interpret` flag names the
@@ -26,10 +27,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import takes_plain
 from repro_torch.cim import PlanePack, execute, execute_unfused, macro
 from repro_torch.cim.array import ArraySpec
 from repro_torch.cim.dispatch import execute_tiled
-from repro_torch.cim.opset import CimOpError
 from repro_torch.cim.planepack import mask_to_ints
 
 from . import ref
@@ -53,11 +54,6 @@ def _resolve_backend(interpret: Optional[bool],
     if backend is not None:
         return backend
     return None if interpret is None else "fused"
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise CimOpError("the port runs on one device: mesh must be None")
 
 
 # ---------------------------------------------------------------------------
@@ -123,11 +119,10 @@ def cim_matmul(a: torch.Tensor, b: torch.Tensor, n_bits: int = 8,
                spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     """Exact intN x intN -> int32 matmul as one planned access schedule:
     (2 n_bits - 1) + ceil(log2 K) logical accesses, one dispatch; placed
-    per bank on a banked `spec`."""
-    _no_mesh(mesh)
+    per bank on a banked `spec` (its tiles spread over `mesh`)."""
     return macro.matmul(a, b, n_bits=n_bits,
                         backend=_resolve_backend(interpret, backend),
-                        spec=spec)
+                        spec=spec, mesh=mesh)
 
 
 def cim_relu(x: torch.Tensor, n_bits: int = 16,
@@ -135,10 +130,9 @@ def cim_relu(x: torch.Tensor, n_bits: int = 16,
              spec: Optional[ArraySpec] = None, mesh=None) -> torch.Tensor:
     """max(x, 0) over integer tensors: one access (the gt predicate gates
     the writeback) whatever the width."""
-    _no_mesh(mesh)
     return macro.relu(PlanePack.pack(x, n_bits),
                       backend=_resolve_backend(interpret, backend),
-                      spec=spec).unpack()
+                      spec=spec, mesh=mesh).unpack()
 
 
 def cim_lower(fn, interpret: Optional[bool] = None,
@@ -157,7 +151,7 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type == "cpu":
+        if takes_plain(q):
             o, lse = ref.mha_ref(q, k, v, causal=causal)
         else:
             o, lse = flash_attention(q.contiguous(), k.contiguous(),
@@ -181,9 +175,9 @@ class _Attention(torch.autograd.Function):
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
     """GQA attention, q [B, Tq, Hq, D] over k, v [B, Tk, Hkv, D], scale
-    1/sqrt(D): o [B, Tq, Hq, D] in q's dtype. CPU tensors take `mha_ref`,
-    CUDA tensors the flash kernel `flash_attention.route` picks (one launch
-    per forward)."""
+    1/sqrt(D): o [B, Tq, Hq, D] in q's dtype. CPU and meta tensors take
+    `mha_ref` (`repro_torch.takes_plain`), CUDA tensors the flash kernel
+    `flash_attention.route` picks (one launch per forward)."""
     return _Attention.apply(q, k, v, causal)
 
 
@@ -248,9 +242,9 @@ def rglru_scan(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
                log_lambda: torch.Tensor, h0: Optional[torch.Tensor] = None,
                c: float = 8.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """RG-LRU over [B, T, D]: returns (y in x's dtype, h_T in float32).
-    CPU tensors take `rglru_ref`, CUDA tensors the kernel `rglru.route`
+    CPU and meta tensors take `rglru_ref`, CUDA tensors the kernel `rglru.route`
     picks (one launch), differentiable through `_RGLRU`."""
-    if x.device.type == "cpu":
+    if takes_plain(x):
         return ref.rglru_ref(x, r, i, log_lambda, h0=h0, c=c)
     return _RGLRU.apply(x, r, i, log_lambda, h0, c)
 
@@ -259,10 +253,10 @@ def slstm_scan(wx: torch.Tensor, r_gates: torch.Tensor, b_gates: torch.Tensor,
                h0: torch.Tensor, c0: torch.Tensor, n0: torch.Tensor,
                m0: torch.Tensor):
     """sLSTM over wx [B, T, 4, D]: returns (y [B, T, D] in wx's dtype,
-    (h, c, n, m) [B, D] in float32). CPU tensors take `slstm_ref`, CUDA
-    tensors the kernel `slstm.route` picks (one launch), differentiable
-    through `_SLSTM`."""
-    if wx.device.type == "cpu":
+    (h, c, n, m) [B, D] in float32). CPU and meta tensors take `slstm_ref`,
+    CUDA tensors the kernel `slstm.route` picks (one launch),
+    differentiable through `_SLSTM`."""
+    if takes_plain(wx):
         return ref.slstm_ref(wx, r_gates, b_gates, h0, c0, n0, m0)
     y, *state = _SLSTM.apply(wx, r_gates, b_gates, h0, c0, n0, m0)
     return y, tuple(state)

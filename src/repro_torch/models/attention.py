@@ -156,8 +156,11 @@ def _proj(x, w) -> torch.Tensor:
     return torch.einsum("btd,dhk->bthk", x.float(), w.float()).to(x.dtype)
 
 
-def _out_proj(o, wo, dtype) -> torch.Tensor:
-    return torch.einsum("bthk,hkd->btd", o.float(), wo.float()).to(dtype)
+def _out_proj(o, wo, dtype, reduce=None) -> torch.Tensor:
+    """The output projection; `reduce` (a tensor-parallel region's sum
+    over ranks) is applied to the float32 result before the cast."""
+    y = torch.einsum("bthk,hkd->btd", o.float(), wo.float())
+    return (y if reduce is None else reduce(y)).to(dtype)
 
 
 def _gqa_qkv(p, cfg: ArchConfig, x, positions):
@@ -187,16 +190,18 @@ def _attend(q, k, v, scale, window: int = 0):
 
 
 def gqa_apply(p, cfg: ArchConfig, x, positions,
-              use_flash: bool = False) -> torch.Tensor:
+              use_flash: bool = False, reduce=None) -> torch.Tensor:
     """Full-sequence GQA attention (the train path): with `use_flash` the
     attention core is `kernels.ops.attention` (the flash kernel on the
-    card, `mha_ref` on the CPU), else `_attend`."""
+    card, `mha_ref` on the CPU), else `_attend`. The head counts are the
+    weights' own (a tensor-parallel rank's block of heads), `reduce` as
+    in `_out_proj`."""
     q, k, v = _gqa_qkv(p, cfg, x, positions)
     if use_flash:
         o = kops.attention(q, k, v, causal=True)
     else:
         o = _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5)
-    return _out_proj(o, p["wo"], x.dtype)
+    return _out_proj(o, p["wo"], x.dtype, reduce)
 
 
 def gqa_make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -261,10 +266,11 @@ def gqa_decode_cim(p, cfg: ArchConfig, x, cache: Params, positions,
 # ---------------------------------------------------------------------------
 
 
-def local_apply(p, cfg: ArchConfig, x, positions) -> torch.Tensor:
+def local_apply(p, cfg: ArchConfig, x, positions,
+                reduce=None) -> torch.Tensor:
     q, k, v = _gqa_qkv(p, cfg, x, positions)
     o = _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5, window=cfg.local_window)
-    return _out_proj(o, p["wo"], x.dtype)
+    return _out_proj(o, p["wo"], x.dtype, reduce)
 
 
 def local_make_cache(cfg: ArchConfig, batch: int, dtype, device) -> Params:

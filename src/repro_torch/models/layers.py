@@ -77,6 +77,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.reshape(x.shape).to(x.dtype)
 
 
+def hint_batch_sharding(x: torch.Tensor) -> torch.Tensor:
+    """Sharding hint: leading (batch) dim on the DP axes. A DTensor
+    activation is redistributed to that layout when a mesh is in scope
+    (`repro_torch.sharding.use_mesh`); anything else passes through, as the
+    reference's hint is a no-op without a mesh."""
+    from repro_torch.sharding import rules
+
+    mesh = rules.current_mesh()
+    if mesh is None or not rules.is_dtensor(x):
+        return x
+    return x.redistribute(mesh, rules.batch_placements(mesh))
+
+
+def hint_activation_sharding(x: torch.Tensor) -> torch.Tensor:
+    """Layer-boundary activation hint: batch on DP axes AND sequence on the
+    model axis (sequence parallelism, Korthikanti et al.): the per-layer
+    saved inputs of the remat stack are the dominant train-time residency
+    (n_layers x [B, S, d]); 2-D sharding cuts them by the model-axis width.
+    Falls back to batch-only for short sequences / decode steps (and for a
+    sequence the model axis does not divide)."""
+    from repro_torch.sharding import rules
+
+    mesh = rules.current_mesh()
+    if mesh is None or not rules.is_dtensor(x):
+        return x
+    model = rules.axis_sizes(mesh).get("model", 1)
+    if x.ndim >= 3 and x.shape[1] >= 64 and x.shape[1] % model == 0:
+        return x.redistribute(mesh, rules.batch_placements(mesh, 1))
+    return hint_batch_sharding(x)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GeGLU / plain GELU)
 # ---------------------------------------------------------------------------
@@ -100,7 +131,10 @@ def _linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
-def mlp(p: Params, x: torch.Tensor, gating: str) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, gating: str,
+        reduce=None) -> torch.Tensor:
+    """The MLP; `reduce` (a tensor-parallel region's sum over ranks) is
+    applied to the float32 output before the cast."""
     h = _linear_f32(x, p["w_in"])
     if gating == "swiglu":
         h = F.silu(_linear_f32(x, p["w_gate"])) * h
@@ -108,7 +142,8 @@ def mlp(p: Params, x: torch.Tensor, gating: str) -> torch.Tensor:
         h = _gelu(_linear_f32(x, p["w_gate"])) * h
     else:
         h = _gelu(h)
-    return _linear_f32(h.to(x.dtype), p["w_out"]).to(x.dtype)
+    y = _linear_f32(h.to(x.dtype), p["w_out"])
+    return (y if reduce is None else reduce(y)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

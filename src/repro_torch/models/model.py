@@ -48,6 +48,27 @@ same function and are held to each other. MLA trains as the reference's
 attend through `local_apply` (dense or blockwise), as the reference's.
 MoE layers add their load-balancing loss: `loss = ce + 0.01 * aux`.
 
+On a mesh (`repro_torch.sharding.distribute_model`) the parameters are
+DTensors placed by the reference's specs and a step runs on each dp rank's
+rows. The projections the specs shard on "model" run tensor-parallel,
+Megatron's way (`_mlp_tp`, `_attn_tp`): a dense MLP (w_in/w_gate by
+column, w_out by row) in every step, and global or sliding-window GQA
+attention in the train step (wq and wo by head, each rank attending over
+its block of heads, the flash kernel included); each rank gathers its
+"model" block of those weights over the dp axes only and one all-reduce
+over "model" sums the partial outputs. Every other parameter is gathered
+whole at its use (`_cast`, `_train_cast`, `_whole`: an all-gather, whose
+backward reduce-scatters the dp ranks' partial gradients) and its layer
+runs whole on each "model" rank: MLA, MoE experts, the RG-LRU and xLSTM
+blocks, the embedding and head, the CiM MLPs, and attention in prefill
+and decode (the caches' specs shard head_dim, not heads). The activation
+between train layers is a DTensor under the reference's hint (batch on
+the dp axes, sequence on "model", gathered again at each layer's input),
+a MoE layer gathers its batch over the dp axes and keeps its own rows of
+the output (routing is global, as the reference's), and caches and
+batches are taken to this rank's rows. Everything in a layer (the
+kernels' autograd Functions included) runs on plain local tensors.
+
 The prefill runs eagerly, so its CiM MLPs charge the ledger on every call
 (the reference's jitted prefill charges once at trace time), and it never
 pins weights (residency is off under the reference's jit tracers too).
@@ -64,6 +85,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.cim.array import ArraySpec
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding import rules as shard_rules
 from . import attention as attn
 from . import moe as moe_lib
 from . import recurrent as rec_lib
@@ -72,6 +94,7 @@ from .layers import (
     chunked_lm_loss,
     embed,
     embed_init,
+    hint_activation_sharding,
     lm_head_init,
     mlp,
     mlp_cim,
@@ -224,7 +247,8 @@ class Model(nn.Module):
     """The decoder for one ArchConfig, its parameters on one device.
 
     Without `params` it initialises random ones from `seed` on `device`
-    (`cuda` unless the caller passes `device="cpu"`; raises without a GPU).
+    (`cuda` unless the caller passes `device="cpu"`; raises without a GPU;
+    on `meta` it draws nothing: the dry run's parameters).
     `for_serving` holds the cast layer weights in the compute dtype only
     (see the module docstring). `resident_spec` is the ArraySpec whose
     registry ResidentSet holds the decode weight pins (None: the paper's
@@ -241,7 +265,9 @@ class Model(nn.Module):
         self.resident_spec = resident_spec
         if params is None:
             device = resolve_device(device)
-            gen = torch.Generator(device=device).manual_seed(seed)
+            # `meta` (the dry run): shapes and dtypes only, no draws
+            gen = None if device.type == "meta" else \
+                torch.Generator(device=device).manual_seed(seed)
             params = init_params(cfg, gen, device, for_serving)
         if "embed" in params:
             self.embed = _pdict(params["embed"])
@@ -251,6 +277,9 @@ class Model(nn.Module):
             self.lm_head = _pdict(params["lm_head"])
         # id(param) -> (param, compute-dtype copy); shared with derived models
         self._cast_cache = {} if _cast_cache is None else _cast_cache
+        # the DeviceMesh its parameters are DTensors on
+        # (`repro_torch.sharding.distribute_model`), else None
+        self.mesh = None
 
     @property
     def device(self) -> torch.device:
@@ -297,7 +326,10 @@ class Model(nn.Module):
     def _cast(self, t: torch.Tensor, name: str = "") -> torch.Tensor:
         """The reference's `_compute_cast` of leaf `name`: f32 weights of
         rank >= 2 other than the router in the activation dtype, memoized
-        so the same tensor comes back each call."""
+        so the same tensor comes back each call. A DTensor parameter is
+        gathered at its use and cast each call (nothing memoized)."""
+        if shard_rules.is_dtensor(t):
+            return self._train_cast(t, name)
         if not _cast_rule(name, t, self.cfg.activation_dtype()):
             return t
         hit = self._cast_cache.get(id(t))
@@ -308,17 +340,101 @@ class Model(nn.Module):
 
     def _train_cast(self, t: torch.Tensor, name: str = "") -> torch.Tensor:
         """`_compute_cast` for the train path: a fresh cast on every call,
-        so gradients reach the float32 master weights."""
+        so gradients reach the float32 master weights (a DTensor parameter
+        gathered first: `sharding.rules.gather_param`)."""
         act = self.cfg.activation_dtype()
+        t = shard_rules.gather_param(t)
         return t.to(act) if _cast_rule(name, t, act) else t
 
+    def _whole(self, p: Params) -> Params:
+        """A non-layer parameter dict (embed, final norm, head) with each
+        DTensor gathered at its use."""
+        return {k: shard_rules.gather_param(v) for k, v in p.items()}
+
     def _layer_params(self, layer: Layer, train: bool = False) -> Params:
+        raw = layer.tree()
+        return {k: self._cast_part(raw, k, train) for k in raw}
+
+    def _cast_part(self, raw: Params, name: str, train: bool = False):
+        """Leaf or sub-tree `name` of a layer's parameters cast for compute
+        (each DTensor gathered whole at its use)."""
         one = self._train_cast if train else self._cast
 
         def cast(tree):
             return {k: cast(v) if isinstance(v, dict) else one(v, k)
                     for k, v in tree.items()}
-        return cast(layer.tree())
+        v = raw[name]
+        return cast(v) if isinstance(v, dict) else one(v, name)
+
+    # -- tensor parallelism over "model" --------------------------------------
+
+    def _tp_cast(self, t: torch.Tensor, name: str, dim: int) -> torch.Tensor:
+        """This rank's "model" block of weight `name` (its dim `dim`),
+        gathered over the dp axes and cast for compute."""
+        t = shard_rules.gather_param_tp(t, dim)
+        act = self.cfg.activation_dtype()
+        return t.to(act) if _cast_rule(name, t, act) else t
+
+    def _mlp_tp(self, p: Params, h: torch.Tensor) -> Optional[torch.Tensor]:
+        """A dense MLP run tensor-parallel over "model" (column-parallel
+        w_in/w_gate, row-parallel w_out, one all-reduce of the float32
+        output), or None where the specs do not shard it so (or it is a
+        CiM MLP): the caller then gathers it whole."""
+        dims = {k: d for k, d in (("w_in", 1), ("w_gate", 1), ("w_out", 0))
+                if k in p}
+        if self.cfg.cim_mlp_bits or not all(
+                shard_rules.tp_sharded(p[k], d) for k, d in dims.items()):
+            return None
+        w = {k: self._tp_cast(p[k], k, d) for k, d in dims.items()}
+        mesh = self.mesh
+        return mlp(w, shard_rules.tp_enter(h, mesh), self.cfg.gating,
+                   reduce=lambda y: shard_rules.tp_exit(y, mesh))
+
+    def _attn_tp(self, p: Params, h: torch.Tensor, positions,
+                 kind: str) -> Optional[torch.Tensor]:
+        """Train-path GQA attention (global or sliding-window) run
+        tensor-parallel over "model": this rank's block of query heads
+        (wq by head), the key/value heads they read (wk/wv by head where
+        the specs shard them so, else gathered whole and sliced), and the
+        row-parallel wo with one all-reduce of the float32 output. None
+        where the specs do not shard wq and wo by head, or a rank's query
+        heads would straddle key/value groups: the caller then gathers the
+        layer whole."""
+        cfg = self.cfg
+        if not (shard_rules.tp_sharded(p["wq"], 1)
+                and shard_rules.tp_sharded(p["wo"], 0)):
+            return None
+        mesh = self.mesh
+        hq = cfg.n_heads // shard_rules.model_parallel(mesh)
+        group = cfg.n_heads // cfg.n_kv_heads
+        kv_tp = shard_rules.tp_sharded(p["wk"], 1) and \
+            shard_rules.tp_sharded(p["wv"], 1)
+        if not kv_tp and hq % group and group % hq:
+            return None
+        w = {"wq": self._tp_cast(p["wq"], "wq", 1),
+             "wo": self._tp_cast(p["wo"], "wo", 0)}
+        if kv_tp:
+            w["wk"] = self._tp_cast(p["wk"], "wk", 1)
+            w["wv"] = self._tp_cast(p["wv"], "wv", 1)
+        else:
+            rank = mesh.get_local_rank("model")
+            k0 = rank * hq // group
+            k1 = max(k0 + 1, (rank + 1) * hq // group)
+            for k in ("wk", "wv"):
+                w[k] = self._train_cast(shard_rules.gather_param(
+                    p[k], partial_model=True), k)[:, k0:k1]
+        for k in ("q_norm", "k_norm"):    # each rank normalises its heads
+            if k in p:
+                w[k] = {n: shard_rules.gather_param(v, partial_model=True)
+                        for n, v in p[k].items()}
+        x = shard_rules.tp_enter(h, mesh)
+
+        def reduce(y):
+            return shard_rules.tp_exit(y, mesh)
+        if kind == "local":
+            return attn.local_apply(w, cfg, x, positions, reduce=reduce)
+        return attn.gqa_apply(w, cfg, x, positions, use_flash=True,
+                              reduce=reduce)
 
     # -- stack execution ------------------------------------------------------
 
@@ -336,7 +452,16 @@ class Model(nn.Module):
         """Layer i's MLP: (y, aux), aux the MoE load-balancing loss (None
         for a dense MLP)."""
         if is_moe_layer(self.cfg, i):
-            return moe_lib.moe_apply(p, self.cfg, h2)
+            mesh = self.mesh
+            if mesh is None or shard_rules.dp_size(mesh) == 1:
+                return moe_lib.moe_apply(p, self.cfg, h2)
+            # gather point: the scatter dispatch routes over the whole
+            # batch (capacity, drops and the aux loss are global, as the
+            # reference's), so every dp rank runs it on all rows and keeps
+            # its own
+            y, aux = moe_lib.moe_apply(p, self.cfg,
+                                       shard_rules.gather_batch(h2, mesh))
+            return shard_rules.local_rows(y, mesh), aux
         return self._apply_mlp(p, h2, mode), None
 
     def _train_layer(self, i: int, x, positions):
@@ -345,25 +470,50 @@ class Model(nn.Module):
         flash, or MLA; sliding-window attention; the RG-LRU block), ln2,
         MLP or MoE, both residuals; or an xLSTM cell after ln1. Returns
         (x, aux)."""
+        if self.mesh is not None:
+            # between layers x is a DTensor (batch x sequence under the
+            # activation hint); a layer runs on this rank's rows, whole
+            y, aux = self._train_layer_local(
+                i, shard_rules.local_batch(x), positions)
+            return shard_rules.from_local_batch(y, self.mesh), aux
+        return self._train_layer_local(i, x, positions)
+
+    def _train_layer_local(self, i: int, x, positions):
         cfg = self.cfg
         kind = self.kinds[i]
-        p = self._layer_params(self.layers[i], train=True)
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        raw = self.layers[i].tree()
+
+        def part(name):
+            return self._cast_part(raw, name, train=True)
+        h = rmsnorm(part("ln1"), x, cfg.norm_eps)
         if kind in XLSTM_CELLS:
-            y, _ = XLSTM_CELLS[kind][1](p["cell"], cfg, h, None)
+            y, _ = XLSTM_CELLS[kind][1](part("cell"), cfg, h, None)
             return x + y, self._zero()
+        y = None
         if kind == "rec":
-            y, _ = rec_lib.rglru_block_apply(p["rec"], cfg, h, None)
-        elif kind == "local":
-            y = attn.local_apply(p["attn"], cfg, h, positions)
-        elif cfg.mla is not None:
-            y = attn.mla_apply(p["attn"], cfg, h, positions)
-        else:
-            y = attn.gqa_apply(p["attn"], cfg, h, positions, use_flash=True)
+            y, _ = rec_lib.rglru_block_apply(part("rec"), cfg, h, None)
+        elif cfg.mla is not None and kind != "local":
+            y = attn.mla_apply(part("attn"), cfg, h, positions)
+        elif self.mesh is not None:
+            y = self._attn_tp(raw["attn"], h, positions, kind)
+        if y is None and kind == "local":
+            y = attn.local_apply(part("attn"), cfg, h, positions)
+        elif y is None:
+            y = attn.gqa_apply(part("attn"), cfg, h, positions, use_flash=True)
         x = x + y
-        h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        y, aux = self._ffn(i, p["mlp"], h2, "train")
+        h2 = rmsnorm(part("ln2"), x, cfg.norm_eps)
+        y, aux = self._layer_ffn(i, raw, h2, "train")
         return x + y, (self._zero() if aux is None else aux)
+
+    def _layer_ffn(self, i: int, raw: Params, h2: torch.Tensor, mode: str):
+        """`_ffn` of layer i from its raw parameters: a dense MLP
+        tensor-parallel where the mesh and specs allow it."""
+        if self.mesh is not None and not is_moe_layer(self.cfg, i):
+            y = self._mlp_tp(raw["mlp"], h2)
+            if y is not None:
+                return y, None
+        return self._ffn(i, self._cast_part(raw, "mlp", mode == "train"),
+                         h2, mode)
 
     def _zero(self) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float32, device=self.device)
@@ -386,14 +536,21 @@ class Model(nn.Module):
         layers' summed aux loss)."""
         cfg = self.cfg
         aux_total = self._zero()
-        for i in range(len(self.kinds)):
-            if cfg.remat:
-                x, aux = checkpoint(self._train_layer, i, x, positions,
-                                    use_reentrant=False)
-            else:
-                x, aux = self._train_layer(i, x, positions)
-            aux_total = aux_total + aux
-        return rmsnorm(dict(self.final_norm.items()), x, cfg.norm_eps), \
+        if self.mesh is not None:
+            x = shard_rules.from_local_batch(x, self.mesh)
+        with shard_rules.use_mesh(self.mesh):
+            for i in range(len(self.kinds)):
+                # 2-D (batch x seq) residency at each layer's input, as the
+                # reference's period body
+                x = hint_activation_sharding(x)
+                if cfg.remat:
+                    x, aux = checkpoint(self._train_layer, i, x, positions,
+                                        use_reentrant=False)
+                else:
+                    x, aux = self._train_layer(i, x, positions)
+                aux_total = aux_total + aux
+        x = shard_rules.local_batch(x)
+        return rmsnorm(self._whole(self.final_norm), x, cfg.norm_eps), \
             aux_total
 
     def _run_stack(self, x, positions, mode, caches=None, max_len=None):
@@ -404,9 +561,12 @@ class Model(nn.Module):
         new_caches = []
         prefill = mode == "prefill"
         for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
-            p = self._layer_params(layer)
+            raw = layer.tree()
+            p = {k: self._cast_part(raw, k) for k in raw if k != "mlp"}
             h = rmsnorm(p["ln1"], x, cfg.norm_eps)
             cache = None if prefill else caches[i]
+            if self.mesh is not None:
+                cache = shard_rules.tree_local_batch(cache)
             if kind in XLSTM_CELLS:       # prefill starts from a zero state
                 y, nc = XLSTM_CELLS[kind][1](p["cell"], cfg, h, cache)
                 x = x + y
@@ -424,9 +584,9 @@ class Model(nn.Module):
                                      max_len)
             x = x + y
             h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-            x = x + self._ffn(i, p["mlp"], h2, mode)[0]
+            x = x + self._layer_ffn(i, raw, h2, mode)[0]
             new_caches.append(nc)
-        x = rmsnorm(dict(self.final_norm.items()), x, cfg.norm_eps)
+        x = rmsnorm(self._whole(self.final_norm), x, cfg.norm_eps)
         return x, new_caches
 
     def _embed_inputs(self, inputs) -> torch.Tensor:
@@ -434,13 +594,14 @@ class Model(nn.Module):
         `embeds` [B, T, D] (audio frames, image patches)."""
         act = self.cfg.activation_dtype()
         if self.cfg.embed_stub:
-            return inputs["embeds"].to(act)
-        return embed(dict(self.embed.items()), inputs["tokens"]).to(act)
+            return shard_rules.local_batch(inputs["embeds"]).to(act)
+        return embed(self._whole(self.embed),
+                     shard_rules.local_batch(inputs["tokens"])).to(act)
 
     def _head_weight(self) -> torch.Tensor:
         if self.cfg.tie_embeddings and not self.cfg.embed_stub:
-            return self.embed["table"].t()
-        return self.lm_head["w"]
+            return shard_rules.gather_param(self.embed["table"]).t()
+        return shard_rules.gather_param(self.lm_head["w"])
 
     def logits(self, x_final: torch.Tensor) -> torch.Tensor:
         """Full logits over the padded vocab, pad columns masked."""
@@ -467,10 +628,12 @@ class Model(nn.Module):
     def loss(self, batch):
         """Chunked-CE loss (never materializes the [B, S, V] logits):
         (loss, {"ce", "aux"}), loss = ce + 0.01 aux; aux, the MoE layers'
-        summed load-balancing loss, is 0 without MoE."""
+        summed load-balancing loss, is 0 without MoE. On a mesh, ce is the
+        mean over this rank's rows (`train.step` averages the dp ranks)."""
         x = self._embed_inputs(batch)
         x, aux = self._train_stack(x, self._positions(x))
-        ce = chunked_lm_loss(x, self._head_weight(), batch["targets"],
+        ce = chunked_lm_loss(x, self._head_weight(),
+                             shard_rules.local_batch(batch["targets"]),
                              real_vocab=self.cfg.vocab_size)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
@@ -487,8 +650,9 @@ class Model(nn.Module):
         """One token step. inputs: tokens [B,1] (or embeds [B,1,D]) +
         positions [B]."""
         x = self._embed_inputs(inputs)
-        x, new_caches = self._run_stack(x, inputs["positions"], "decode",
-                                        caches=caches)
+        x, new_caches = self._run_stack(
+            x, shard_rules.local_batch(inputs["positions"]), "decode",
+            caches=caches)
         return new_caches, self.logits(x)[:, 0]
 
 

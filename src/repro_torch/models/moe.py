@@ -18,8 +18,10 @@ The router logits stay float32 (the model keeps `router` out of its
 compute cast). The expert products are batched matmuls with float32
 accumulation, as the reference's `preferred_element_type=float32` einsums
 (`product_f32`: on the card, bf16 operands without a float32 copy);
-the reference computes them outside any Pallas kernel. Its sharding hints
-(`_hint`) wait for the mesh (ROADMAP A12).
+the reference computes them outside any Pallas kernel. Its GSPMD layout
+hints (`_hint`) have no counterpart: on a mesh the port's model gathers a
+MoE layer's batch over the dp axes and runs this function on all rows
+(`models/model.py`), and `moe_ep.moe_apply_ep` is the expert-parallel form.
 """
 from __future__ import annotations
 

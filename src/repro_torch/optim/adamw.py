@@ -31,8 +31,9 @@ class AdamWConfig(NamedTuple):
 def init(params: Params, cfg: AdamWConfig) -> Dict[str, Any]:
     dt = torch.bfloat16 if cfg.state_dtype == "bfloat16" else torch.float32
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros(p):      # a DTensor parameter's moments are placed alike
+        return torch.zeros_like(p, dtype=dt, requires_grad=False,
+                                memory_format=torch.contiguous_format)
 
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32,
@@ -40,8 +41,14 @@ def init(params: Params, cfg: AdamWConfig) -> Dict[str, Any]:
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+    """The norm over every leaf (a DTensor leaf's square sum all-reduced
+    first, so the result is a plain tensor)."""
+    return torch.sqrt(sum(_full(torch.sum(torch.square(g.float())))
                           for g in leaves(tree)))
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

@@ -3,8 +3,8 @@
 Port of `repro.optim.compression`: per leaf, g' = g + residual; q =
 round(g' / s) clipped to int8 with s = max|g'| / 127; dq = q s; residual'
 = g' - dq. The reference marks the hook where the int8 tensors would cross
-a pod axis; the port has no mesh (one card), so `compress_tree` reproduces
-the numerics for `--compress-grads`.
+a pod axis and sends nothing across it; `compress_tree` reproduces the
+numerics for `--compress-grads` on plain (single-process) gradients.
 """
 from __future__ import annotations
 

@@ -9,8 +9,8 @@ Port of `repro.runtime.supervisor`:
     (one host here; the detector takes any number)
 
 A restore writes the checkpoint into the live state's tensors
-(`CheckpointManager.restore`). The elastic re-meshing controller
-(`runtime/elastic.py`) waits with the mesh (ROADMAP A12).
+(`CheckpointManager.restore`); re-placing a checkpoint on another mesh is
+`runtime/elastic.py`'s `restore_on_mesh`.
 """
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ import torch
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 from repro_torch.optim import compression as gcomp
+from repro_torch.sharding import rules as shard_rules
 from repro_torch.tree import leaves, tree_map
 
 TrainState = Dict[str, Any]
@@ -47,8 +48,20 @@ def accumulate_grads(model: Model, batch: Dict[str, torch.Tensor],
     `.grad` is the reference's averaged grads and activations are held for
     one part at a time. Returns the (averaged) loss, ce and aux, each the
     mean over the parts as the reference's accumulation scan takes it (aux
-    is the MoE layers' load-balancing loss; 0 without MoE)."""
+    is the MoE layers' load-balancing loss; 0 without MoE). On a mesh
+    (`model.mesh`) each rank runs its own rows of a DTensor batch and the
+    returned values are the mean over the dp ranks."""
     n = max(n_micro, 1)
+    mesh = model.mesh
+    n_dp = 1
+    if mesh is not None:
+        # this rank's rows; each rank's loss counts 1/n_dp of the global
+        # mean, so the reduce-scattered gradients are the global ones
+        n_dp = shard_rules.dp_size(mesh)
+        if batch["targets"].shape[0] % n_dp:
+            raise ValueError(f"batch of {batch['targets'].shape[0]} rows "
+                             f"does not split over {n_dp} dp ranks")
+        batch = {k: shard_rules.local_batch(v) for k, v in batch.items()}
     rows = batch["targets"].shape[0]
     if rows % n:
         raise ValueError(f"batch of {rows} rows does not split into {n} "
@@ -59,9 +72,11 @@ def accumulate_grads(model: Model, batch: Dict[str, torch.Tensor],
     for i in range(n):
         mb = {k: v[i * part:(i + 1) * part] for k, v in batch.items()}
         loss, parts = model.loss(mb)
-        (loss / n if n > 1 else loss).backward()
+        (loss / (n * n_dp) if n * n_dp > 1 else loss).backward()
         for k, val in (("loss", loss), *parts.items()):
             sums[k] = sums[k] + (val.detach() / n if n > 1 else val.detach())
+    if mesh is not None:
+        sums = {k: shard_rules.dp_mean(v, mesh) for k, v in sums.items()}
     return sums
 
 
@@ -96,7 +111,7 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
             p.grad = None
         del grads
         new_state["step"] = state["step"] + 1
-        metrics = {**sums, "grad_norm": om["grad_norm"],
+        metrics = {**sums, "grad_norm": shard_rules.to_plain(om["grad_norm"]),
                    "lr": torch.as_tensor(lr, dtype=torch.float32)}
         return new_state, metrics
 

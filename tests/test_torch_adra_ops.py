@@ -221,8 +221,8 @@ def test_banked_adra_sub_charges_per_tile():
     np.testing.assert_array_equal(d.numpy(), a - b)
     np.testing.assert_array_equal(lt.numpy(), (a < b).astype(np.int32))
     assert TLEDGER.accesses == spec.plan(256).n_tiles
-    with pytest.raises(CimOpError):
-        tops.cim_relu(torch.from_numpy(a), mesh=object())
+    with pytest.raises(CimOpError, match="no 'data'"):
+        tops.cim_relu(torch.from_numpy(a), spec=spec, mesh=object())
 
 
 # ---------------------------------------------------------------------------

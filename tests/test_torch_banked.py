@@ -238,8 +238,10 @@ def test_multidim_operands_tile_exactly():
 
 
 def test_mesh_is_refused():
+    """A mesh without the requested axis raises CimOpError (the reference's
+    `test_mesh_axis_validated_at_dispatch`)."""
     ta = TPack.pack(torch.arange(10), 8)
-    with pytest.raises(CimOpError, match="one device"):
+    with pytest.raises(CimOpError, match="no 'data'"):
         tdisp.execute_tiled(ta, ta, ("add",), mesh=object())
 
 

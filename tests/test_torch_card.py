@@ -7,6 +7,9 @@ file repeats them without it. Each kernel is held to the port's plain
 version (`repro_torch.kernels.ref` and the CPU path of each wrapper, which
 the CPU tests hold to the reference), and the fused bit-plane kernel also to
 the analog-oracle backend, the paper's FeFET device model evaluated per bit.
+The autotuner measures on the card, and the tiled access, `cim.multiply`
+and `lower()` over a one-rank NCCL mesh equal their unsharded calls (the
+CPU tests hold the mesh path to the reference over 1, 2 and 4 gloo ranks).
 
 Every case is marked `cuda` and skips without a card. `tests/conftest.py`
 imports the reference, so on the card the file runs without it:
@@ -340,3 +343,93 @@ def test_recurrence_gradients_match_plain_version():
     want = _grads(flat(tref.slstm_ref), [a.cpu() for a in args], w)
     for g, gw in zip(got, want):
         torch.testing.assert_close(g.cpu(), gw, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the autotuner and the mesh path (test_torch_autotune.py,
+# test_torch_sharding.py)
+# ---------------------------------------------------------------------------
+
+
+def test_autotune_measures_on_the_card(tmp_path):
+    """A measured search of a lowered function on the fused kernel: tuned
+    no slower than the default, launches in the search, a warm call with
+    no new search, the winners file round-tripped."""
+    from repro_torch.cim.autotune import Autotuner, Candidate
+
+    def fn(a, b):
+        return (a + b) * b
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randint(-100, 100, (1 << 16,), dtype=torch.int16,
+                      device="cuda", generator=g)
+    b = torch.randint(-100, 100, (1 << 16,), dtype=torch.int16,
+                      device="cuda", generator=g)
+    cands = (Candidate(banks=2, subarrays=2, bitline_words=1024),
+             Candidate(banks=8, subarrays=4, bitline_words=256,
+                       scheme="scheme2"))
+    tuner = Autotuner()
+    tfk.fused_planes_op.launches = 0
+    res = tuner.tune(fn, (a, b), candidates=cands, steady_n=2)
+    assert tfk.fused_planes_op.launches > 0
+    assert res.tuned_ms <= res.default_ms
+    assert res.tuned_vs_default_walltime_ratio >= 1.0
+    assert tuner.tune(fn, (a, b), candidates=cands).from_cache
+    assert tuner.searches == 1
+    path = str(tmp_path / "winners.json")
+    tuner.save(path)
+    fresh = Autotuner()
+    assert fresh.load(path) == 1
+    assert fresh.tune(fn, (a, b), candidates=cands).winner == res.winner
+    assert fresh.searches == 0
+
+
+def test_mesh_path_on_a_one_rank_nccl_group():
+    """`execute_sharded`, `cim.multiply(mesh=)` and `lower(mesh=)` on a
+    (1,) "data" mesh of one NCCL rank: planes, outputs and ledgers equal
+    to the unsharded calls, one launch a logical access."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch import cim
+    from repro_torch.cim import PlanePack, dispatch
+    from repro_torch.cim.lower import lower
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), "cuda")
+        spec = cim.ArraySpec(banks=2, subarrays=1, rows=256,
+                             bitline_words=32)
+        a, b = _planes(5, 29, 4099)
+        pa = PlanePack(a, 29, True, (4099 * 32,))
+        pb = PlanePack(b, 29, True, (4099 * 32,))
+        x = torch.arange(-700, 700, dtype=torch.int16, device="cuda")
+        y = (x * 7 + 3) % 101
+        got = []
+        for m in (None, mesh):
+            LEDGER.reset()
+            tfk.fused_planes_op.launches = 0
+            o = dispatch.execute_tiled(pa, pb, ("add", "lt"), spec=spec,
+                                       mesh=m)
+            prod = cim.multiply(PlanePack.pack(x, 16), PlanePack.pack(y, 16),
+                                spec=spec, mesh=m)
+            low = lower(lambda u, v: (u + v) * v, spec=spec, mesh=m)(x, y)
+            torch.cuda.synchronize()
+            got.append((o["add"].planes, o["lt"].planes, prod.unpack(), low,
+                        dataclasses.asdict(LEDGER),
+                        tfk.fused_planes_op.launches))
+        (a0, l0, p0, w0, led0, n0), (a1, l1, p1, w1, led1, n1) = got
+        assert torch.equal(a0, a1) and torch.equal(l0, l1)
+        assert torch.equal(p0, p1) and torch.equal(w0, w1)
+        assert torch.equal(p1.to(torch.int64),
+                           x.to(torch.int64) * y.to(torch.int64))
+        assert led0 == led1 and n0 == n1
+    finally:
+        dist.destroy_process_group()

@@ -201,7 +201,10 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tflash.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="CUDA"):
-        tops.attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        tflash.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    # meta (the dry run) takes the plain version by the named rule
+    o = tops.attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert o.device.type == "meta" and o.shape == q.shape
 
 
 def test_kernel_source_and_build_location():

@@ -17,7 +17,7 @@ from repro.cim import backends as rbk
 from repro.cim import engine as reng
 from repro.cim.fused_kernel import fused_planes_op as r_fused
 from repro.cim.planepack import PlanePack as RPack
-from repro_torch import kernel_build
+from repro_torch import PLAIN_DEVICES, kernel_build
 from repro_torch.cim import backends as tbk
 from repro_torch.cim import engine as teng
 from repro_torch.cim import fused_kernel as tfk
@@ -111,9 +111,13 @@ def test_launch_counts_the_bytes_it_must_move():
 
 
 def test_wrapper_raises_where_no_kernel_exists():
+    """Malformed requests raise; `meta` tensors (the dry run's) take the
+    plain version by the named rule `repro_torch.takes_plain`, which never
+    covers CUDA."""
     a = torch.zeros((4, 8), dtype=torch.int32, device="meta")
-    with pytest.raises(opset.CimOpError):
-        tfk.fused_planes_op(a, a, ("add",))
+    out = tfk.fused_planes_op(a, a, ("add",))
+    assert out[0].device.type == "meta" and out[0].shape == (5, 8)
+    assert PLAIN_DEVICES == ("cpu", "meta") and "cuda" not in PLAIN_DEVICES
     with pytest.raises(opset.CimOpError):
         tfk.fused_planes_op(torch.zeros((4, 8), dtype=torch.int32),
                             torch.zeros((4, 9), dtype=torch.int32), ("add",))

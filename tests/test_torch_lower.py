@@ -16,7 +16,7 @@ op left on the host raises NotImplementedError, asserted by its own test
 `jnp.where` becomes a nested `jit` there that it no longer inlines, so its
 twins use `jax.lax.select`. The analog-oracle and offload-estimator
 cases are in `tests/test_torch_analog.py` and `tests/test_torch_offload.py`;
-the mesh case waits on ROADMAP A12.
+the mesh cases over gloo ranks are in `tests/test_torch_sharding.py`.
 """
 import dataclasses
 
@@ -40,6 +40,7 @@ from repro_torch.cim import dispatch as tdisp
 from repro_torch.cim.accounting import LEDGER as TLEDGER
 from repro_torch.cim.array import ArraySpec as TSpec
 from repro_torch.cim.lower import SIGNATURE_CACHE_CAPACITY, lower
+from repro_torch.cim.opset import CimOpError
 from repro_torch.cim.trace import int_contract, population_count
 from repro_torch.core.bitplane import (codec_call_counts,
                                        reset_codec_call_counts)
@@ -459,8 +460,12 @@ def test_bool_predicates_and_logic_stay_packed():
 
 
 def test_mesh_waits_and_signature_cache_is_bounded():
-    with pytest.raises(NotImplementedError, match="A12"):
-        lower(lambda a: a + a, mesh=object())
+    """`lower(mesh=)` reaches the dispatcher, which refuses a mesh without
+    the "data" axis; the signature cache stays bounded."""
+    spec = TSpec(banks=2, subarrays=1, rows=64, bitline_words=32)
+    with pytest.raises(CimOpError, match="no 'data'"):
+        lower(lambda a: a + a, spec=spec, mesh=object())(
+            torch.arange(40, dtype=torch.int16))
     lf = lower(lambda a: a + a)
     for n in range(SIGNATURE_CACHE_CAPACITY + 3):
         lf(torch.arange(n + 1, dtype=torch.int16))

@@ -105,7 +105,10 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
         trglru.rglru(x, x, x, ll)
     meta = torch.zeros((1, 2, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        tops.rglru_scan(meta, meta, meta, ll.to("meta"))
+        trglru.rglru(meta, meta, meta, ll.to("meta"))
+    # meta (the dry run) takes the plain version by the named rule
+    y, h = tops.rglru_scan(meta, meta, meta, ll.to("meta"))
+    assert y.device.type == h.device.type == "meta" and y.shape == (1, 2, 8)
 
 
 def test_kernel_source_and_build_location():

@@ -99,7 +99,10 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tslstm.slstm(*args)
     with pytest.raises(ValueError, match="CUDA"):
-        tops.slstm_scan(*(a.to("meta") for a in args))
+        tslstm.slstm(*(a.to("meta") for a in args))
+    # meta (the dry run) takes the plain version by the named rule
+    y, state = tops.slstm_scan(*(a.to("meta") for a in args))
+    assert y.device.type == "meta" and len(state) == 4
 
 
 def test_kernel_source_and_build_location():
