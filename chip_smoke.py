@@ -189,13 +189,27 @@ Phases, each fatal on failure (nothing is caught):
                deepseek-v2-lite-16b layer (4096 tokens) equal to
                `moe_apply`'s routed output; (d) one dry-run cell
                (llama3.2-1b x decode_32k on a 256-rank fake group), its
-               roofline against the H100 row and its seconds.
+               roofline against the H100 row and its seconds; (e) the
+               kernels at a tensor-parallel rank's shapes: the RG-LRU
+               kernel on each of the 16 and of the 2 channel blocks of a
+               (1, 2040, 4096) bf16 input, and bf16 flash on each rank's
+               head block at gemma-2b's and llama3.2-1b's train shapes
+               (MESH_RANK_FLASH), equal to the bit to the whole-width call's
+               columns and heads, every block on the sm90 kernel by
+               `route`, and each block timed (these are checks: their
+               launches are not counted).
 The launch counts of each serve, banked, analog MLP, adra-faults, train,
 configs and mesh path are set to 0 just before it and read just after; the kernel checks'
 and timings' own launches are not counted. Earlier lines
 carry the metrics and one JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
-no result. `--profile` adds a torch.profiler breakdown of one warm
+no result. `--tp-cards` runs instead the sharded train step across 2
+and 4 cards (`phase_tp_cards`: one process a card, NCCL; the
+tensor-parallel step's losses held to one card's); two processes on one
+card cannot run it, as gloo's functional all-gather of CUDA tensors
+(`torch.ops._c10d_functional.all_gather_into_tensor`, which DTensor and
+`sharding.rules.tp_gather` use) crashes the process in torch 2.11.
+`--profile` adds a torch.profiler breakdown of one warm
 resident decode step of gemma-2b and recurrentgemma-9b (with the fused
 kernel's summed byte bound over the step), of one xlstm-125m decode step
 and of one gemma-2b train step.
@@ -3020,6 +3034,14 @@ def configs_agree(dev, steps: int = 4) -> dict:
 
 #: the mesh phase's one-cell dry run (256 fake ranks, 16x16)
 MESH_DRYRUN = ("llama3.2-1b", "decode_32k", "single")
+#: the RG-LRU block's input at a tensor-parallel rank: the hybrid's 2040-
+#: token prefill, split over 16 and over 2 "model" ranks by channel
+MESH_RANK_RGLRU = ((1, 2040, 4096), (16, 2))
+#: flash at a rank's heads: (name, (B, T, T, Hq, Hkv, D), "model" ranks
+#: whose specs split attention by head); each rank reads its block of query
+#: heads and the kv heads they share (`attention.gqa_heads_tp`)
+MESH_RANK_FLASH = [("gemma-2b", FLASH_TRAIN_SHAPE, (2,)),
+                   ("llama3.2-1b", FLASH_LLAMA_TRAIN_SHAPE, (2, 16))]
 #: MoE equality on one rank: the routed output of one full-width
 #: deepseek-v2-lite-16b layer, 4096 seeded tokens
 MESH_MOE_TOKENS = (2, 2048)
@@ -3243,6 +3265,209 @@ def phase_mesh(dev, llama_losses) -> dict:
                      "collectives": cell["collectives"]}
     print(f"mesh[dryrun]: {arch} x {shape} x {mesh_name}: "
           f"{json.dumps(cell['roofline'])}; {out['dryrun']['seconds']:.2f} s")
+
+    t = time.perf_counter()
+    out["rank_kernels"] = rank_kernels(dev)
+    out["times"]["rank_kernels"] = time.perf_counter() - t
+    return out
+
+
+def rank_kernels(dev) -> dict:
+    """The mesh phase's step (e): the RG-LRU and bf16 flash kernels on a
+    tensor-parallel rank's blocks against the whole-width call, to the bit
+    (channels, and heads with their kv heads, are independent), each block
+    on the sm90 kernel, each block's call timed (CUDA events)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels import rglru as rg
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"rglru": {}, "flash": {}}
+    shape, splits = MESH_RANK_RGLRU
+    d = shape[-1]
+    x, r, i = (torch.randn(shape, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    ll = torch.randn((d,), generator=gen, device=dev)
+    y, h = rg.rglru(x, r, i, ll)
+    whole_ms = cuda_ms(lambda: rg.rglru(x, r, i, ll))
+    for m in splits:
+        w = d // m
+        routes, ms = set(), []
+        for k in range(m):
+            blk = slice(k * w, (k + 1) * w)
+            xb, rb, ib = (a[..., blk].contiguous() for a in (x, r, i))
+            lb = ll[blk].contiguous()
+            routes.add(rg.route(xb, rb, ib))
+            yb, hb = rg.rglru(xb, rb, ib, lb)
+            assert torch.equal(yb, y[..., blk]) and \
+                torch.equal(hb, h[..., blk]), ("rglru block", m, k)
+            ms.append(cuda_ms(lambda: rg.rglru(xb, rb, ib, lb)))
+        assert routes == {"sm90"}, routes
+        out["rglru"][m] = {"shape": [shape[0], shape[1], w],
+                           "block_ms": ms, "whole_ms": whole_ms}
+        print(f"mesh[rank kernels]: rglru {shape} over {m} channel blocks "
+              f"of {w}: each equal to the whole call's columns, sm90; ms a "
+              f"block {min(ms):.4f}-{max(ms):.4f} (whole {whole_ms:.4f})")
+    for name, (b, tq, tk, hq, hkv, dd), ranks in MESH_RANK_FLASH:
+        q = torch.randn((b, tq, hq, dd), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((b, tk, hkv, dd), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = fm.flash_attention(q, k, v, causal=True)
+        whole_ms = cuda_ms(lambda: fm.flash_attention(q, k, v, causal=True))
+        group = hq // hkv
+        for m in ranks:
+            hr = hq // m
+            routes, ms = set(), []
+            for rank in range(m):
+                k0 = rank * hr // group
+                k1 = max(k0 + 1, (rank + 1) * hr // group)
+                heads = slice(rank * hr, (rank + 1) * hr)
+                qb = q[:, :, heads].contiguous()
+                kb, vb = (a[:, :, k0:k1].contiguous() for a in (k, v))
+                routes.add(fm.route(qb, kb, vb))
+                ob, lb = fm.flash_attention(qb, kb, vb, causal=True)
+                assert torch.equal(ob, o[:, :, heads]) and \
+                    torch.equal(lb, lse[:, heads]), ("flash block", name, m)
+                ms.append(cuda_ms(
+                    lambda: fm.flash_attention(qb, kb, vb, causal=True)))
+            assert routes == {"sm90"}, routes
+            out["flash"][f"{name} / {m}"] = {
+                "q_heads": hr, "kv_heads": k1 - k0, "block_ms": ms,
+                "whole_ms": whole_ms}
+            print(f"mesh[rank kernels]: flash {name} {(b, tq, tk, hq, hkv, dd)}"
+                  f" over {m} ranks ({hr} q heads, {k1 - k0} kv heads a "
+                  f"rank): o and lse equal to the whole call's heads, sm90; "
+                  f"ms a block {min(ms):.4f}-{max(ms):.4f} (whole "
+                  f"{whole_ms:.4f})")
+    return out
+
+
+#: `--tp-cards`: the sharded train step on (1, n) meshes of n cards (one
+#: process a card, NCCL), held to the same step on one card: (arch, layers
+#: or None for all, the train entry point's arguments, compute dtype)
+TP_CARDS = (2, 4)
+TP_TRAIN = [("llama3.2-1b", None, CONFIG_TRAIN[2:], "float32"),
+            ("llama3.2-1b", None, CONFIG_TRAIN[2:], "bfloat16"),
+            ("recurrentgemma-9b", 3, CONFIG_RECURRENT_ARGS, "bfloat16")]
+#: how far the float32 sharded losses may be from the one-card losses: the
+#: partial sums over "model" reorder float32 additions. In bfloat16 the
+#: reordered sums also flip bfloat16 roundings of the activations, so the
+#: bfloat16 steps' differences are reported, not bounded (1.4e-5-2.9e-5 at
+#: reduced width on CPU ranks, against 4.8e-7 in float32)
+TP_LOSS_ATOL = 1e-5
+
+
+def _tp_train(arch: str, layers, argv, dtype: str, dev,
+              preset: str) -> dict:
+    """`train.main` of `arch` (cut to `layers`, computing in `dtype`) from
+    seed 0's weights, the launches and tensor-parallel regions it ran."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import preset_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import build
+    from repro_torch.sharding import rules
+
+    cfg = dataclasses.replace(preset_config(arch, preset), dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    argv = ["--arch", arch] + list(argv)
+    argv[argv.index("--preset") + 1] = preset
+    argv[argv.index("--device") + 1] = dev.type
+    regions = [0]
+    exit_ = rules.tp_exit
+
+    def counted(y, mesh):
+        regions[0] += 1
+        return exit_(y, mesh)
+    rules.tp_exit = counted
+    try:
+        rep = train.main(argv, model=build(cfg, device=dev, seed=0))
+    finally:
+        rules.tp_exit = exit_
+    steps = len(rep["records"])
+    return {"losses": [r["loss"] for r in rep["records"]],
+            "step_ms": [r["ms"] for r in rep["records"]],
+            "peak_gib": rep["peak_gib"], "flash": rep["flash_launches"],
+            "rglru": rep["rglru_launches"],
+            "regions_per_step": regions[0] / steps,
+            "ranks": dist.get_world_size() if dist.is_initialized() else 1}
+
+
+def _tp_rank(rank: int, n: int, port: int, device_type: str, preset: str,
+             out_dir: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device_type, rank) if device_type == "cuda" else \
+        torch.device("cpu")
+    if device_type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=n)
+    try:
+        res = {f"{arch} {dtype}": _tp_train(arch, layers, argv, dtype, dev,
+                                            preset)
+               for arch, layers, argv, dtype in TP_TRAIN}
+        if rank == 0:
+            with open(os.path.join(out_dir, f"tp_{n}.json"), "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_cards(device_type: str = "cuda", preset: str = "full",
+                   cards=TP_CARDS) -> dict:
+    """The sharded train step across cards (`--tp-cards`): TP_TRAIN on
+    one device, then on (1, n) meshes of n processes, one card each
+    (NCCL; gloo with `device_type="cpu"`, a CPU rehearsal at `preset`
+    "reduced"): the whole step tensor-parallel over "model", float32
+    losses within TP_LOSS_ATOL of the one-device losses and the bfloat16
+    losses' differences reported, the tensor-parallel regions a step, the
+    flash and RG-LRU launches of each rank, its step ms and its peak
+    device memory."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    dev = torch.device(device_type, 0) if device_type == "cuda" else \
+        torch.device("cpu")
+    one = {}
+    for arch, layers, argv, dtype in TP_TRAIN:
+        one[f"{arch} {dtype}"] = _tp_train(arch, layers, argv, dtype, dev,
+                                           preset)
+        if device_type == "cuda":
+            _free(dev)
+    out = {"one": one}
+    work = tempfile.mkdtemp()
+    diffs = {}
+    for n in cards:
+        t = time.perf_counter()
+        mp.spawn(_tp_rank, args=(n, _free_port(), device_type, preset, work),
+                 nprocs=n)
+        with open(os.path.join(work, f"tp_{n}.json")) as f:
+            res = json.load(f)
+        for arch, r in res.items():
+            diff = max(abs(a - b) for a, b in
+                       zip(r["losses"], one[arch]["losses"]))
+            r["max_loss_diff"] = diff
+            print(f"tp[{n} cards]: {arch}: losses {r['losses']} (one card "
+                  f"{one[arch]['losses']}, max |diff| {diff:.3e}); "
+                  f"{r['regions_per_step']:g} tensor-parallel regions a step;"
+                  f" rank 0: {r['flash']} flash, {r['rglru']} rglru launches,"
+                  f" step ms {[round(x, 2) for x in r['step_ms']]}, peak "
+                  f"{r['peak_gib']} GiB", flush=True)
+            diffs[(n, arch)] = diff
+        out[n] = res
+        out[f"{n}_s"] = time.perf_counter() - t
+    f32 = {k: d for k, d in diffs.items() if k[1].endswith("float32")}
+    assert max(f32.values()) <= TP_LOSS_ATOL, diffs
     return out
 
 
@@ -3324,6 +3549,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--tp-cards" in sys.argv[1:]:
+        tp = phase_tp_cards()
+        print("tp: " + json.dumps(tp))
+        print(f"gpu: {smi_line()}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     phases = {}
 
     t = time.perf_counter()
@@ -3534,7 +3767,7 @@ def main() -> int:
              "launches_per_step": tr["per_step"],
              "train_agree": tra, "mesh_train": mesh["train"]}
     print("mesh: " + json.dumps({k: mesh[k] for k in (
-        "sharded", "train", "moe", "dryrun")}))
+        "sharded", "train", "moe", "dryrun", "rank_kernels")}))
     print("configs: " + json.dumps({k: conf[k] for k in (
         "peak_gib", "serve", "train", "agree", "recurrent_train",
         "recurrent_agree")}))

@@ -22,16 +22,19 @@ decode, as the shape says) runs for rank 0 of the mesh:
     step's inputs and outputs; temp and alias bytes, which XLA alone
     gives, stay None (the reference's `getattr(..., None)` allows it).
     The weights a rank gathers at their use are such temporaries, so the
-    figure does not show them: a "model" block for the tensor-parallel
-    projections, the whole weight for every other layer.
+    figure does not show them: a "model" block for every weight the specs
+    split on "model", the whole weight for the rest.
 
 The kernels take their plain versions on `meta` (`repro_torch.PLAIN_DEVICES`).
 Global FLOPs and bytes are the per-partition figures times the ranks,
 each against the analytic model, the larger kept (both recorded), as the
-reference does. The port's step runs dense MLPs (and the train step's
-GQA attention) tensor-parallel over "model" and every other layer whole on
-each "model" rank (`repro_torch.models.model`), so its traced FLOPs count
-that replication: `useful_flops_ratio` shows it.
+reference does. The port's step splits every weight the specs shard on
+"model" over the "model" ranks, as GSPMD splits the reference's
+(`repro_torch.models.model`): the traced FLOPs are one rank's share of the
+split step. What stays whole on every "model" rank is what the specs place
+whole there (norms, routers, MLA's w_kv_a and latent projection, the
+softmax of attention split by head_dim) and xLSTM (its config turns
+tensor parallelism off).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b \\
       --shape decode_32k --mesh single --out build/dryrun
@@ -59,7 +62,7 @@ from repro_torch.configs import (SHAPES, get_config, input_specs,
                                  shape_applicable)
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
-from repro_torch.models.model import build
+from repro_torch.models.model import XLSTM_CELLS, build
 from repro_torch.optim import adamw
 from repro_torch.sharding import (batch_specs, cache_specs, distribute,
                                   distribute_model, to_named)
@@ -211,8 +214,8 @@ def trace_cell(arch_name: str, shape_name: str, multi_pod: bool,
                     new_caches, logits = model.decode_step(caches, batch)
             # outputs placed as the reference's out_shardings: the caches
             # by their specs (this rank's shard), the logits as computed
-            out_bytes = _local_bytes(_shards(new_caches, c_named, mesh)) + \
-                _nbytes(logits)
+            out_bytes = _local_bytes(_shards(new_caches, c_named, mesh,
+                                             model.kinds)) + _nbytes(logits)
         trace_s = time.monotonic() - t0
 
     meta = {
@@ -235,9 +238,10 @@ def trace_cell(arch_name: str, shape_name: str, multi_pod: bool,
     return figures, meta
 
 
-def _shards(caches, named, mesh):
-    """This rank's shard of each new cache under its spec (the step
-    returns this rank's rows, whole in the "model"-sharded dims)."""
+def _shards(caches, named, mesh, kinds):
+    """This rank's shard of each new cache under its spec: the step
+    returns it (this rank's rows and "model" block of the feature dim),
+    but for the xLSTM states, which it returns whole in their features."""
     from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.sharding import rules
@@ -246,6 +250,8 @@ def _shards(caches, named, mesh):
     rules.map_with_path(lambda p, s: flat.__setitem__(p, s), named)
 
     def one(path, t):
+        if kinds[int(path[0])] not in XLSTM_CELLS:
+            return t
         full = DTensor.from_local(t, mesh, rules.batch_placements(mesh)
                                   if _dp_sharded(flat[path]) else
                                   [Replicate()] * mesh.ndim,

@@ -25,9 +25,11 @@ from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding import rules as shard_rules
 from .blockwise_attention import blockwise_attention
 from .layers import (
     _dense_init,
@@ -44,14 +46,18 @@ BLOCKWISE_MIN_LEN = 1024
 Params = Dict[str, Any]
 
 
-def _sdpa(q, k, v, mask, scale) -> torch.Tensor:
+def _sdpa(q, k, v, mask, scale, scores_reduce=None) -> torch.Tensor:
     """[B,Tq,H,D] x [B,Tk,Hkv,D] grouped attention with explicit mask,
-    f32 accumulation, output in q's dtype."""
+    f32 accumulation, output in q's dtype. `scores_reduce` sums the scores
+    of a tensor-parallel rank's block of head_dim over the ranks (`scale`
+    is then the whole head's)."""
     b, tq, hq, d = q.shape
     hkv = k.shape[2]
     group = hq // hkv
     qg = (q * torch.tensor(scale, dtype=q.dtype)).reshape(b, tq, hkv, group, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    if scores_reduce is not None:
+        logits = scores_reduce(logits)
     logits = torch.where(mask[:, None, None], logits,
                          torch.tensor(-1e30, dtype=logits.dtype,
                                       device=logits.device))
@@ -173,20 +179,48 @@ def _gqa_qkv(p, cfg: ArchConfig, x, positions):
     return q, k, v
 
 
-def _attend(q, k, v, scale, window: int = 0):
+def _window_mask(tq: int, tk: int, window: int, device) -> torch.Tensor:
+    mask = _causal_mask(tq, tk, device)
+    if window:
+        qpos = torch.arange(tq, device=device)[:, None] + (tk - tq)
+        kpos = torch.arange(tk, device=device)[None, :]
+        mask = mask & (qpos - kpos < window)[None]
+    return mask
+
+
+def _attend(q, k, v, scale, window: int = 0, scores_reduce=None):
     """Causal attention: dense (exact) below the blockwise threshold, the
     blockwise custom-backward form from it; `window` > 0 also masks keys
     `window` or more positions behind the query (sliding-window local
-    attention)."""
+    attention). With `scores_reduce` (q, k, v a tensor-parallel rank's
+    block of head_dim: see `_sdpa`) it is the dense form, from the
+    threshold over query blocks of 512 that each read only the keys they
+    can see and rerun in the backward."""
+    if scores_reduce is not None:
+        return _attend_split(q, k, v, scale, window, scores_reduce)
     if q.shape[1] >= BLOCKWISE_MIN_LEN:
         return blockwise_attention(q, k, v, True, scale, window, 512)
-    tq, tk = q.shape[1], k.shape[1]
-    mask = _causal_mask(tq, tk, q.device)
-    if window:
-        qpos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
-        kpos = torch.arange(tk, device=q.device)[None, :]
-        mask = mask & (qpos - kpos < window)[None]
+    mask = _window_mask(q.shape[1], k.shape[1], window, q.device)
     return _sdpa(q, k, v, mask, scale)
+
+
+def _attend_split(q, k, v, scale, window, scores_reduce, block: int = 512):
+    t = q.shape[1]
+    if t < BLOCKWISE_MIN_LEN:
+        mask = _window_mask(t, t, window, q.device)
+        return _sdpa(q, k, v, mask, scale, scores_reduce)
+
+    def part(qb, kb, vb):     # the block's queries end where its keys do
+        mask = _window_mask(qb.shape[1], kb.shape[1], window, q.device)
+        return _sdpa(qb, kb, vb, mask, scale, scores_reduce)
+    outs = []
+    for q0 in range(0, t, block):
+        q1 = min(q0 + block, t)
+        k0 = max(0, q0 - window + 1) if window else 0
+        args = (q[:, q0:q1], k[:, k0:q1], v[:, k0:q1])
+        outs.append(checkpoint(part, *args, use_reentrant=False)
+                    if torch.is_grad_enabled() else part(*args))
+    return torch.cat(outs, dim=1)
 
 
 def gqa_apply(p, cfg: ArchConfig, x, positions,
@@ -216,23 +250,35 @@ def gqa_prefill(p, cfg: ArchConfig, x, positions,
     q, k, v = _gqa_qkv(p, cfg, x, positions)
     o = _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5)
     y = _out_proj(o, p["wo"], x.dtype)
-    t = k.shape[1]
-    cache = gqa_make_cache(cfg, x.shape[0], max_len, x.dtype, x.device)
-    cache["k"][:, :t] = k
-    cache["v"][:, :t] = v
-    return y, cache
+    return y, _dense_cache(k, v, max_len)
 
 
-def _decode_cache(cfg, x, cache, positions, p):
-    q, k, v = _gqa_qkv(p, cfg, x, positions[:, None])
-    bidx = torch.arange(x.shape[0], device=x.device)
+def _dense_cache(k, v, max_len: int) -> Params:
+    """A prompt's K/V [B, T, Hkv, hd] at the head of a `max_len` cache."""
+    shape = (k.shape[0], max_len) + tuple(k.shape[2:])
+    cache = {"k": torch.zeros(shape, dtype=k.dtype, device=k.device),
+             "v": torch.zeros(shape, dtype=v.dtype, device=v.device)}
+    cache["k"][:, :k.shape[1]] = k
+    cache["v"][:, :v.shape[1]] = v
+    return cache
+
+
+def _dense_write(cache, k, v, positions):
+    """The cache with one token's K/V at `positions` [B], and the valid
+    mask [B, S] of the positions up to it."""
+    bidx = torch.arange(k.shape[0], device=k.device)
     ck, cv = cache["k"].clone(), cache["v"].clone()
     pos = positions.long()
     ck[bidx, pos] = k[:, 0]
     cv[bidx, pos] = v[:, 0]
     t_max = ck.shape[1]
-    valid = torch.arange(t_max, device=x.device)[None, :] <= positions[:, None]
-    return q, ck, cv, valid
+    valid = torch.arange(t_max, device=k.device)[None, :] <= positions[:, None]
+    return ck, cv, valid
+
+
+def _decode_cache(cfg, x, cache, positions, p):
+    q, k, v = _gqa_qkv(p, cfg, x, positions[:, None])
+    return (q,) + _dense_write(cache, k, v, positions)
 
 
 def gqa_decode(p, cfg: ArchConfig, x, cache: Params,
@@ -288,34 +334,48 @@ def local_prefill(p, cfg: ArchConfig, x,
     w = cfg.local_window
     o = _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5, window=w)
     y = _out_proj(o, p["wo"], x.dtype)
+    return y, _ring_cache(k, v, w)
+
+
+def _ring_cache(k, v, w: int) -> Params:
+    """A prompt's last `w` K/V [B, T, Hkv, hd] in the ring layout (slot =
+    pos % w)."""
     t = k.shape[1]
-    cache = local_make_cache(cfg, x.shape[0], k.dtype, x.device)
+    shape = (k.shape[0], w) + tuple(k.shape[2:])
+    cache = {"k": torch.zeros(shape, dtype=k.dtype, device=k.device),
+             "v": torch.zeros(shape, dtype=v.dtype, device=v.device)}
     if t >= w:
-        slots = torch.arange(t - w, t, device=x.device) % w
+        slots = torch.arange(t - w, t, device=k.device) % w
         cache["k"][:, slots] = k[:, t - w:]
         cache["v"][:, slots] = v[:, t - w:]
     else:
         cache["k"][:, :t] = k
         cache["v"][:, :t] = v
-    return y, cache
+    return cache
+
+
+def _ring_write(cache, k, v, positions, w: int):
+    """The ring with one token's K/V in slot positions % w, and the valid
+    mask [B, w]: a slot is valid when the absolute position it holds is
+    >= 0 and within the window of `positions`."""
+    slot = (positions % w).long()
+    bidx = torch.arange(k.shape[0], device=k.device)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    ck[bidx, slot] = k[:, 0]
+    cv[bidx, slot] = v[:, 0]
+    slot_ids = torch.arange(w, device=k.device)[None, :]
+    # absolute position held by slot s: positions - ((positions - s) mod w)
+    abs_pos = positions[:, None] - (positions[:, None] - slot_ids) % w
+    valid = (abs_pos >= 0) & (abs_pos >= positions[:, None] - (w - 1))
+    return ck, cv, valid
 
 
 def local_decode(p, cfg: ArchConfig, x, cache: Params,
                  positions) -> Tuple[torch.Tensor, Params]:
     """x: [B, 1, D]; positions: [B] = absolute index of the new token, which
-    lands in slot positions % window. A slot is valid when the absolute
-    position it holds is >= 0 and within the window of `positions`."""
+    lands in slot positions % window."""
     q, k, v = _gqa_qkv(p, cfg, x, positions[:, None])
-    w = cfg.local_window
-    slot = (positions % w).long()
-    bidx = torch.arange(x.shape[0], device=x.device)
-    ck, cv = cache["k"].clone(), cache["v"].clone()
-    ck[bidx, slot] = k[:, 0]
-    cv[bidx, slot] = v[:, 0]
-    slot_ids = torch.arange(w, device=x.device)[None, :]
-    # absolute position held by slot s: positions - ((positions - s) mod w)
-    abs_pos = positions[:, None] - (positions[:, None] - slot_ids) % w
-    valid = (abs_pos >= 0) & (abs_pos >= positions[:, None] - (w - 1))
+    ck, cv, valid = _ring_write(cache, k, v, positions, cfg.local_window)
     o = _sdpa(q, ck, cv, valid[:, None, :], 1.0 / cfg.head_dim ** 0.5)
     return _out_proj(o, p["wo"], x.dtype), {"k": ck, "v": cv}
 
@@ -341,10 +401,11 @@ def mla_init(gen, cfg: ArchConfig, dtype, device) -> Params:
     }
 
 
-def _mla_project(p, cfg: ArchConfig, x, positions):
-    """(q_nope, q_rope [B,T,H,*], c_kv [B,T,R] normed, k_rope [B,T,rope])."""
+def _mla_project(p, cfg: ArchConfig, x, positions, q=None):
+    """(q_nope, q_rope [B,T,H,*], c_kv [B,T,R] normed, k_rope [B,T,rope]);
+    `q`, when given, is x's query projection."""
     m = cfg.mla
-    q = _proj(x, p["wq"])
+    q = _proj(x, p["wq"]) if q is None else q
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv_a = torch.matmul(x.float(), p["w_kv_a"].float()).to(x.dtype)
@@ -392,15 +453,16 @@ def _mla_attend_blockwise(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope):
     return blockwise_attention(q_cat, k_cat, v, True, _mla_scale(cfg), 0, 512)
 
 
-def _mla_full(p, cfg: ArchConfig, x, positions):
-    """MLA over a whole sequence: the output and the latent K/V."""
+def _mla_full(p, cfg: ArchConfig, x, positions, reduce=None):
+    """MLA over a whole sequence: the output and the latent K/V (`reduce`
+    as in `_out_proj`)."""
     q_nope, q_rope, c_kv, k_rope = _mla_project(p, cfg, x, positions)
     if x.shape[1] >= BLOCKWISE_MIN_LEN:
         o = _mla_attend_blockwise(p, cfg, q_nope, q_rope, c_kv, k_rope)
     else:
         mask = _causal_mask(x.shape[1], x.shape[1], x.device)
         o = _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, mask)
-    return _out_proj(o.to(x.dtype), p["wo"], x.dtype), c_kv, k_rope
+    return _out_proj(o.to(x.dtype), p["wo"], x.dtype, reduce), c_kv, k_rope
 
 
 def mla_apply(p, cfg: ArchConfig, x, positions) -> torch.Tensor:
@@ -419,11 +481,18 @@ def mla_make_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
 def mla_prefill(p, cfg: ArchConfig, x, positions,
                 max_len: int) -> Tuple[torch.Tensor, Params]:
     y, c_kv, k_rope = _mla_full(p, cfg, x, positions)
-    t = c_kv.shape[1]
-    cache = mla_make_cache(cfg, x.shape[0], max_len, x.dtype, x.device)
-    cache["c_kv"][:, :t] = c_kv
-    cache["k_rope"][:, :t] = k_rope
-    return y, cache
+    return y, _latent_cache(c_kv, k_rope, max_len)
+
+
+def _latent_cache(c_kv, k_rope, max_len: int) -> Params:
+    """A prompt's latent and rope K [B, T, *] at the head of a `max_len`
+    cache."""
+    cache = {}
+    for name, t in (("c_kv", c_kv), ("k_rope", k_rope)):
+        cache[name] = torch.zeros((t.shape[0], max_len, t.shape[-1]),
+                                  dtype=t.dtype, device=t.device)
+        cache[name][:, :t.shape[1]] = t
+    return cache
 
 
 def mla_decode(p, cfg: ArchConfig, x, cache: Params,
@@ -440,4 +509,236 @@ def mla_decode(p, cfg: ArchConfig, x, cache: Params,
         <= positions[:, None]
     o = _mla_attend(p, cfg, q_nope, q_rope, cc, cr, valid[:, None, :])
     return _out_proj(o.to(x.dtype), p["wo"], x.dtype), \
+        {"c_kv": cc, "k_rope": cr}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over "model": a rank's block of heads or of head_dim
+# (the reference's specs: `sharding.rules._rule`), joined by the collectives
+# of `sharding.rules` (tp_enter / tp_exit / tp_sum / tp_gather /
+# tp_scatter). The caches' specs split the feature dim (head_dim, the MLA
+# latent and rope widths) over "model", so a rank keeps that block of every
+# cache; decode scores are partial over it and summed by one all-reduce.
+# ---------------------------------------------------------------------------
+
+
+def _qk_block(x, w, norm, cfg: ArchConfig, positions, mesh, rope=True):
+    """x's projection on w's block of head_dim (this rank's), with the qk
+    norm over the whole head (its sum of squares summed over the ranks)
+    and RoPE at the block's offset."""
+    t = _proj(x, w)
+    hd = cfg.head_dim
+    if norm is not None:
+        tf = t.float()
+        ss = shard_rules.tp_sum((tf * tf).sum(-1, keepdim=True), mesh)
+        y = tf * torch.rsqrt(ss / hd + cfg.norm_eps)
+        scale = norm["scale"][shard_rules.model_block(mesh, hd)]
+        t = (y * scale.float()).to(t.dtype)
+    if not rope:
+        return t
+    off = shard_rules.model_block(mesh, hd).start
+    return apply_rope(t, positions, cfg.rope_theta, width=hd, offset=off)
+
+
+def _qk_whole(x, w, norm, cfg: ArchConfig, positions):
+    t = _proj(x, w)
+    if norm is not None:
+        t = rmsnorm(norm, t, cfg.norm_eps)
+    return apply_rope(t, positions, cfg.rope_theta)
+
+
+def _scores_sum(mesh):
+    return lambda s: shard_rules.tp_sum(s, mesh)
+
+
+def _core(q, k, v, cfg: ArchConfig, window: int, use_flash: bool):
+    if use_flash:
+        return kops.attention(q, k, v, causal=True)
+    return _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5, window=window)
+
+
+def gqa_heads_tp(p, cfg: ArchConfig, x, positions, mesh, window: int = 0,
+                 use_flash: bool = False, kv_whole: bool = False,
+                 keep_kv: bool = False):
+    """Train or prefill attention over this rank's block of query heads
+    (p["wq"] [D, Hr, hd], p["wo"] [Hr, hd, D]) and the key/value heads
+    they read: p["wk"]/p["wv"] this rank's block of kv heads, or with
+    `kv_whole` every kv head (gathered whole: the kv groups straddle the
+    ranks), of which the rank reads its own. Returns (y after one
+    all-reduce, and with `keep_kv` this rank's head_dim block of every kv
+    head's K and V for the caches, else None)."""
+    x = shard_rules.tp_enter(x, mesh)
+    hq = p["wq"].shape[1]
+    group = cfg.n_heads // cfg.n_kv_heads
+    k0 = shard_rules.model_rank(mesh) * hq // group
+    k1 = max(k0 + 1, (shard_rules.model_rank(mesh) + 1) * hq // group)
+    wk, wv = p["wk"], p["wv"]
+    if kv_whole and not keep_kv:         # only the heads this rank reads
+        wk, wv = wk[:, k0:k1], wv[:, k0:k1]
+    q = _qk_whole(x, p["wq"], p.get("q_norm"), cfg, positions)
+    k = _qk_whole(x, wk, p.get("k_norm"), cfg, positions)
+    v = _proj(x, wv)
+    kv = None
+    if keep_kv:
+        blk = shard_rules.model_block(mesh, cfg.head_dim)
+        if kv_whole:
+            kv = (k[..., blk], v[..., blk])
+            k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+        else:
+            kv = tuple(shard_rules.tp_gather(t, mesh, 2)[..., blk]
+                       for t in (k, v))
+    o = _core(q, k, v, cfg, window, use_flash)
+    y = _out_proj(o, p["wo"], x.dtype,
+                  lambda t: shard_rules.tp_exit(t, mesh))
+    return y, kv
+
+
+def gqa_head_dim_tp(p, cfg: ArchConfig, x, positions, mesh,
+                    window: int = 0):
+    """Train or prefill attention on this rank's block of head_dim of
+    every head (wq, wk, wv [D, H, hd/m], wo [H, hd/m, D]): partial scores
+    summed by one all-reduce, the softmax on the whole scores, P V and
+    the row-parallel wo on the block, one all-reduce. Returns (y, (k, v)
+    this rank's blocks, the caches' layout)."""
+    x = shard_rules.tp_enter(x, mesh)
+    q = _qk_block(x, p["wq"], p.get("q_norm"), cfg, positions, mesh)
+    k = _qk_block(x, p["wk"], p.get("k_norm"), cfg, positions, mesh)
+    v = _proj(x, p["wv"])
+    o = _attend(q, k, v, 1.0 / cfg.head_dim ** 0.5, window=window,
+                scores_reduce=_scores_sum(mesh))
+    y = _out_proj(o, p["wo"], x.dtype,
+                  lambda t: shard_rules.tp_exit(t, mesh))
+    return y, (k, v)
+
+
+def gqa_decode_tp(p, cfg: ArchConfig, x, cache: Params, positions, mesh,
+                  window: int = 0):
+    """One decode step on this rank's head_dim block of the cache (dense,
+    or the ring with `window`). Queries and the new K/V come from the
+    rank's blocks of heads (gathered over the ranks, then the head_dim
+    block taken) or of head_dim, as the weights are split; the scores
+    [B, H, 1, S] are summed by one all-reduce; the output's head_dim
+    blocks are gathered back to heads where wo is split by head."""
+    pos = positions[:, None]
+    blk = shard_rules.model_block(mesh, cfg.head_dim)
+
+    def proj(w, norm, rope=True):
+        if w.shape[-1] == cfg.head_dim:      # a block of heads
+            t = _qk_whole(x, w, norm, cfg, pos) if rope else _proj(x, w)
+            return shard_rules.tp_gather(t, mesh, 2)[..., blk]
+        return _qk_block(x, w, norm, cfg, pos, mesh, rope)
+    q = proj(p["wq"], p.get("q_norm"))
+    k = proj(p["wk"], p.get("k_norm"))
+    v = proj(p["wv"], None, rope=False)
+    if window:
+        ck, cv, valid = _ring_write(cache, k, v, positions, window)
+    else:
+        ck, cv, valid = _dense_write(cache, k, v, positions)
+    o = _sdpa(q, ck, cv, valid[:, None, :], 1.0 / cfg.head_dim ** 0.5,
+              _scores_sum(mesh))
+    if p["wo"].shape[1] == cfg.head_dim:     # wo by head: this rank's
+        o = shard_rules.tp_gather(o, mesh, 3)[
+            :, :, shard_rules.model_block(mesh, cfg.n_heads)]
+    return _out_proj(o, p["wo"], x.dtype,
+                     lambda t: shard_rules.tp_exit(t, mesh)), \
+        {"k": ck, "v": cv}
+
+
+def mla_heads_tp(p, cfg: ArchConfig, x, positions, mesh):
+    """Train or prefill MLA on this rank's block of heads (wq, w_uk, w_uv
+    by head, wo row-parallel; w_kv_a and the latent whole on every rank).
+    Returns (y, (c_kv, k_rope) this rank's blocks of the latent and rope
+    widths, the caches' layout)."""
+    x = shard_rules.tp_enter(x, mesh)
+    y, c_kv, k_rope = _mla_full(p, cfg, x, positions,
+                                lambda t: shard_rules.tp_exit(t, mesh))
+    m = cfg.mla
+    return y, (c_kv[..., shard_rules.model_block(mesh, m.kv_lora_rank)],
+               k_rope[..., shard_rules.model_block(mesh, m.qk_rope_dim)])
+
+
+def _mla_latent_tp(p, cfg: ArchConfig, q_lat, q_rope, c_kv, k_rope, mask,
+                   mesh):
+    """Softmax(QK^T) of MLA's absorbed form from this rank's blocks of the
+    latent (q_lat [B,T,H,R/m] against c_kv [B,S,R/m]) and of the rope
+    width (q_rope [B,T,H,rope/m], k_rope [B,S,rope/m]): partial scores
+    summed by one all-reduce. Returns the whole probabilities [B,H,T,S]."""
+    s = torch.einsum("bthr,bsr->bhts", q_lat, c_kv.float()) + \
+        torch.einsum("bthk,bsk->bhts", q_rope.float(), k_rope.float())
+    logits = shard_rules.tp_sum(s, mesh) * _mla_scale(cfg)
+    logits = torch.where(mask[:, None], logits,
+                         torch.tensor(-1e30, dtype=logits.dtype,
+                                      device=logits.device))
+    return torch.softmax(logits, dim=-1)
+
+
+def mla_head_dim_tp(p, cfg: ArchConfig, x, positions, mesh,
+                    cache: Optional[Params] = None):
+    """MLA where the specs split wq by its feature dim, w_uk and w_uv by
+    the latent and wo by v_head_dim (heads not divisible by "model"): the
+    queries gathered whole, the absorbed form on this rank's latent and
+    rope blocks (`_mla_latent_tp`), the values' partial sums over the
+    latent reduce-scattered to the rank's v_head_dim block for the
+    row-parallel wo. Over a whole sequence (`cache` None) returns (y,
+    (c_kv, k_rope) blocks); in decode (x [B, 1, D], positions [B]) it
+    writes the new token into the cache blocks and returns (y, cache)."""
+    m = cfg.mla
+    rb = shard_rules.model_block(mesh, m.kv_lora_rank)
+    eb = shard_rules.model_block(mesh, m.qk_rope_dim)
+    x = shard_rules.tp_enter(x, mesh)
+    pos = positions if cache is None else positions[:, None]
+    q = shard_rules.tp_gather(_proj(x, p["wq"]), mesh, 3)
+    q_nope, q_rope, c_kv, k_rope = _mla_project(p, cfg, x, pos, q=q)
+    q_nope, q_rope = (shard_rules.tp_enter(t, mesh) for t in (q_nope, q_rope))
+    if cache is None:
+        t = x.shape[1]
+        mask = _causal_mask(t, t, x.device)
+        kv = (c_kv[..., rb], k_rope[..., eb])
+        cc, cr = kv
+    else:
+        bidx = torch.arange(x.shape[0], device=x.device)
+        at = positions.long()
+        cc, cr = cache["c_kv"].clone(), cache["k_rope"].clone()
+        cc[bidx, at] = c_kv[:, 0, rb]
+        cr[bidx, at] = k_rope[:, 0, eb]
+        mask = (torch.arange(cc.shape[1], device=x.device)[None, :]
+                <= positions[:, None])[:, None, :]
+        kv = {"c_kv": cc, "k_rope": cr}
+    q_lat = torch.einsum("bthk,rhk->bthr", q_nope.float(), p["w_uk"].float())
+    probs = _mla_latent_tp(p, cfg, q_lat, q_rope[..., eb], cc, cr, mask, mesh)
+    o_lat = torch.einsum("bhts,bsr->bthr", probs, cc.float())
+    o = torch.einsum("bthr,rhv->bthv", o_lat, p["w_uv"].float())
+    o = shard_rules.tp_scatter(o, mesh, 3)
+    return _out_proj(o.to(x.dtype), p["wo"], x.dtype,
+                     lambda t: shard_rules.tp_exit(t, mesh)), kv
+
+
+def mla_decode_heads_tp(p, cfg: ArchConfig, x, cache: Params, positions,
+                        mesh):
+    """MLA decode on this rank's block of heads and of the latent cache:
+    the heads' absorbed queries gathered over the ranks and cut to the
+    rank's latent and rope blocks, partial scores summed by one
+    all-reduce, the latent output's blocks gathered back and cut to the
+    rank's heads for w_uv and the row-parallel wo."""
+    m = cfg.mla
+    rb = shard_rules.model_block(mesh, m.kv_lora_rank)
+    eb = shard_rules.model_block(mesh, m.qk_rope_dim)
+    q_nope, q_rope, c_kv, k_rope = _mla_project(p, cfg, x, positions[:, None])
+    bidx = torch.arange(x.shape[0], device=x.device)
+    at = positions.long()
+    cc, cr = cache["c_kv"].clone(), cache["k_rope"].clone()
+    cc[bidx, at] = c_kv[:, 0, rb]
+    cr[bidx, at] = k_rope[:, 0, eb]
+    mask = (torch.arange(cc.shape[1], device=x.device)[None, :]
+            <= positions[:, None])[:, None, :]
+    q_lat = torch.einsum("bthk,rhk->bthr", q_nope.float(), p["w_uk"].float())
+    q_lat = shard_rules.tp_gather(q_lat, mesh, 2)[..., rb]
+    q_rope = shard_rules.tp_gather(q_rope, mesh, 2)[..., eb]
+    probs = _mla_latent_tp(p, cfg, q_lat, q_rope, cc, cr, mask, mesh)
+    o_lat = torch.einsum("bhts,bsr->bthr", probs, cc.float())
+    o_lat = shard_rules.tp_gather(o_lat, mesh, 3)[
+        :, :, shard_rules.model_block(mesh, cfg.n_heads)]
+    o = torch.einsum("bthr,rhv->bthv", o_lat, p["w_uv"].float())
+    return _out_proj(o.to(x.dtype), p["wo"], x.dtype,
+                     lambda t: shard_rules.tp_exit(t, mesh)), \
         {"c_kv": cc, "k_rope": cr}

@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.cim import array as array_mod
 from repro_torch.cim.trace import int_contract
+from repro_torch.sharding import rules
 
 Params = Dict[str, torch.Tensor]
 
@@ -63,11 +64,14 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Interleaved (adjacent-pair) RoPE: x [B, T, H, D], positions [B, T]."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               width: Optional[int] = None, offset: int = 0) -> torch.Tensor:
+    """Interleaved (adjacent-pair) RoPE: x [B, T, H, D], positions [B, T].
+    With `width`, x holds features offset..offset+D of a `width`-wide head
+    (a tensor-parallel rank's block of head_dim; `offset` even)."""
     d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, x.device)
+    freqs = rope_frequencies(width or d, theta, x.device)
+    freqs = freqs[offset // 2:offset // 2 + d // 2]
     angles = positions.unsqueeze(-1).float() * freqs          # [B, T, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -82,8 +86,6 @@ def hint_batch_sharding(x: torch.Tensor) -> torch.Tensor:
     activation is redistributed to that layout when a mesh is in scope
     (`repro_torch.sharding.use_mesh`); anything else passes through, as the
     reference's hint is a no-op without a mesh."""
-    from repro_torch.sharding import rules
-
     mesh = rules.current_mesh()
     if mesh is None or not rules.is_dtensor(x):
         return x
@@ -97,8 +99,6 @@ def hint_activation_sharding(x: torch.Tensor) -> torch.Tensor:
     (n_layers x [B, S, d]); 2-D sharding cuts them by the model-axis width.
     Falls back to batch-only for short sequences / decode steps (and for a
     sequence the model axis does not divide)."""
-    from repro_torch.sharding import rules
-
     mesh = rules.current_mesh()
     if mesh is None or not rules.is_dtensor(x):
         return x
@@ -315,8 +315,21 @@ def embed_init(gen, vocab: int, d_model: int, dtype, device) -> Params:
     return {"table": _dense_init(gen, (vocab, d_model), d_model, dtype, device)}
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def embed(p: Params, tokens: torch.Tensor, mesh=None,
+          v0: int = 0) -> torch.Tensor:
+    """Rows of the table for `tokens`. With `mesh`, p["table"] is this
+    rank's vocab block (rows v0..): tokens outside it give zero rows and
+    one all-reduce over "model" sums the ranks' rows (each token's row
+    comes from the one rank that holds it, so the sum is exact)."""
+    if mesh is None:
+        return p["table"][tokens]
+    n = p["table"].shape[0]
+    local = tokens.long() - v0
+    mine = (local >= 0) & (local < n)
+    rows = p["table"][local.clamp(0, n - 1)]
+    return rules.tp_exit(torch.where(mine[..., None], rows,
+                                     torch.zeros((), dtype=rows.dtype,
+                                                 device=rows.device)), mesh)
 
 
 def lm_head_init(gen, d_model: int, vocab: int, dtype, device) -> Params:
@@ -330,22 +343,30 @@ def lm_head_init(gen, d_model: int, vocab: int, dtype, device) -> Params:
 
 def chunked_lm_loss(x: torch.Tensor, w_head: torch.Tensor,
                     targets: torch.Tensor, real_vocab: int,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512, mesh=None, v0: int = 0
+                    ) -> torch.Tensor:
     """Mean CE over x [B, S, D] and targets [B, S] without materializing
     the [B, S, V] logits: sequence chunks of `chunk` tokens (the largest
     divisor of S not above it), each run under `torch.utils.checkpoint` (the
     reference's `jax.checkpoint`), so its logits are recomputed in the
     backward and peak memory is one chunk's logits. Padded vocab columns
-    are masked to -1e30."""
+    are masked to -1e30. With `mesh`, w_head is this rank's column block
+    (vocab columns v0..) and the CE is vocab-parallel
+    (`cross_entropy_split`): no rank holds a chunk's whole logits."""
     b, s, _ = x.shape
     v = w_head.shape[-1]
     c = chunk
     while s % c:
         c -= 1
-    pad_mask = (torch.arange(v, device=x.device) >= real_vocab) * (-1e30)
+    cols = torch.arange(v0, v0 + v, device=x.device)
+    pad_mask = (cols >= real_vocab) * (-1e30)
+    if mesh is not None:
+        x = rules.tp_enter(x, mesh)
 
     def body(xc, tc):
         logits = torch.matmul(xc.float(), w_head.float()) + pad_mask
+        if mesh is not None:
+            return torch.sum(cross_entropy_split(logits, tc, cols, mesh))
         return torch.sum(cross_entropy(logits, tc))
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -373,3 +394,42 @@ def cross_entropy(logits_f32: torch.Tensor,
                                             device=logits_f32.device)),
                     dim=-1)
     return lse - tgt
+
+
+class _SplitMax(torch.autograd.Function):
+    """The max over the vocab of logits split by column over "model" (one
+    all-reduce); its gradient goes to the global argmax, split evenly over
+    ties on every rank, as `torch.amax`'s over the whole row."""
+
+    @staticmethod
+    def forward(ctx, logits, mesh):
+        m = rules.model_max(torch.amax(logits, dim=-1), mesh)
+        ctx.save_for_backward(logits, m)
+        ctx.mesh = mesh
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, m = ctx.saved_tensors
+        hit = logits == m[..., None]
+        count = rules.model_sum(hit.sum(-1).to(g.dtype), ctx.mesh)
+        return (g / count)[..., None] * hit, None
+
+
+def cross_entropy_split(logits_f32: torch.Tensor, targets: torch.Tensor,
+                        cols: torch.Tensor, mesh) -> torch.Tensor:
+    """`cross_entropy` over logits split by column over "model" (this
+    rank's columns `cols`): the row max, the sum of exponentials and the
+    target logit each summed over the ranks (one all-reduce of the max,
+    one of the two sums), the same function and gradient (+1 at the global
+    argmax) as over the whole row."""
+    m = _SplitMax.apply(logits_f32, mesh)
+    shifted = logits_f32 - m.detach()[..., None]
+    onehot = cols == targets[..., None]
+    tgt = torch.sum(torch.where(onehot, logits_f32,
+                                torch.zeros((), dtype=logits_f32.dtype,
+                                            device=logits_f32.device)),
+                    dim=-1)
+    sums = rules.tp_exit(torch.stack([torch.sum(torch.exp(shifted), dim=-1),
+                                      tgt]), mesh)
+    return torch.log(sums[0]) + m - sums[1]

@@ -50,24 +50,35 @@ MoE layers add their load-balancing loss: `loss = ce + 0.01 * aux`.
 
 On a mesh (`repro_torch.sharding.distribute_model`) the parameters are
 DTensors placed by the reference's specs and a step runs on each dp rank's
-rows. The projections the specs shard on "model" run tensor-parallel,
-Megatron's way (`_mlp_tp`, `_attn_tp`): a dense MLP (w_in/w_gate by
-column, w_out by row) in every step, and global or sliding-window GQA
-attention in the train step (wq and wo by head, each rank attending over
-its block of heads, the flash kernel included); each rank gathers its
-"model" block of those weights over the dp axes only and one all-reduce
-over "model" sums the partial outputs. Every other parameter is gathered
-whole at its use (`_cast`, `_train_cast`, `_whole`: an all-gather, whose
-backward reduce-scatters the dp ranks' partial gradients) and its layer
-runs whole on each "model" rank: MLA, MoE experts, the RG-LRU and xLSTM
-blocks, the embedding and head, the CiM MLPs, and attention in prefill
-and decode (the caches' specs shard head_dim, not heads). The activation
-between train layers is a DTensor under the reference's hint (batch on
-the dp axes, sequence on "model", gathered again at each layer's input),
-a MoE layer gathers its batch over the dp axes and keeps its own rows of
-the output (routing is global, as the reference's), and caches and
-batches are taken to this rank's rows. Everything in a layer (the
-kernels' autograd Functions included) runs on plain local tensors.
+rows. Every weight the specs shard on "model" runs tensor-parallel,
+Megatron's way: each rank gathers its "model" block over the dp axes only
+(`_tp_cast`) and the blocks are joined by the fewest collectives of
+`sharding.rules` (`tp_enter`/`tp_exit`, `tp_sum`, `tp_gather`,
+`tp_scatter`). The embedding and head are vocab-parallel (each rank looks
+up its vocab block's tokens; the CE sums its max, exponentials and target
+logit over the blocks; `logits()` gathers whole rows for sampling). Dense
+MLPs and MoE experts split their hidden dim ("tp" expert sharding; "ep"
+expert weights are gathered whole at their use, as the reference's are).
+Attention splits by head, or by head_dim where the heads do not divide
+(partial scores summed by one all-reduce); MLA by head, or by its feature
+dims; the RG-LRU block by channel, its scan on the kernel at the rank's
+[B, T, D/m]. Caches keep `cache_specs`' layout: each rank holds its rows
+and its "model" block of the feature dim (head_dim, the MLA latent and
+rope widths, the recurrent width), and decode attention sums its partial
+scores over the blocks (`attention.gqa_decode_tp`). Weights the specs
+place whole over "model" (norms, MLA's w_kv_a, routers) are gathered whole
+(`_shared`, `_cast`); besides "ep" experts, the one "model"-sharded
+weight gathered whole is the key/value weight that attention split by
+head reads across kv groups (one kv head split by head_dim: gemma-2b's,
+the hybrid's). Where `_fit`
+dropped "model" from a spec, and for the xLSTM cells, the CiM MLPs and CiM
+decode attention, the layer runs whole on every "model" rank. The
+activation between train layers is a DTensor under the reference's hint
+(batch on the dp axes, sequence on "model", gathered again at each layer's
+input), a MoE layer gathers its batch over the dp axes and keeps its own
+rows of the output (routing is global, as the reference's), and batches
+are taken to this rank's rows. Everything in a layer (the kernels'
+autograd Functions included) runs on plain local tensors.
 
 The prefill runs eagerly, so its CiM MLPs charge the ledger on every call
 (the reference's jitted prefill charges once at trace time), and it never
@@ -368,12 +379,43 @@ class Model(nn.Module):
 
     # -- tensor parallelism over "model" --------------------------------------
 
+    def _tp_on(self) -> bool:
+        """Whether the model's mesh has more than one "model" rank."""
+        return shard_rules.model_parallel(self.mesh) > 1
+
+    def _feature_split(self, width: int) -> bool:
+        """Whether a cache leaf `width` wide in its last dim is split over
+        "model" (`cache_specs` places it so where the axis divides it)."""
+        m = shard_rules.model_parallel(self.mesh)
+        return m > 1 and width % m == 0
+
     def _tp_cast(self, t: torch.Tensor, name: str, dim: int) -> torch.Tensor:
         """This rank's "model" block of weight `name` (its dim `dim`),
         gathered over the dp axes and cast for compute."""
         t = shard_rules.gather_param_tp(t, dim)
         act = self.cfg.activation_dtype()
         return t.to(act) if _cast_rule(name, t, act) else t
+
+    def _shared(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """A weight placed whole over "model" that a tensor-parallel
+        region reads (norms, MLA's w_kv_a): gathered over the dp axes,
+        each rank's gradient a share summed over "model" too."""
+        t = shard_rules.gather_param(t, partial_model=True)
+        act = self.cfg.activation_dtype()
+        return t.to(act) if _cast_rule(name, t, act) else t
+
+    def _tp_weights(self, p: Params, dims: Dict[str, int]) -> Params:
+        """p's leaves in `dims` as this rank's blocks, norm sub-trees and
+        the other leaves whole (`_shared`)."""
+        out: Params = {}
+        for k, v in p.items():
+            if isinstance(v, dict):
+                out[k] = {n: self._shared(t, n) for n, t in v.items()}
+            elif k in dims:
+                out[k] = self._tp_cast(v, k, dims[k])
+            else:
+                out[k] = self._shared(v, k)
+        return out
 
     def _mlp_tp(self, p: Params, h: torch.Tensor) -> Optional[torch.Tensor]:
         """A dense MLP run tensor-parallel over "model" (column-parallel
@@ -390,51 +432,141 @@ class Model(nn.Module):
         return mlp(w, shard_rules.tp_enter(h, mesh), self.cfg.gating,
                    reduce=lambda y: shard_rules.tp_exit(y, mesh))
 
-    def _attn_tp(self, p: Params, h: torch.Tensor, positions,
-                 kind: str) -> Optional[torch.Tensor]:
-        """Train-path GQA attention (global or sliding-window) run
-        tensor-parallel over "model": this rank's block of query heads
-        (wq by head), the key/value heads they read (wk/wv by head where
-        the specs shard them so, else gathered whole and sliced), and the
-        row-parallel wo with one all-reduce of the float32 output. None
-        where the specs do not shard wq and wo by head, or a rank's query
-        heads would straddle key/value groups: the caller then gathers the
-        layer whole."""
-        cfg = self.cfg
-        if not (shard_rules.tp_sharded(p["wq"], 1)
-                and shard_rules.tp_sharded(p["wo"], 0)):
+    def _attn_tp(self, p: Params, h, positions, kind: str, mode: str,
+                 cache=None, max_len=None):
+        """GQA attention (global or sliding-window) run tensor-parallel
+        over "model" in any mode: (y, new cache or None), or None where
+        the specs split wq and wo neither by head nor by head_dim (or a
+        rank's query heads would straddle key/value groups, or the caches
+        are not split, or decode attention is CiM): the caller then runs
+        the layer whole.
+
+        By head (wq, wo): this rank's query heads and the key/value heads
+        they read, from wk/wv's blocks of kv heads or, where the specs
+        split those by head_dim, gathered whole in train and prefill (the
+        one weight a rank gathers whole, as GSPMD does); prefill keeps the
+        head_dim block of every kv head for the cache. By head_dim: every
+        weight's block, partial scores summed over the ranks. Decode runs
+        on the cache's head_dim block either way
+        (`attention.gqa_decode_tp`)."""
+        cfg, mesh = self.cfg, self.mesh
+        sh = shard_rules.tp_sharded
+        heads = sh(p["wq"], 1) and sh(p["wo"], 0)
+        head_dim = all(sh(p[k], d) for k, d in (("wq", 2), ("wk", 2),
+                                                  ("wv", 2), ("wo", 1)))
+        if not (heads or head_dim) or (
+                mode != "train" and not self._feature_split(cfg.head_dim)):
             return None
-        mesh = self.mesh
+        if mode == "decode" and cfg.cim_attention_bits:
+            return None
+        kv_heads = sh(p["wk"], 1) and sh(p["wv"], 1)
         hq = cfg.n_heads // shard_rules.model_parallel(mesh)
         group = cfg.n_heads // cfg.n_kv_heads
-        kv_tp = shard_rules.tp_sharded(p["wk"], 1) and \
-            shard_rules.tp_sharded(p["wv"], 1)
-        if not kv_tp and hq % group and group % hq:
+        kv_whole = heads and not kv_heads and mode != "decode"
+        if kv_whole and hq % group and group % hq:
             return None
-        w = {"wq": self._tp_cast(p["wq"], "wq", 1),
-             "wo": self._tp_cast(p["wo"], "wo", 0)}
-        if kv_tp:
-            w["wk"] = self._tp_cast(p["wk"], "wk", 1)
-            w["wv"] = self._tp_cast(p["wv"], "wv", 1)
+        dims = {"wq": 1, "wo": 0} if heads else {"wq": 2, "wo": 1}
+        if not kv_whole:
+            dims.update({"wk": 1, "wv": 1} if kv_heads else
+                        {"wk": 2, "wv": 2})
+        w = self._tp_weights(p, dims)
+        window = cfg.local_window if kind == "local" else 0
+        if mode == "decode":
+            return attn.gqa_decode_tp(w, cfg, h, cache, positions, mesh,
+                                      window)
+        if head_dim:
+            y, kv = attn.gqa_head_dim_tp(w, cfg, h, positions, mesh, window)
         else:
-            rank = mesh.get_local_rank("model")
-            k0 = rank * hq // group
-            k1 = max(k0 + 1, (rank + 1) * hq // group)
-            for k in ("wk", "wv"):
-                w[k] = self._train_cast(shard_rules.gather_param(
-                    p[k], partial_model=True), k)[:, k0:k1]
-        for k in ("q_norm", "k_norm"):    # each rank normalises its heads
-            if k in p:
-                w[k] = {n: shard_rules.gather_param(v, partial_model=True)
-                        for n, v in p[k].items()}
-        x = shard_rules.tp_enter(h, mesh)
+            y, kv = attn.gqa_heads_tp(
+                w, cfg, h, positions, mesh, window,
+                use_flash=mode == "train" and kind != "local",
+                kv_whole=kv_whole, keep_kv=mode == "prefill")
+        if mode == "train":
+            return y, None
+        return y, (attn._ring_cache(*kv, window) if window else
+                   attn._dense_cache(*kv, max_len))
 
-        def reduce(y):
-            return shard_rules.tp_exit(y, mesh)
-        if kind == "local":
-            return attn.local_apply(w, cfg, x, positions, reduce=reduce)
-        return attn.gqa_apply(w, cfg, x, positions, use_flash=True,
-                              reduce=reduce)
+    def _mla_tp(self, p: Params, h, positions, mode: str, cache=None,
+                max_len=None):
+        """MLA run tensor-parallel over "model": (y, new cache or None), or
+        None where the specs split neither its heads nor its feature dims
+        (or the latent caches are not split). By head: wq, w_uk, w_uv
+        and wo's rows by head, w_kv_a and the latent whole on every rank
+        (`attention.mla_heads_tp`, `mla_decode_heads_tp`); by feature dim
+        (heads not divisible by "model"): `attention.mla_head_dim_tp`."""
+        cfg, m = self.cfg, self.cfg.mla
+        sh = shard_rules.tp_sharded
+        heads = all(sh(p[k], d) for k, d in (("wq", 1), ("w_uk", 1),
+                                              ("w_uv", 1), ("wo", 0)))
+        feat = all(sh(p[k], d) for k, d in (("wq", 2), ("w_uk", 0),
+                                             ("w_uv", 0), ("wo", 1)))
+        if not (heads or feat) or (mode != "train" and not (
+                self._feature_split(m.kv_lora_rank)
+                and self._feature_split(m.qk_rope_dim))):
+            return None
+        w = self._tp_weights(p, {"wq": 1, "w_uk": 1, "w_uv": 1, "wo": 0}
+                             if heads else
+                             {"wq": 2, "w_uk": 0, "w_uv": 0, "wo": 1})
+        mesh = self.mesh
+        if feat:
+            y, kv = attn.mla_head_dim_tp(w, cfg, h, positions, mesh,
+                                         cache if mode == "decode" else None)
+        elif mode == "decode":
+            y, kv = attn.mla_decode_heads_tp(w, cfg, h, cache, positions,
+                                             mesh)
+        else:
+            y, kv = attn.mla_heads_tp(w, cfg, h, positions, mesh)
+        if mode == "train":
+            return y, None
+        return y, (kv if mode == "decode" else
+                   attn._latent_cache(*kv, max_len))
+
+    def _rec_tp(self, p: Params, h, state):
+        """The RG-LRU block channel-parallel over "model"
+        (`recurrent.rglru_block_apply(mesh=)`): (y, new state), or None
+        where the specs do not split its channels (or the state)."""
+        dims = {"w_x": 1, "w_gate": 1, "conv_w": 1, "w_r": 0, "w_i": 0,
+                "w_out": 0}
+        if not all(shard_rules.tp_sharded(p[k], d) for k, d in dims.items()) \
+                or not self._feature_split(self.cfg.d_model):
+            return None
+        w = self._tp_weights(p, dims)
+        blk = shard_rules.model_block(self.mesh, self.cfg.d_model)
+        for k in ("conv_b", "log_lambda"):        # per channel: the rank's
+            w[k] = w[k][blk]
+        return rec_lib.rglru_block_apply(w, self.cfg, h, state,
+                                         mesh=self.mesh)
+
+    def _moe(self, p: Params, h2: torch.Tensor, train: bool):
+        """A MoE layer: (y, aux). On a mesh the routed experts run on this
+        rank's block of their hidden dim where the specs split it so ("tp"
+        expert sharding; "ep" expert weights are gathered whole at their
+        use, as the reference's are), the shared experts column- and
+        row-parallel; routing, capacity, drops and the aux loss are global
+        (every dp rank routes the whole batch and keeps its own rows)."""
+        mesh = self.mesh
+        sh = shard_rules.tp_sharded
+        routed = self._tp_on() and all(
+            sh(p[k], d) for k, d in (("w_in", 2), ("w_gate", 2),
+                                     ("w_out", 1)))
+        shared = self._tp_on() and "shared_in" in p and all(
+            sh(p[k], d) for k, d in (("shared_in", 1), ("shared_gate", 1),
+                                     ("shared_out", 0)))
+        dims = ({"w_in": 2, "w_gate": 2, "w_out": 1} if routed else {})
+        if shared:
+            dims.update(shared_in=1, shared_gate=1, shared_out=0)
+        one = self._train_cast if train else self._cast
+        w = {k: self._tp_cast(v, k, dims[k]) if k in dims else one(v, k)
+             for k, v in p.items()}
+        meshes = (mesh if routed else None, mesh if shared else None)
+        if mesh is None or shard_rules.dp_size(mesh) == 1:
+            return moe_lib.moe_apply(w, self.cfg, h2, *meshes)
+        # gather point: the scatter dispatch routes over the whole batch,
+        # and the outputs are combined for this rank's rows only
+        r0 = shard_rules.dp_index(mesh) * h2.shape[0]
+        return moe_lib.moe_apply(w, self.cfg,
+                                 shard_rules.gather_batch(h2, mesh), *meshes,
+                                 rows=slice(r0, r0 + h2.shape[0]))
 
     # -- stack execution ------------------------------------------------------
 
@@ -448,21 +580,83 @@ class Model(nn.Module):
                        resident=cfg.cim_resident and mode == "decode",
                        resident_spec=self.resident_spec)
 
-    def _ffn(self, i: int, p: Params, h2: torch.Tensor, mode: str):
+    def _layer_ffn(self, i: int, raw: Params, h2: torch.Tensor, mode: str):
         """Layer i's MLP: (y, aux), aux the MoE load-balancing loss (None
-        for a dense MLP)."""
+        for a dense MLP), tensor-parallel where the mesh and specs allow
+        it."""
         if is_moe_layer(self.cfg, i):
-            mesh = self.mesh
-            if mesh is None or shard_rules.dp_size(mesh) == 1:
-                return moe_lib.moe_apply(p, self.cfg, h2)
-            # gather point: the scatter dispatch routes over the whole
-            # batch (capacity, drops and the aux loss are global, as the
-            # reference's), so every dp rank runs it on all rows and keeps
-            # its own
-            y, aux = moe_lib.moe_apply(p, self.cfg,
-                                       shard_rules.gather_batch(h2, mesh))
-            return shard_rules.local_rows(y, mesh), aux
-        return self._apply_mlp(p, h2, mode), None
+            return self._moe(raw["mlp"], h2, mode == "train")
+        if self._tp_on():
+            y = self._mlp_tp(raw["mlp"], h2)
+            if y is not None:
+                return y, None
+        return self._apply_mlp(self._cast_part(raw, "mlp", mode == "train"),
+                               h2, mode), None
+
+    def _cache_width(self, name: str) -> int:
+        """A mixer cache leaf's last-dim width, by which it splits."""
+        cfg = self.cfg
+        return {"k": cfg.head_dim, "v": cfg.head_dim, "h": cfg.d_model,
+                "conv": cfg.d_model,
+                "c_kv": cfg.mla.kv_lora_rank if cfg.mla else 0,
+                "k_rope": cfg.mla.qk_rope_dim if cfg.mla else 0}[name]
+
+    def _mixer(self, kind: str, raw: Params, h, positions, mode: str,
+               cache=None, max_len=None):
+        """A layer's attention or recurrent block: (y, new cache; None in
+        train), tensor-parallel where the mesh and specs allow it. A layer
+        run whole on a mesh joins its cache's "model" blocks first and
+        keeps its own block of the new cache."""
+        cfg, train = self.cfg, mode == "train"
+        out = None
+        if self._tp_on():
+            if kind == "rec":
+                out = self._rec_tp(raw["rec"], h, cache)
+            elif cfg.mla is not None and kind != "local":
+                out = self._mla_tp(raw["attn"], h, positions, mode, cache,
+                                   max_len)
+            else:
+                out = self._attn_tp(raw["attn"], h, positions, kind, mode,
+                                    cache, max_len)
+        if out is not None:
+            return out[0], (None if train else out[1])
+        mesh = self.mesh
+        split = {} if cache is None or not self._tp_on() else {
+            k: self._feature_split(self._cache_width(k)) for k in cache}
+        if any(split.values()):
+            cache = shard_rules.tree_join_blocks(cache, mesh, split)
+        name = "rec" if kind == "rec" else "attn"
+        p = self._cast_part(raw, name, train)
+        if kind == "rec":       # prefill and train start from a zero state
+            y, nc = rec_lib.rglru_block_apply(p, cfg, h, cache)
+        elif cfg.mla is not None and kind != "local":
+            if train:
+                y, nc = attn.mla_apply(p, cfg, h, positions), None
+            elif mode == "prefill":
+                y, nc = attn.mla_prefill(p, cfg, h, positions, max_len)
+            else:
+                y, nc = attn.mla_decode(p, cfg, h, cache, positions)
+        elif kind == "local":
+            y, nc = ((attn.local_apply(p, cfg, h, positions), None) if train
+                     else attn.local_prefill(p, cfg, h, positions)
+                     if mode == "prefill" else
+                     attn.local_decode(p, cfg, h, cache, positions))
+        elif train:
+            y, nc = attn.gqa_apply(p, cfg, h, positions, use_flash=True), None
+        elif mode == "prefill":
+            y, nc = attn.gqa_prefill(p, cfg, h, positions, max_len)
+        elif cfg.cim_attention_bits:
+            y, nc = attn.gqa_decode_cim(p, cfg, h, cache, positions)
+        else:
+            y, nc = attn.gqa_decode(p, cfg, h, cache, positions)
+        if train:
+            return y, None
+        if self._tp_on():
+            nc = {k: t[..., shard_rules.model_block(
+                      mesh, self._cache_width(k))]
+                  if self._feature_split(self._cache_width(k)) else t
+                  for k, t in nc.items()}
+        return y, nc
 
     def _train_layer(self, i: int, x, positions):
         """One layer of the train path, each kind from a zero state as the
@@ -472,7 +666,7 @@ class Model(nn.Module):
         (x, aux)."""
         if self.mesh is not None:
             # between layers x is a DTensor (batch x sequence under the
-            # activation hint); a layer runs on this rank's rows, whole
+            # activation hint); a layer runs on this rank's rows
             y, aux = self._train_layer_local(
                 i, shard_rules.local_batch(x), positions)
             return shard_rules.from_local_batch(y, self.mesh), aux
@@ -489,47 +683,13 @@ class Model(nn.Module):
         if kind in XLSTM_CELLS:
             y, _ = XLSTM_CELLS[kind][1](part("cell"), cfg, h, None)
             return x + y, self._zero()
-        y = None
-        if kind == "rec":
-            y, _ = rec_lib.rglru_block_apply(part("rec"), cfg, h, None)
-        elif cfg.mla is not None and kind != "local":
-            y = attn.mla_apply(part("attn"), cfg, h, positions)
-        elif self.mesh is not None:
-            y = self._attn_tp(raw["attn"], h, positions, kind)
-        if y is None and kind == "local":
-            y = attn.local_apply(part("attn"), cfg, h, positions)
-        elif y is None:
-            y = attn.gqa_apply(part("attn"), cfg, h, positions, use_flash=True)
-        x = x + y
+        x = x + self._mixer(kind, raw, h, positions, "train")[0]
         h2 = rmsnorm(part("ln2"), x, cfg.norm_eps)
         y, aux = self._layer_ffn(i, raw, h2, "train")
         return x + y, (self._zero() if aux is None else aux)
 
-    def _layer_ffn(self, i: int, raw: Params, h2: torch.Tensor, mode: str):
-        """`_ffn` of layer i from its raw parameters: a dense MLP
-        tensor-parallel where the mesh and specs allow it."""
-        if self.mesh is not None and not is_moe_layer(self.cfg, i):
-            y = self._mlp_tp(raw["mlp"], h2)
-            if y is not None:
-                return y, None
-        return self._ffn(i, self._cast_part(raw, "mlp", mode == "train"),
-                         h2, mode)
-
     def _zero(self) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float32, device=self.device)
-
-    def _attend(self, p: Params, h, positions, mode, cache, max_len):
-        """Global attention of one `attn` layer in prefill or decode."""
-        cfg = self.cfg
-        if cfg.mla is not None:
-            if mode == "prefill":
-                return attn.mla_prefill(p, cfg, h, positions, max_len)
-            return attn.mla_decode(p, cfg, h, cache, positions)
-        if mode == "prefill":
-            return attn.gqa_prefill(p, cfg, h, positions, max_len)
-        if cfg.cim_attention_bits:
-            return attn.gqa_decode_cim(p, cfg, h, cache, positions)
-        return attn.gqa_decode(p, cfg, h, cache, positions)
 
     def _train_stack(self, x, positions):
         """The train path over the stack: (x after the final norm, the MoE
@@ -556,34 +716,31 @@ class Model(nn.Module):
     def _run_stack(self, x, positions, mode, caches=None, max_len=None):
         """Prefill or decode over the stack: (x after the final norm, the
         new caches). The MoE aux loss is dropped, as the reference's
-        prefill and decode drop it."""
+        prefill and decode drop it. On a mesh a cache is this rank's rows
+        and, where `cache_specs` splits the feature dim over "model", its
+        block of it (a DTensor cache taken to its local block; the new
+        caches are returned so); xLSTM states are taken whole."""
         cfg = self.cfg
         new_caches = []
         prefill = mode == "prefill"
         for i, (kind, layer) in enumerate(zip(self.kinds, self.layers)):
             raw = layer.tree()
-            p = {k: self._cast_part(raw, k) for k in raw if k != "mlp"}
-            h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+            h = rmsnorm(self._cast_part(raw, "ln1"), x, cfg.norm_eps)
             cache = None if prefill else caches[i]
-            if self.mesh is not None:
-                cache = shard_rules.tree_local_batch(cache)
             if kind in XLSTM_CELLS:       # prefill starts from a zero state
-                y, nc = XLSTM_CELLS[kind][1](p["cell"], cfg, h, cache)
+                if self.mesh is not None:
+                    cache = shard_rules.tree_local_batch(cache)
+                y, nc = XLSTM_CELLS[kind][1](self._cast_part(raw, "cell"),
+                                             cfg, h, cache)
                 x = x + y
                 new_caches.append(nc)
                 continue
-            if kind == "rec":             # prefill starts from a zero state
-                y, nc = rec_lib.rglru_block_apply(p["rec"], cfg, h, cache)
-            elif kind == "local":
-                y, nc = (attn.local_prefill(p["attn"], cfg, h, positions)
-                         if prefill else
-                         attn.local_decode(p["attn"], cfg, h, cache,
-                                           positions))
-            else:
-                y, nc = self._attend(p["attn"], h, positions, mode, cache,
-                                     max_len)
+            if self.mesh is not None:
+                cache = shard_rules.tree_local_shard(cache)
+            y, nc = self._mixer(kind, raw, h, positions, mode, cache,
+                                max_len)
             x = x + y
-            h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            h2 = rmsnorm(self._cast_part(raw, "ln2"), x, cfg.norm_eps)
             x = x + self._layer_ffn(i, raw, h2, mode)[0]
             new_caches.append(nc)
         x = rmsnorm(self._whole(self.final_norm), x, cfg.norm_eps)
@@ -591,27 +748,48 @@ class Model(nn.Module):
 
     def _embed_inputs(self, inputs) -> torch.Tensor:
         """Token embeddings, or an embed-stub config's precomputed
-        `embeds` [B, T, D] (audio frames, image patches)."""
+        `embeds` [B, T, D] (audio frames, image patches). On a mesh whose
+        specs split the table's vocab over "model", each rank looks up the
+        tokens of its block (`layers.embed(mesh=)`)."""
         act = self.cfg.activation_dtype()
         if self.cfg.embed_stub:
             return shard_rules.local_batch(inputs["embeds"]).to(act)
-        return embed(self._whole(self.embed),
-                     shard_rules.local_batch(inputs["tokens"])).to(act)
+        tokens = shard_rules.local_batch(inputs["tokens"])
+        table = self.embed["table"]
+        if self._tp_on() and shard_rules.tp_sharded(table, 0):
+            blk = shard_rules.gather_param_tp(table, 0)
+            v0 = shard_rules.model_rank(self.mesh) * blk.shape[0]
+            return embed({"table": blk}, tokens, self.mesh, v0).to(act)
+        return embed(self._whole(self.embed), tokens).to(act)
 
-    def _head_weight(self) -> torch.Tensor:
-        if self.cfg.tie_embeddings and not self.cfg.embed_stub:
-            return shard_rules.gather_param(self.embed["table"]).t()
-        return shard_rules.gather_param(self.lm_head["w"])
+    def _head(self):
+        """(the head's weight [D, V], its first vocab column, the mesh):
+        on a mesh whose specs split the vocab over "model", this rank's
+        column block (the tied table's row block, transposed), else the
+        whole weight and no mesh."""
+        tied = self.cfg.tie_embeddings and not self.cfg.embed_stub
+        t, dim = (self.embed["table"], 0) if tied else (self.lm_head["w"], 1)
+        if self._tp_on() and shard_rules.tp_sharded(t, dim):
+            w = shard_rules.gather_param_tp(t, dim)
+            w = w.t() if tied else w
+            return w, shard_rules.model_rank(self.mesh) * w.shape[1], \
+                self.mesh
+        w = shard_rules.gather_param(t)
+        return (w.t() if tied else w), 0, None
 
     def logits(self, x_final: torch.Tensor) -> torch.Tensor:
-        """Full logits over the padded vocab, pad columns masked."""
+        """Full logits over the padded vocab, pad columns masked (on a
+        vocab-split mesh each rank's columns, joined by one all-gather)."""
         cfg = self.cfg
-        out = torch.matmul(x_final.float(), self._head_weight().float())
+        w, v0, mesh = self._head()
+        if mesh is not None:
+            x_final = shard_rules.tp_enter(x_final, mesh)
+        out = torch.matmul(x_final.float(), w.float())
         if cfg.vocab_padded != cfg.vocab_size:
-            pad = torch.arange(cfg.vocab_padded, device=out.device) \
+            pad = torch.arange(v0, v0 + w.shape[1], device=out.device) \
                 >= cfg.vocab_size
             out = out + pad * (-1e30)
-        return out
+        return out if mesh is None else shard_rules.tp_gather(out, mesh, -1)
 
     def _positions(self, x: torch.Tensor) -> torch.Tensor:
         b, t = x.shape[0], x.shape[1]
@@ -629,12 +807,14 @@ class Model(nn.Module):
         """Chunked-CE loss (never materializes the [B, S, V] logits):
         (loss, {"ce", "aux"}), loss = ce + 0.01 aux; aux, the MoE layers'
         summed load-balancing loss, is 0 without MoE. On a mesh, ce is the
-        mean over this rank's rows (`train.step` averages the dp ranks)."""
+        mean over this rank's rows (`train.step` averages the dp ranks),
+        vocab-parallel where the head is split over "model"."""
         x = self._embed_inputs(batch)
         x, aux = self._train_stack(x, self._positions(x))
-        ce = chunked_lm_loss(x, self._head_weight(),
-                             shard_rules.local_batch(batch["targets"]),
-                             real_vocab=self.cfg.vocab_size)
+        w, v0, mesh = self._head()
+        ce = chunked_lm_loss(x, w, shard_rules.local_batch(batch["targets"]),
+                             real_vocab=self.cfg.vocab_size, mesh=mesh,
+                             v0=v0)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()

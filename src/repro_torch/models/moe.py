@@ -25,12 +25,13 @@ MoE layer's batch over the dp axes and runs this function on all rows
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding import rules as shard_rules
 from .layers import _dense_init
 
 Params = Dict[str, Any]
@@ -100,21 +101,41 @@ def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return op(a.float(), b.float())
 
 
+def _swiglu_f32(x: torch.Tensor, w_in, w_gate, w_out) -> torch.Tensor:
+    h = product_f32(x, w_in)
+    g = product_f32(x, w_gate)
+    h = (F.silu(g) * h).to(x.dtype)
+    return product_f32(h, w_out)
+
+
+def _swiglu(x: torch.Tensor, w_in, w_gate, w_out, mesh=None) -> torch.Tensor:
+    """SwiGLU with float32 accumulation, the result in x's dtype. With
+    `mesh` the weights are this rank's block of the hidden dim (w_in and
+    w_gate by column, w_out by row): x enters a tensor-parallel region and
+    the float32 partial output is summed over "model" before the cast."""
+    if mesh is None:
+        return _swiglu_f32(x, w_in, w_gate, w_out).to(x.dtype)
+    y = _swiglu_f32(shard_rules.tp_enter(x, mesh), w_in, w_gate, w_out)
+    return shard_rules.tp_exit(y, mesh).to(x.dtype)
+
+
 def expert_ffn(xe: torch.Tensor, w_in, w_gate, w_out) -> torch.Tensor:
     """SwiGLU experts over [E, C, D] buffers, float32 accumulation, the
     result in xe's dtype."""
-    h = product_f32(xe, w_in)
-    g = product_f32(xe, w_gate)
-    h = (F.silu(g) * h).to(xe.dtype)
-    return product_f32(h, w_out).to(xe.dtype)
+    return _swiglu(xe, w_in, w_gate, w_out)
 
 
 def dispatch_combine(xf: torch.Tensor, weights: torch.Tensor,
                      idx: torch.Tensor, pos: torch.Tensor,
                      keep: torch.Tensor, n_experts: int, cap: int,
-                     w_in, w_gate, w_out) -> torch.Tensor:
+                     w_in, w_gate, w_out, mesh=None,
+                     rows: Optional[slice] = None) -> torch.Tensor:
     """Scatter the kept choices into [E, C, D], run the experts, gather
-    back and sum the k weighted choices of each token: [N, D]."""
+    back and sum the k weighted choices of each token: [N, D], or with
+    `rows` (a slice of xf's tokens) those tokens' outputs only. With
+    `mesh`, every expert runs on this rank's block of its hidden dim: the
+    choices are combined in float32 from the partial outputs and summed
+    over "model" once, [N, D] (or the rows'), before the cast."""
     n, d = xf.shape
     k = idx.shape[1]
     fe = idx.reshape(n * k)
@@ -123,15 +144,33 @@ def dispatch_combine(xf: torch.Tensor, weights: torch.Tensor,
     src = torch.repeat_interleave(xf, k, dim=0) * fk[:, None]
     xe = torch.zeros((n_experts, cap, d), dtype=xf.dtype, device=xf.device)
     xe = xe.index_put((fe, fp), src, accumulate=True)
-    ye = expert_ffn(xe, w_in, w_gate, w_out)
-    back = ye[fe, fp] * fk[:, None]
-    back = back.reshape(n, k, d) * weights[..., None].to(xf.dtype)
-    return back.sum(1)
+    if mesh is None:
+        ye = expert_ffn(xe, w_in, w_gate, w_out)
+    else:           # the weights scale each rank's partials: f, as xe
+        ye = _swiglu_f32(shard_rules.tp_enter(xe, mesh), w_in, w_gate,
+                         w_out)
+        weights = shard_rules.tp_enter(weights, mesh)
+    if rows is not None:
+        choices = slice(rows.start * k, rows.stop * k)
+        fe, fp, fk = fe[choices], fp[choices], fk[choices]
+        weights, n = weights[rows], rows.stop - rows.start
+    back = ye[fe, fp] * fk[:, None].to(ye.dtype)
+    back = back.reshape(n, k, d) * weights[..., None].to(ye.dtype)
+    if mesh is None:
+        return back.sum(1)
+    return shard_rules.tp_exit(back.sum(1), mesh).to(xf.dtype)
 
 
-def moe_apply(p: Params, cfg: ArchConfig,
-              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, T, D] -> (y, aux_loss)."""
+def moe_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
+              routed_mesh=None, shared_mesh=None,
+              rows: Optional[slice] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, T, D] -> (y, aux_loss). `routed_mesh` / `shared_mesh`: the
+    routed / shared experts' weights are this rank's block of their hidden
+    dim (the reference's "tp" expert sharding), run tensor-parallel over
+    "model". `rows` (a slice of x's batch rows, a dp rank's): y holds
+    those rows only, while routing, capacity, drops and the aux loss are
+    the whole batch's, the same on every rank."""
     m = cfg.moe
     b, t, d = x.shape
     n = b * t
@@ -143,16 +182,17 @@ def moe_apply(p: Params, cfg: ArchConfig,
     weights, idx = _top_k_gating(logits, k, m.router_renorm)
     onehot = F.one_hot(idx, e).to(torch.int32)
     pos, keep = route(onehot, cap)
+    tokens = None if rows is None else slice(rows.start * t, rows.stop * t)
     y = dispatch_combine(xf, weights, idx, pos, keep, e, cap,
-                         p["w_in"], p["w_gate"], p["w_out"])
+                         p["w_in"], p["w_gate"], p["w_out"], routed_mesh,
+                         tokens)
 
     if m.n_shared:
-        hs = product_f32(xf, p["shared_in"])
-        gs = product_f32(xf, p["shared_gate"])
-        hs = (F.silu(gs) * hs).to(x.dtype)
-        y = y + product_f32(hs, p["shared_out"]).to(x.dtype)
+        y = y + _swiglu(xf if tokens is None else xf[tokens],
+                        p["shared_in"], p["shared_gate"], p["shared_out"],
+                        shared_mesh)
 
     me = torch.softmax(logits, dim=-1).mean(0)
     ce = F.one_hot(idx[:, 0], e).float().mean(0)
     aux = e * torch.sum(me * ce)
-    return y.reshape(b, t, d), aux
+    return y.reshape(-1, t, d), aux

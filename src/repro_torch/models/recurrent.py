@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding import rules as shard_rules
 from .layers import _dense_init, _gelu, _linear_f32
 
 Params = Dict[str, torch.Tensor]
@@ -62,21 +63,40 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def rglru_block_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                      state: Optional[Dict[str, torch.Tensor]] = None
+                      state: Optional[Dict[str, torch.Tensor]] = None,
+                      mesh=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, T, D]. state: {"h": [B, D] f32, "conv": [B, 3, D]} or None
-    (a zero state: prefill and train). Returns (out, new state)."""
+    (a zero state: prefill and train). Returns (out, new state).
+
+    With `mesh` the block runs channel-parallel over "model", as the
+    reference's specs place it: p holds this rank's channels (w_x, w_gate
+    and conv_w by column, w_r, w_i and w_out by row, conv_b and log_lambda
+    cut to them) and the state its channels. The conv and the scan are
+    per channel, so they run on the rank's block (the scan on the kernel,
+    at [B, T, D/m]); r and i are partial sums over the rank's rows of w_r
+    and w_i, reduce-scattered to the rank's channels (one collective for
+    both), and w_out's partial output is summed by one all-reduce."""
+    if mesh is not None:
+        x = shard_rules.tp_enter(x, mesh)
     xr = _linear_f32(x, p["w_x"]).to(x.dtype)
     gate = _linear_f32(x, p["w_gate"]).to(x.dtype)
     tail = state["conv"] if state is not None else None
     xc, new_tail = _conv1d(xr, p["conv_w"], p["conv_b"], tail)
-    r = _linear_f32(xc, p["w_r"]).to(x.dtype)
-    i = _linear_f32(xc, p["w_i"]).to(x.dtype)
+    if mesh is None:
+        r = _linear_f32(xc, p["w_r"]).to(x.dtype)
+        i = _linear_f32(xc, p["w_i"]).to(x.dtype)
+    else:
+        ri = shard_rules.tp_scatter(torch.stack(
+            [_linear_f32(xc, p["w_r"]), _linear_f32(xc, p["w_i"])]), mesh, -1)
+        r, i = (t.to(x.dtype).contiguous() for t in ri)
     h0 = state["h"] if state is not None else None
     y, h_last = kops.rglru_scan(xc, r, i, p["log_lambda"], h0=h0)
     y = y * _gelu(gate.float()).to(x.dtype)
-    out = _linear_f32(y, p["w_out"]).to(x.dtype)
-    return out, {"h": h_last, "conv": new_tail}
+    out = _linear_f32(y, p["w_out"])
+    if mesh is not None:
+        out = shard_rules.tp_exit(out, mesh)
+    return out.to(x.dtype), {"h": h_last, "conv": new_tail}
 
 
 def rglru_make_state(cfg: ArchConfig, batch: int, dtype,

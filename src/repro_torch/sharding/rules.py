@@ -443,12 +443,51 @@ def gather_param_tp(t, dim: int, axis: str = "model"):
         for a in axis_names(mesh)))
 
 
-def _model_sum(t: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of `t` over the "model" ranks: one functional all-reduce
-    (the op the dry run counts)."""
+def model_rank(mesh) -> int:
+    """This rank's coordinate on "model" (its block's index)."""
+    return mesh.get_local_rank("model")
+
+
+def model_block(mesh, n: int) -> slice:
+    """This rank's block of a dim of `n` split evenly over "model"."""
+    w = n // model_parallel(mesh)
+    return slice(model_rank(mesh) * w, (model_rank(mesh) + 1) * w)
+
+
+def _c10d(op: str, t: torch.Tensor, mesh, *args) -> torch.Tensor:
+    """One functional collective over "model" (the ops the dry run
+    counts), waited on."""
     name = mesh.get_group("model").group_name
-    out = torch.ops._c10d_functional.all_reduce(t.contiguous(), "sum", name)
+    out = getattr(torch.ops._c10d_functional, op)(t.contiguous(), *args,
+                                                  name)
     return torch.ops._c10d_functional.wait_tensor(out)
+
+
+def model_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of `t` over the "model" ranks: one all-reduce (no
+    gradient)."""
+    return _c10d("all_reduce", t, mesh, "sum")
+
+
+def model_max(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The elementwise max of `t` over the "model" ranks (no gradient)."""
+    return _c10d("all_reduce", t, mesh, "max")
+
+
+def _model_gather(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The "model" ranks' blocks of `t` concatenated along `dim` in rank
+    order: one all-gather."""
+    out = _c10d("all_gather_into_tensor", t.movedim(dim, 0), mesh,
+                model_parallel(mesh))
+    return out.movedim(0, dim)
+
+
+def _model_scatter(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of the "model" ranks' `t`:
+    one reduce-scatter."""
+    out = _c10d("reduce_scatter_tensor", t.movedim(dim, 0), mesh, "sum",
+                model_parallel(mesh))
+    return out.movedim(0, dim)
 
 
 class _TPEnter(torch.autograd.Function):
@@ -462,7 +501,7 @@ class _TPEnter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _model_sum(g, ctx.mesh), None
+        return model_sum(g, ctx.mesh), None
 
 
 class _TPExit(torch.autograd.Function):
@@ -471,11 +510,63 @@ class _TPExit(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, mesh):
-        return _model_sum(y, mesh)
+        return model_sum(y, mesh)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _TPSum(torch.autograd.Function):
+    """A sum of the "model" ranks' partials that every rank then uses for
+    its own block (the partial attention scores, a split norm's sum of
+    squares): all-reduced forward and backward (g then f)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.mesh = mesh
+        return model_sum(y, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_sum(g, ctx.mesh), None
+
+
+class _TPGather(torch.autograd.Function):
+    """Each rank's block concatenated along `dim` into a value every rank
+    holds whole; the backward keeps this rank's block of the (equal)
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return _model_gather(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, model_rank(ctx.mesh) * ctx.n, ctx.n), \
+            None, None
+
+
+class _TPScatter(torch.autograd.Function):
+    """This rank's block along `dim` of the sum of the ranks' partials
+    (a reduce-scatter); the backward all-gathers the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _model_scatter(y, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_gather(g, ctx.mesh, ctx.dim), None, None
+
+
+# A value every "model" rank holds whole carries its whole gradient on
+# every rank; a rank's block (of a column-parallel output, of a split
+# feature dim) carries its own. `tp_enter` marks a whole value a rank uses
+# for its block, `tp_exit` and `tp_sum` sum partials, `tp_gather` joins
+# blocks, `tp_scatter` sums partials into blocks.
 
 
 def tp_enter(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -487,6 +578,21 @@ def tp_enter(x: torch.Tensor, mesh) -> torch.Tensor:
 def tp_exit(y: torch.Tensor, mesh) -> torch.Tensor:
     """The output of a tensor-parallel region from each rank's partial."""
     return _TPExit.apply(y, mesh)
+
+
+def tp_sum(y: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of the ranks' partials, used by each rank for its block."""
+    return _TPSum.apply(y, mesh)
+
+
+def tp_gather(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The ranks' blocks of `x` joined along `dim`."""
+    return _TPGather.apply(x, mesh, dim % x.dim())
+
+
+def tp_scatter(y: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of the ranks' partials."""
+    return _TPScatter.apply(y, mesh, dim % y.dim())
 
 
 def gather_batch(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -571,4 +677,21 @@ def distribute_model(model, cfg: ArchConfig, mesh) -> Any:
 def tree_local_batch(tree):
     """`local_batch` on every leaf of a cache tree (a layer's dict)."""
     return map_with_path(lambda _p, t: local_batch(t), tree) \
+        if tree is not None else None
+
+
+def tree_join_blocks(tree, mesh, split):
+    """A layer's cache leaves whole: the "model" ranks' blocks of every
+    leaf `split` names joined along the last dim (a layer that runs whole
+    on a mesh; the caches stay split between steps)."""
+    return {k: tp_gather(t, mesh, -1) if split[k] else t
+            for k, t in tree.items()}
+
+
+def tree_local_shard(tree):
+    """This rank's block of every DTensor leaf of a cache tree, as
+    `cache_specs` placed it (rows on the dp axes, the feature dim on
+    "model"); plain leaves, already a rank's blocks, pass through."""
+    return map_with_path(
+        lambda _p, t: t.to_local() if is_dtensor(t) else t, tree) \
         if tree is not None else None

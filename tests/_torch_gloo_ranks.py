@@ -10,7 +10,8 @@ the test computed with the JAX package; this script imports torch, numpy
 and `repro_torch` only. It spawns 8 ranks joined by a `FileStore`, runs
 every case on each, and rank 0 writes `<dir>/results.json`: per case
 {"ok": bool, ...measured values..., "error": traceback}. The meshes are
-4x2 (the train steps; elastic restore onto 2x4 and 8x1) and (1, 8),
+4x2 (the train steps, prefill and decode; elastic restore onto 2x4 and
+8x1), 1x8 (train steps with attention split by head_dim) and (1, 8),
 (2, 4), (4, 2) (expert parallelism, and the tiled accesses over 1, 2 and
 4 "data" ranks).
 """
@@ -51,26 +52,100 @@ def case_train_moe_4x2(ctx):
     return _train_steps(ctx, "deepseek-v2-lite-16b", "moe_train")
 
 
-def _train_steps(ctx, arch, key):
+#: the tensor-parallel cases: (arch, key of the reference's numbers, mesh)
+#: on 4x2, and on 1x8 where 4 heads on 8 "model" ranks split head_dim
+TP_TRAIN = [("gemma-2b", "gemma_train", (4, 2)),
+            ("recurrentgemma-9b", "rg_train", (4, 2)),
+            ("grok-1-314b", "grok_train", (4, 2)),
+            ("llama3.2-1b", "train", (1, 8)),
+            ("deepseek-v2-lite-16b", "moe_train", (1, 8))]
+TP_SERVE = [("llama3.2-1b", "train"), ("deepseek-v2-lite-16b", "moe_train"),
+            ("recurrentgemma-9b", "rg_train")]
+
+
+def _model_sharded(t) -> bool:
+    from repro_torch.sharding import rules
+
+    return rules.is_dtensor(t) and any(
+        a == "model" and type(p).__name__ == "Shard"
+        for a, p in zip(rules.axis_names(t.device_mesh), t.placements))
+
+
+class _Whole:
+    """Counts what a rank gathers whole while it is in scope: the
+    parameters `param_specs` split over "model" that pass through
+    `rules.gather_param` (by name), and the cache trees a layer joins over
+    "model" (`rules.tree_join_blocks`) or gathers from DTensors
+    (`rules.tree_local_batch`)."""
+
+    def __init__(self, model):
+        self.names = {id(p): n for n, p in model.named_parameters()}
+        self.params, self.caches = set(), 0
+
+    def __enter__(self):
+        from repro_torch.sharding import rules
+
+        self.saved = (rules.gather_param, rules.tree_join_blocks,
+                      rules.tree_local_batch)
+        gather, join, local = self.saved
+
+        def gather_param(t, *a, **k):
+            if _model_sharded(t):
+                self.params.add(self.names.get(id(t), "?"))
+            return gather(t, *a, **k)
+
+        def tree_join_blocks(tree, *a):
+            self.caches += 1
+            return join(tree, *a)
+
+        def tree_local_batch(tree):
+            if tree is not None and any(_model_sharded(t)
+                                        for t in tree.values()):
+                self.caches += 1
+            return local(tree)
+        (rules.gather_param, rules.tree_join_blocks,
+         rules.tree_local_batch) = (gather_param, tree_join_blocks,
+                                    tree_local_batch)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.sharding import rules
+
+        (rules.gather_param, rules.tree_join_blocks,
+         rules.tree_local_batch) = self.saved
+
+    def record(self) -> dict:
+        return {"params_whole": sorted(self.params),
+                "caches_whole": self.caches}
+
+
+def _reference_model(ctx, arch, key, seed: int = 0):
+    """Reduced `arch` built on the CPU with the reference's weights."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, sharded_batch, synthetic_batch
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import build
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.sharding import batch_specs, distribute_model, to_named
-    from repro_torch.sharding import rules
-    from repro_torch.train import init_state, make_train_step
     from repro_torch.tree import walk
 
     cfg = get_config(arch).reduced()
-    model = build(cfg, device="cpu", seed=0)
+    model = build(cfg, device="cpu", seed=seed)
     with torch.no_grad():
         for path, leaf in walk(model.params()):
             leaf.copy_(torch.from_numpy(
                 ctx["npz"][key + "::" + "::".join(path)]))
-    mesh = make_mesh((4, 2), ("data", "model"), "cpu")
+    return cfg, model
+
+
+def _train_steps(ctx, arch, key, shape=(4, 2)):
+    from repro_torch.data import DataConfig, sharded_batch, synthetic_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import batch_specs, distribute_model, to_named
+    from repro_torch.sharding import rules
+    from repro_torch.train import init_state, make_train_step
+
+    cfg, model = _reference_model(ctx, arch, key)
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
     distribute_model(model, cfg, mesh)
     n_dtensor = sum(type(p).__name__ == "DTensor" for p in model.parameters())
     opt = AdamWConfig(lr=1e-3)
@@ -87,19 +162,75 @@ def _train_steps(ctx, arch, key):
     out = {"loss": [], "grad_norm": [], "n_dtensor": n_dtensor,
            "tp_regions": regions,
            "n_params": len(list(model.parameters())),
-           "moment_dtensor": type(state["opt"]["m"]["layers"][0]["attn"]["wq"]
-                                  ).__name__}
+           "moment_dtensor": type(next(
+               m for m in state["opt"]["m"]["layers"] if "attn" in m)
+               ["attn"]["wq"]).__name__}
     try:
-        for s in range(2):
-            host = synthetic_batch(s, dcfg)
-            batch = sharded_batch(s, dcfg, mesh,
-                                  to_named(mesh, batch_specs(cfg, host, mesh)))
-            regions.append(0)
-            state, m = step(state, batch)
-            out["loss"].append(float(m["loss"]))
-            out["grad_norm"].append(float(m["grad_norm"]))
+        with _Whole(model) as whole:
+            for s in range(2):
+                host = synthetic_batch(s, dcfg)
+                batch = sharded_batch(s, dcfg, mesh, to_named(
+                    mesh, batch_specs(cfg, host, mesh)))
+                regions.append(0)
+                state, m = step(state, batch)
+                out["loss"].append(float(m["loss"]))
+                out["grad_norm"].append(float(m["grad_norm"]))
     finally:
         rules.tp_exit = exit_
+    return {**out, **whole.record()}
+
+
+def case_tp_train(ctx):
+    """Two sharded train steps of each `TP_TRAIN` config from the
+    reference's weights (8 x 64 tokens): the whole step tensor-parallel
+    over "model" (the vocab-parallel embedding and CE, attention by head
+    or by head_dim, MLA, the RG-LRU block by channel, MoE experts by their
+    hidden dim): losses, grad norms, regions, and what was gathered
+    whole."""
+    return {f"{key}_{a}x{b}": _train_steps(ctx, arch, key, (a, b))
+            for arch, key, (a, b) in TP_TRAIN}
+
+
+def case_tp_serve(ctx):
+    """A sharded prefill of 12 positions and 4 greedy-fed decode steps of
+    each `TP_SERVE` config on 4x2, 8 rows from the reference's weights:
+    every step's logits (the dp ranks' rows joined), the cache leaves'
+    local shapes, and what was gathered whole."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import (batch_specs, distribute,
+                                      distribute_model, rules, to_named)
+
+    npz = ctx["npz"]
+    out = {}
+    for arch, key in TP_SERVE:
+        cfg, model = _reference_model(ctx, arch, key)
+        mesh = make_mesh((4, 2), ("data", "model"), "cpu")
+        distribute_model(model, cfg, mesh)
+        toks = torch.from_numpy(npz["serve_tokens"]).long()
+
+        def placed(b):
+            return distribute(b, to_named(mesh, batch_specs(cfg, b, mesh)))
+
+        def rows(t):
+            return rules.from_local_batch(t, mesh).full_tensor()
+        with _Whole(model) as whole:
+            caches, logits = model.prefill(placed({"tokens": toks[:, :12]}),
+                                           max_len=16)
+            got = [rows(logits)]
+            for t in range(12, 16):
+                caches, logits = model.decode_step(caches, placed({
+                    "tokens": toks[:, t:t + 1],
+                    "positions": torch.full((8,), t, dtype=torch.int32)}))
+                got.append(rows(logits))
+        want = npz[key + "_serve_logits"]
+        out[key] = {"err": [float(np.max(np.abs(g.numpy() - w)))
+                            for g, w in zip(got, want)],
+                    "cache_shapes": {f"{i}/{k}": list(t.shape)
+                                     for i, c in enumerate(caches)
+                                     for k, t in c.items()},
+                    **whole.record()}
     return out
 
 
@@ -297,8 +428,8 @@ def case_hints(ctx):
     return out
 
 
-CASES = [case_train_4x2, case_train_moe_4x2, case_elastic, case_moe_ep,
-         case_cim, case_hints]
+CASES = [case_train_4x2, case_train_moe_4x2, case_tp_train, case_tp_serve,
+         case_elastic, case_moe_ep, case_cim, case_hints]
 
 
 def _rank(rank: int, work: str, store: str) -> None:

@@ -84,19 +84,21 @@ def test_reduced_cell_on_eight_fake_ranks(tmp_path, shape):
 
 def test_traced_decode_flops_are_the_rank_share(tmp_path):
     """A decode step's traced FLOPs: 2 x local rows x the matmul
-    parameters (the head over the padded vocab; the MLP's share of the 2
-    "model" ranks, which run it tensor-parallel), plus attention over the
-    cache: within 5% of that count for the reduced model."""
+    parameters (attention's and the MLP's weights, and the head over the
+    padded vocab), plus attention over the cache (QK^T and PV), each the
+    share of one of the 2 "model" ranks: the projections split by head,
+    the MLP by its hidden dim, the head by vocab, decode attention by the
+    cache's head_dim. Within 5% of that count for the reduced model."""
     res = dryrun.run_cell(ARCH, "decode_32k", "4x2", str(tmp_path),
                           force=True, overrides=_reduced_overrides(),
                           mesh_shape=(4, 2))
     cfg = get_config(ARCH).reduced()
     rows = RSHAPES["decode_32k"].global_batch // 4
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    per_layer = d * (h + 2 * kv) * hd + h * hd * d + 3 * d * cfg.d_ff / 2
+    per_layer = d * (h + 2 * kv) * hd + h * hd * d + 3 * d * cfg.d_ff
     matmul = cfg.n_layers * per_layer + d * cfg.vocab_padded
     attn = cfg.n_layers * 2 * h * hd * RSHAPES["decode_32k"].seq_len
-    want = 2.0 * rows * (matmul + attn)
+    want = 2.0 * rows * (matmul + attn) / 2
     got = res["cost"]["flops_per_partition"]
     assert abs(got - want) / want < 0.05, (got, want)
 

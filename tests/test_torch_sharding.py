@@ -10,10 +10,14 @@ the port's per-layer leaves equals the rest. Then the reference's own
 cases (divisibility, big-tensor coverage, the elastic planner).
 
 Multi-rank cases run 8 `gloo` ranks in a child process
-(`tests/_torch_gloo_ranks.py`), fed the reference's numbers: 4x2 sharded
-train steps of reduced llama3.2-1b and deepseek-v2-lite-16b against the
-reference's single-device `make_train_step` (its own 8-device case fails
-with a `ShardingTypeError` under JAX 0.9), the elastic restore 4x2 -> 2x4
+(`tests/_torch_gloo_ranks.py`), fed the reference's numbers: sharded
+train steps, tensor-parallel over "model", of reduced llama3.2-1b,
+deepseek-v2-lite-16b, gemma-2b, recurrentgemma-9b and grok-1-314b on 4x2
+and of llama3.2-1b and deepseek on 1x8 against the reference's
+single-device `make_train_step` (its own 8-device case fails with a
+`ShardingTypeError` under JAX 0.9), a sharded prefill and 4 decode steps
+of llama3.2-1b, deepseek and recurrentgemma-9b on 4x2 against its
+unsharded logits, the elastic restore 4x2 -> 2x4
 and 8x1 (and in place), `moe_apply_ep` on 2x4, 1x8 and 4x2, and
 `execute_sharded`, `cim.multiply(mesh=)` and `lower(mesh=)` over 1, 2 and
 4 "data" ranks against the reference's bits and ledgers.
@@ -232,12 +236,38 @@ def _ledger(led) -> dict:
     return d
 
 
+#: the reference's single-device train steps (two each, from seed 0) that
+#: the 4x2 and 1x8 sharded steps are held to: (arch, key)
+TRAIN_REFS = (("llama3.2-1b", "train"), ("deepseek-v2-lite-16b", "moe_train"),
+              ("gemma-2b", "gemma_train"), ("recurrentgemma-9b", "rg_train"),
+              ("grok-1-314b", "grok_train"))
+#: the reference's unsharded prefill + decode that the 4x2 sharded one is
+#: held to (the keys of their train weights)
+SERVE_REFS = ("train", "moe_train", "rg_train")
+
+
+def _reference_serve(rmodel, rparams, tokens):
+    """Logits of a prefill of 12 positions (max_len 16) and 4 decode steps
+    fed the next tokens: [5, B, V]."""
+    prefill = jax.jit(rmodel.prefill, static_argnums=2)
+    decode = jax.jit(rmodel.decode_step)
+    caches, logits = prefill(rparams, {"tokens": jnp.asarray(tokens[:, :12])},
+                             16)
+    out = [np.asarray(logits)]
+    for t in range(12, 16):
+        caches, logits = decode(rparams, caches, {
+            "tokens": jnp.asarray(tokens[:, t:t + 1]),
+            "positions": jnp.full((tokens.shape[0],), t, jnp.int32)})
+        out.append(np.asarray(logits))
+    return np.stack(out)
+
+
 def _reference_inputs(work):
     arrays, meta = {}, {}
-    # the sharded train steps: reduced llama3.2-1b and deepseek-v2-lite-16b,
-    # two steps each from seed 0
-    for arch, key in (("llama3.2-1b", "train"),
-                      ("deepseek-v2-lite-16b", "moe_train")):
+    # the sharded train steps, and prefill + decode from the same weights
+    arrays["serve_tokens"] = np.random.RandomState(4).randint(
+        0, 256, (8, 16)).astype(np.int32)
+    for arch, key in TRAIN_REFS:
         rcfg = rget(arch).reduced()
         rmodel = rbuild(rcfg)
         ropt = RAdamWConfig(lr=1e-3)
@@ -246,6 +276,9 @@ def _reference_inputs(work):
                                   get_config(arch).reduced(), device="cpu")
         for path, leaf in walk(tparams):
             arrays[key + "::" + "::".join(path)] = leaf.numpy()
+        if key in SERVE_REFS:
+            arrays[key + "_serve_logits"] = _reference_serve(
+                rmodel, rstate["params"], arrays["serve_tokens"])
         rstep = jax.jit(r_make_train_step(rmodel, ropt))
         dcfg = RDataConfig(vocab_size=rcfg.vocab_size, batch=8, seq_len=64)
         meta[key + "_loss"], meta[key + "_grad_norm"] = [], []
@@ -339,19 +372,90 @@ def _case(ranks, name):
     return meta, res
 
 
-@pytest.mark.parametrize("case,key", [("train_4x2", "train"),
-                                      ("train_moe_4x2", "moe_train")])
-def test_sharded_train_step_matches_reference_loss(ranks, case, key):
-    meta, res = _case(ranks, case)
+#: the vocab-parallel embedding's all-reduce, and the CE's sums over the
+#: vocab blocks for the one 64-token chunk, run again by its checkpoint in
+#: the backward
+EMBED_AND_CE = 1 + 2
+#: tensor-parallel regions (`rules.tp_exit` calls) a reduced train step
+#: runs, one per layer part split over "model" (2 layers, 6 for the
+#: hybrid): attention or MLA, a dense MLP, the RG-LRU block, a MoE layer's
+#: routed experts under "tp" sharding and its shared experts; deepseek's 4
+#: experts are "ep" on 2 "model" ranks (gathered whole) and "tp" on 8
+TP_REGIONS = {
+    "train_4x2": 2 * 2 + EMBED_AND_CE,
+    "moe_train_4x2": 2 + 1 + 1 + EMBED_AND_CE,
+    "gemma_train_4x2": 2 * 2 + EMBED_AND_CE,
+    "rg_train_4x2": 6 * 2 + EMBED_AND_CE,
+    "grok_train_4x2": 2 * 2 + EMBED_AND_CE,
+    "train_1x8": 2 * 2 + EMBED_AND_CE,
+    "moe_train_1x8": 2 + 1 + 1 + 1 + EMBED_AND_CE,
+}
+#: the "model"-sharded weights a step gathers whole: the kv weights of
+#: attention split by head whose single kv head the specs split by head_dim
+#: (each rank's query heads read it whole, as GSPMD gathers it), and
+#: expert weights under "ep" sharding (gathered at their use, as the
+#: reference's are)
+WHOLE = {
+    "moe_train_4x2": {f"layers.1.mlp.{k}" for k in ("w_in", "w_gate",
+                                                    "w_out")},
+    "gemma_train_4x2": {f"layers.{i}.attn.{k}" for i in (0, 1)
+                        for k in ("wk", "wv")},
+    "rg_train_4x2": {f"layers.{i}.attn.{k}" for i in (2, 5)
+                     for k in ("wk", "wv")},
+}
+
+
+def _assert_train_matches(meta, res, key, case):
     assert res["n_dtensor"] == res["n_params"]
     assert res["moment_dtensor"] == "DTensor"
-    # tensor parallelism over "model": llama's 2 layers run attention and
-    # MLP so; deepseek's dense first layer its MLP (MLA and MoE whole)
-    assert res["tp_regions"] == [{"train": 4, "moe_train": 1}[key]] * 2
+    assert res["tp_regions"] == [TP_REGIONS[case]] * 2
+    assert set(res["params_whole"]) == WHOLE.get(case, set())
+    assert res["caches_whole"] == 0
     np.testing.assert_allclose(res["loss"], meta[key + "_loss"], atol=1e-5,
                                rtol=0)
     np.testing.assert_allclose(res["grad_norm"], meta[key + "_grad_norm"],
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case,key", [("train_4x2", "train"),
+                                      ("train_moe_4x2", "moe_train")])
+def test_sharded_train_step_matches_reference_loss(ranks, case, key):
+    meta, res = _case(ranks, case)
+    _assert_train_matches(meta, res, key, key + "_4x2")
+
+
+@pytest.mark.parametrize("case", ["gemma_train_4x2", "rg_train_4x2",
+                                  "grok_train_4x2", "train_1x8",
+                                  "moe_train_1x8"])
+def test_tensor_parallel_train_step_matches_reference(ranks, case):
+    """The whole step split over "model" (vocab-parallel embedding and
+    CE; attention by head, or by head_dim with 4 heads on 8 ranks; MLA;
+    the RG-LRU block by channel; MoE experts by hidden dim): losses and
+    grad norms within 1e-5 of the reference's single-device step, the
+    regions counted, and nothing "model"-sharded gathered whole but the
+    named cases."""
+    meta, res = _case(ranks, "tp_train")
+    _assert_train_matches(meta, res[case], case.rsplit("_", 1)[0], case)
+
+
+@pytest.mark.parametrize("key", ["train", "moe_train", "rg_train"])
+def test_tensor_parallel_prefill_and_decode_match_reference(ranks, key):
+    """Reduced llama3.2-1b, deepseek-v2-lite-16b and recurrentgemma-9b on
+    4x2: a sharded prefill and 4 decode steps within 1e-5 of the
+    reference's unsharded logits; each rank keeps its 2 rows and its
+    "model" block of every cache's feature dim, and joins none whole."""
+    _, res = _case(ranks, "tp_serve")
+    r = res[key]
+    assert max(r["err"]) <= 1e-5, r["err"]
+    assert r["caches_whole"] == 0
+    want = {"train": set(), "moe_train": WHOLE["moe_train_4x2"],
+            "rg_train": WHOLE["rg_train_4x2"]}[key]
+    assert set(r["params_whole"]) == want
+    # reduced widths: head_dim 16, latent 32, rope 8, d_model 64; halves
+    width = {"k": 8, "v": 8, "c_kv": 16, "k_rope": 4, "h": 32, "conv": 32}
+    for name, shape in r["cache_shapes"].items():
+        assert shape[0] == 2 and shape[-1] == width[name.split("/")[1]], \
+            (name, shape)
 
 
 def test_elastic_restore_across_meshes(ranks):
