@@ -106,7 +106,16 @@ Phases, each fatal on failure (nothing is caught):
                replay), asserting 2214 accesses and 90 dispatches per decode
                step and that the fused kernel's launches cover every access;
                the same request schedule through the quantized host twins
-               must give identical greedy tokens;
+               must give identical greedy tokens; every serve phase prints
+               the CUDA graphs it captured, their replays and the seconds
+               spent capturing (each schedule program replays as one graph
+               from its second call on);
+  3a. graph-step — one warm resident gemma-2b decode step at full width
+               replayed from CUDA graphs against the same step's eager
+               body (`dispatch.eager_programs`): logits and tokens equal
+               to the bit, the ledger field for field, 2214 accesses, 90
+               dispatches, the fused launches and bytes equal; both
+               steps' wall ms;
   3b. adra-faults — the paper's comparison on the card's kernel: `adra_sub`
                in one fused launch against `baseline_sub_then_cmp`'s two
                over 2^24 int16 words, both equal to `adra_int_ref` and to
@@ -211,8 +220,10 @@ card cannot run it, as gloo's functional all-gather of CUDA tensors
 `sharding.rules.tp_gather` use) crashes the process in torch 2.11.
 `--profile` adds a torch.profiler breakdown of one warm
 resident decode step of gemma-2b and recurrentgemma-9b (with the fused
-kernel's summed byte bound over the step), of one xlstm-125m decode step
-and of one gemma-2b train step.
+kernel's summed byte bound over the step; the step replays its programs'
+graphs, and the fused kernel's rows in the trace are held against its
+counted launches), of one xlstm-125m decode step and of one gemma-2b
+train step, with the peak device memory.
 """
 import dataclasses
 import gc
@@ -1923,12 +1934,15 @@ def phase_serve(arch: str, dev, profile: bool, spec=None) -> dict:
     assert rglru_launches == rglru_want, (arch, rglru_launches, rglru_want)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     for name, rep in reps.items():
+        gs = rep["graphs"]
         print(f"{arch}[{name}]: {rep['tok_s_steady']:.4f} tok/s steady, "
               f"p50 {rep['p50_ms']:.2f} ms, p99 {rep['p99_ms']:.2f} ms, "
               f"prefill {rep['prefill_ms_mean']:.1f} ms mean, "
               f"{rep['decode_steps']} decode steps, "
               f"{rep['total_accesses_per_token']} total accesses/token, "
-              f"wall {rep['wall_s']:.2f} s")
+              f"wall {rep['wall_s']:.2f} s; graphs {gs['captured']} "
+              f"captured, {gs['replays']} replays, "
+              f"{gs['capture_s']:.3f} s capturing")
     print(f"{arch}: {spec['step_accesses']} accesses and "
           f"{spec['step_dispatches']} dispatches every decode step; "
           f"{fused_launches} fused launches for {charged} ledger accesses; "
@@ -1958,7 +1972,80 @@ def phase_serve(arch: str, dev, profile: bool, spec=None) -> dict:
     serve.fresh_cim_state()
     return {"model": model, "fused_launches": fused_launches,
             "rglru_launches": rglru_launches, "peak_gib": peak_gib,
+            "graphs": {name: rep["graphs"] for name, rep in reps.items()},
             "times": times}
+
+
+def phase_graph_step(model, dev) -> dict:
+    """One warm resident gemma-2b decode step at full width (2 slots,
+    prompt 8 + gen 8) replayed from CUDA graphs against the same step's
+    eager body (`dispatch.eager_programs`, the counterpart of
+    `jax.disable_jit`): logits and greedy tokens equal to the bit, the
+    ledger field for field, the accesses (2214), dispatches (90), fused
+    launches and kernel bytes equal. Steps 1 and 2 run eagerly and pin,
+    then capture (a later layer's call of a program already captures in
+    step 1); each step starts from fresh caches."""
+    import torch
+
+    from repro_torch.cim import accounting, dispatch, fused_kernel
+    from repro_torch.launch import serve
+
+    spec = PATHS["gemma-2b"]
+    args = serve.parse_args(["--arch", "gemma-2b"] + SERVE + spec["args"])
+    max_len = args.prompt_len + args.gen
+    m = model.derive(dataclasses.replace(model.cfg, cim_resident=True),
+                     resident_spec=serve.resident_array_spec(
+                         model.cfg, 2, max_len))
+    serve.fresh_cim_state()
+    step_in = {"tokens": torch.tensor([[1], [2]], device=dev),
+               "positions": torch.tensor([args.prompt_len] * 2,
+                                         dtype=torch.int32, device=dev)}
+    fused = fused_kernel.fused_planes_op
+    led = accounting.ledger()
+
+    def step():
+        caches = m.init_caches(2, max_len)
+        torch.cuda.synchronize()
+        led.reset()
+        c0 = (fused.launches, fused.bytes,
+              dispatch.cache_stats()["dispatches"])
+        t = time.perf_counter()
+        _, logits = m.decode_step(caches, step_in)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        counts = tuple(b - a for a, b in zip(c0, (
+            fused.launches, fused.bytes,
+            dispatch.cache_stats()["dispatches"])))
+        return logits, dataclasses.asdict(led), counts, ms
+
+    g0 = dispatch.graph_stats()
+    step()                                   # eager: pins, records
+    step()                                   # captures the rest
+    capture = dispatch.graph_stats()
+    graphed = step()                         # replays
+    with dispatch.eager_programs():
+        eager = step()
+    replay = dispatch.graph_stats()
+    assert torch.equal(graphed[0], eager[0]), "graph step logits differ"
+    assert torch.equal(graphed[0].argmax(-1), eager[0].argmax(-1))
+    assert graphed[1] == eager[1], "graph step ledger differs"
+    assert graphed[2] == eager[2], (graphed[2], eager[2])
+    assert graphed[1]["accesses"] == spec["step_accesses"]
+    assert graphed[2][2] == spec["step_dispatches"]
+    assert graphed[2][0] >= spec["step_accesses"]
+    assert replay["replays"] - capture["replays"] == spec["step_dispatches"]
+    out = {"graph_ms": graphed[3], "eager_ms": eager[3],
+           "launches": graphed[2][0], "kernel_bytes": graphed[2][1],
+           "captured": capture["captured"] - g0["captured"],
+           "capture_s": capture["capture_s"] - g0["capture_s"]}
+    print(f"graph step[gemma-2b]: replayed step {out['graph_ms']:.2f} ms "
+          f"against the eager body's {out['eager_ms']:.2f} ms; logits, "
+          f"ledger, {spec['step_accesses']} accesses, "
+          f"{spec['step_dispatches']} dispatches and {out['launches']} fused "
+          f"launches equal; {out['captured']} graphs captured in "
+          f"{out['capture_s']:.3f} s")
+    serve.fresh_cim_state()
+    return out
 
 
 #: the ADRA phase: the paper's comparison at 2^24 int16 words; gemma-2b's
@@ -2732,7 +2819,7 @@ def phase_configs(dev, profile: bool = False) -> dict:
     from repro_torch.models.model import build
 
     torch.empty(0, device=dev)      # a context, when the phase runs alone
-    out = {"peak_gib": {}, "serve": {}, "times": {}}
+    out = {"peak_gib": {}, "serve": {}, "times": {}, "graphs": {}}
     for arch, spec in CONFIG_PATHS.items():
         t = time.perf_counter()
         run = phase_serve(arch, dev, profile, spec=spec)
@@ -2741,6 +2828,7 @@ def phase_configs(dev, profile: bool = False) -> dict:
         out["serve"][arch] = {k: run[k] for k in ("fused_launches",
                                                    "peak_gib")}
         out["peak_gib"][arch] = run["peak_gib"]
+        out["graphs"][arch] = run["graphs"]
         out["times"][arch] = time.perf_counter() - t
         print(f"configs[{arch}]: {out['times'][arch]:.1f} s, "
               f"{held} bytes held after")
@@ -3472,9 +3560,13 @@ def phase_tp_cards(device_type: str = "cuda", preset: str = "full",
 
 
 def phase_profile(m, dev, max_len: int, position: int) -> None:
-    """One decode step at 2 slots under torch.profiler (after one warm-up
-    step, which pins a resident model's weights): device time by PyTorch op
-    and by ported kernel, and the device's idle share."""
+    """One decode step at 2 slots under torch.profiler (after two warm-up
+    steps: the first pins a resident model's weights and runs each program
+    eagerly, the second captures the programs as CUDA graphs, so the
+    profiled step replays them): device time by PyTorch op and by ported
+    kernel, the device's idle share, the fused kernel's rows in the trace
+    against its counted launches, and the peak device memory from the
+    warm-up on."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3486,7 +3578,9 @@ def phase_profile(m, dev, max_len: int, position: int) -> None:
     step = {"tokens": torch.tensor([[1], [2]], device=dev),
             "positions": torch.tensor([position, position], dtype=torch.int32,
                                       device=dev)}
-    m.decode_step(caches, step)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):
+        m.decode_step(caches, step)
     torch.cuda.synchronize()
     fused = fused_kernel.fused_planes_op
     launches0, bytes0 = fused.launches, fused.bytes
@@ -3514,15 +3608,25 @@ def phase_profile(m, dev, max_len: int, position: int) -> None:
                   "slstm_kernel", "slstm_grid_kernel"))]
     print(f"profile[{m.cfg.name}]: decode step wall {wall_ms:.2f} ms, "
           f"device busy {busy_ms:.2f} ms (idle share "
-          f"{1 - busy_ms / wall_ms:.3f})")
+          f"{1 - busy_ms / wall_ms:.3f}), peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     if fused_launches:
+        # kernels replayed from a CUDA graph should still be traced one by
+        # one; where they are not, the programs' recorded counts stand
+        rows = sum(r[1] for r in kernels if "fused_planes_kernel" in r[0])
+        print(f"profile[{m.cfg.name}]: fused kernel rows in the trace "
+              f"{rows}, counted launches {fused_launches}"
+              + ("" if rows == fused_launches else
+                 " (the trace misses graph-replayed kernels: the count is "
+                 "the programs' recorded launches)"))
         # each launch's bytes (both stacks read, every output plane written)
         # over the memory rate, summed over the step
         fused_ms = sum(r[2] for r in kernels if "fused_planes_kernel" in r[0])
         bound_ms = fused_bytes / HBM_BYTES_PER_S * 1e3
+        share = f"{bound_ms / fused_ms:.3f}" if fused_ms else "not measured"
         print(f"profile[{m.cfg.name}]: fused kernel {fused_ms:.2f} ms for "
               f"{fused_launches} launches against a summed byte bound of "
-              f"{bound_ms:.2f} ms ({fused_bytes} B; {bound_ms / fused_ms:.3f}"
+              f"{bound_ms:.2f} ms ({fused_bytes} B; {share}"
               f" of the bound's speed)")
     for name, count, ms in sorted(custom + ops, key=lambda r: -r[2])[:12]:
         print(f"profile:   {ms:10.3f} ms  x{count:<6d} {name[:90]}")
@@ -3610,6 +3714,9 @@ def main() -> int:
             phases[f"{arch}_{k}"] = v
         model = runs[arch].pop("model")
         if arch == "gemma-2b":
+            t = time.perf_counter()
+            graph_step = phase_graph_step(model, dev)
+            phases["graph_step_s"] = time.perf_counter() - t
             t = time.perf_counter()
             adra = phase_adra_faults(model, dev)
             phases["adra_faults_s"] = time.perf_counter() - t
@@ -3766,6 +3873,10 @@ def main() -> int:
              "float32": fl["float32"], "llama_train": fl["llama_train"],
              "launches_per_step": tr["per_step"],
              "train_agree": tra, "mesh_train": mesh["train"]}
+    print("graphs: " + json.dumps({
+        "serve": {a: r["graphs"] for a, r in runs.items()},
+        "configs": conf["graphs"],
+        "gemma_step": graph_step}))
     print("mesh: " + json.dumps({k: mesh[k] for k in (
         "sharded", "train", "moe", "dryrun", "rank_kernels")}))
     print("configs: " + json.dumps({k: conf[k] for k in (

@@ -96,6 +96,7 @@ from .dispatch import (  # noqa: F401
     BoundedLRU,
     cache_stats,
     clear_schedule_cache,
+    execute_sharded,
     execute_tiled,
     set_schedule_cache_capacity,
 )

@@ -539,3 +539,7 @@ def cim_wins_table(device: Optional[DeviceSpec] = None,
             f"| {r['edp_margin_pct']:+.1f}% | "
             f"{'lower' if r['lowers'] else 'host'} |")
     return "\n".join(lines)
+
+
+if __name__ == "__main__":          # pragma: no cover
+    print(cim_wins_table())

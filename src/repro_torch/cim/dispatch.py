@@ -28,21 +28,43 @@ per key). `cache_stats()` exposes hit/miss/eviction counters and
 walltime proxy (a warm macro is exactly one). The capacity is 256 unless
 REPRO_CIM_CACHE_CAPACITY (the reference's variable) or
 `set_schedule_cache_capacity` says otherwise.
+
+Every cached program is a `Program`, the port's counterpart of the
+reference's `jax.jit`: on CUDA its body is captured as ONE CUDA graph at
+the second call with a given leaf signature (the first runs eagerly, so a
+program called once, such as a prefill shape seen once, is never
+captured) and replayed from then on, one device launch per warm call.
+Each call copies its leaves into the graph's static inputs, replays, and
+hands the caller clones of the static outputs; what the capture added to
+the fused kernel's launch and byte counters and to the codec counters is
+added again at every replay, so counts do not depend on graphs. Graphs of
+one device share one memory pool (replays are serialized on the current
+stream), and a program evicted from the LRU drops its graphs. Plain
+devices (`repro_torch.PLAIN_DEVICES`) run the eager body, as does a
+program over a mesh (`captures`) and every program inside
+`eager_programs()`. A capture runs under `CaptureGuard`, which refuses by
+name any op a graph cannot hold; there is no eager fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import time
 from collections import OrderedDict
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch import takes_plain
+from repro_torch.core import bitplane
 from . import array as array_mod
 from . import engine, opset
 from .accounting import LEDGER
 from .array import DEFAULT_SPEC, ArraySpec, TilePlan
 from .backends import Backend, get_backend
+from .fused_kernel import fused_planes_op
 from .planepack import PlanePack
 
 #: program-table capacity (the reference's default)
@@ -82,10 +104,15 @@ class BoundedLRU:
 
     def _evict(self) -> None:
         while len(self._data) > self.capacity:
-            self._data.popitem(last=False)
+            _, value = self._data.popitem(last=False)
+            if isinstance(value, Program):
+                value.drop()
             self.evictions += 1
 
     def clear(self) -> None:
+        for value in self._data.values():
+            if isinstance(value, Program):
+                value.drop()
         self._data.clear()
         self.hits = 0
         self.misses = 0
@@ -143,9 +170,13 @@ def cache_stats() -> Dict[str, int]:
 
 
 def clear_schedule_cache() -> None:
+    """Drop every program (and its graphs) and zero the counters, the
+    graph counters included."""
     global _DISPATCHES
     _PROGRAMS.clear()
     _DISPATCHES = 0
+    _GRAPH_STATS.update(captured=0, replays=0, capture_s=0.0)
+    _POOLS.clear()
 
 
 def set_schedule_cache_capacity(capacity: int) -> None:
@@ -168,6 +199,257 @@ def program_cache_get(key):
 
 def program_cache_put(key, prog) -> None:
     _PROGRAMS.put(key, prog)
+
+
+# ---------------------------------------------------------------------------
+# programs: the eager body, and on CUDA one captured graph per signature
+# ---------------------------------------------------------------------------
+
+_EAGER = False
+_GRAPH_STATS = {"captured": 0, "replays": 0, "capture_s": 0.0}
+#: one graph memory pool per device
+_POOLS: Dict[torch.device, tuple] = {}
+
+
+def graph_stats() -> Dict[str, float]:
+    """Graphs captured, graph replays and the seconds spent capturing since
+    the last `clear_schedule_cache`."""
+    return dict(_GRAPH_STATS)
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """Run every program's eager body, on CUDA too: the counterpart of
+    `jax.disable_jit`, for tests and equality checks. Graphs already
+    captured are kept, and replay again after the context."""
+    global _EAGER
+    prev, _EAGER = _EAGER, True
+    try:
+        yield
+    finally:
+        _EAGER = prev
+
+
+def captures(mesh) -> bool:
+    """Whether a program keyed on `mesh` may be captured: a program over a
+    mesh runs its eager body, since the port captures no collective yet
+    (the reference jits its shard_map bodies too)."""
+    return mesh is None
+
+
+_TENSOR = object()          # the slot of one tensor in a template
+
+
+def _flatten(obj, out: List[torch.Tensor]):
+    """Append the tensors of a program's leaves or result (tensors,
+    PlanePacks, tuples and lists of them; anything else is a constant) to
+    `out`, and return the template `_unflatten` rebuilds it from."""
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+        return _TENSOR
+    if isinstance(obj, PlanePack):
+        out.append(obj.planes)
+        return dataclasses.replace(obj, planes=None)
+    if isinstance(obj, (tuple, list)):
+        return (type(obj), [_flatten(x, out) for x in obj])
+    return obj
+
+
+def _unflatten(template, tensors):
+    """`template` with its tensor slots filled from the iterator
+    `tensors`, in `_flatten`'s order."""
+    if template is _TENSOR:
+        return next(tensors)
+    if isinstance(template, PlanePack):
+        return dataclasses.replace(template, planes=next(tensors))
+    if isinstance(template, tuple) and len(template) == 2 \
+            and template[0] in (tuple, list):
+        return template[0](_unflatten(t, tensors) for t in template[1])
+    return template
+
+
+def _graph_device(tensors: Sequence[torch.Tensor]) -> Optional[torch.device]:
+    """The CUDA device a call with these leaf tensors replays on, or None
+    to run the eager body: inside `eager_programs`, or when every leaf lies
+    on a plain device. A leaf on the CPU beside CUDA leaves is copied to
+    the graph's device."""
+    if _EAGER:
+        return None
+    devices = {t.device for t in tensors if not takes_plain(t)}
+    if len(devices) > 1:
+        raise opset.CimOpError(
+            f"a program's leaves lie on {sorted(map(str, devices))}: a "
+            f"graph runs on one device")
+    return devices.pop() if devices else None
+
+
+def _counters() -> Tuple[int, ...]:
+    """The counters a body bumps from Python, which a replay does not run:
+    the fused kernel's launches and bytes, the codec's packs and unpacks."""
+    codec = bitplane._CODEC_CALLS
+    return (fused_planes_op.launches, fused_planes_op.bytes,
+            codec["pack"], codec["unpack"])
+
+
+def _add_counters(delta: Tuple[int, ...]) -> None:
+    codec = bitplane._CODEC_CALLS
+    fused_planes_op.launches += delta[0]
+    fused_planes_op.bytes += delta[1]
+    codec["pack"] += delta[2]
+    codec["unpack"] += delta[3]
+
+
+_LIFTS = ("lift_fresh", "lift_fresh_copy", "lift")
+_INDEXING = ("index", "index_put", "index_put_", "_index_put_impl_")
+
+
+def _capture_refusal(func, args, kwargs, device) -> Optional[str]:
+    """Why a graph cannot hold one aten call, or None."""
+    name = func.overloadpacket.__name__
+    if name in _LIFTS:
+        return "it builds a tensor from host data"
+    if torch.Tag.data_dependent_output in func.tags:
+        return "it reads a device value on the host"
+    if name in _INDEXING:
+        # tagged dynamic_output_shape, but only a boolean index is
+        if any(i is not None and i.dtype in (torch.bool, torch.uint8)
+               for i in args[1]):
+            return "a boolean index gives a shape that depends on the data"
+    elif torch.Tag.dynamic_output_shape in func.tags:
+        return "its output's shape depends on the data"
+    if device is not None:
+        flat = list(args) + list(kwargs.values())
+        flat += [x for a in flat if isinstance(a, (tuple, list)) for x in a]
+        for x in flat:
+            if isinstance(x, torch.Tensor) and x.device != device:
+                return f"it reads a tensor on {x.device}, not on {device}"
+        dev = kwargs.get("device")
+        if dev is not None and torch.device(dev).type != device.type:
+            return f"it makes a tensor on {dev}, not on {device}"
+    return None
+
+
+class CaptureGuard(TorchDispatchMode):
+    """Refuses, by name, every aten call a CUDA graph cannot hold: one that
+    reads a device value on the host (`aten._local_scalar_dense`: `.item()`,
+    `.tolist()`; every op tagged data_dependent_output), builds a tensor
+    from host data (`aten.lift_fresh`: `torch.tensor`, `torch.as_tensor` of
+    a Python value), gives an output whose shape depends on the data (ops
+    tagged dynamic_output_shape: `nonzero`, `masked_select`, boolean
+    indexing) or, with a `device`, reads or makes a tensor on another
+    device. Every capture runs under it; the CPU tests run warm bodies
+    under it without a device."""
+
+    def __init__(self, device: Optional[torch.device] = None):
+        super().__init__()
+        self.device = device
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        why = _capture_refusal(func, args, kwargs, self.device)
+        if why is not None:
+            raise opset.CimOpError(
+                f"{func} cannot be captured in a CUDA graph: {why}")
+        return func(*args, **kwargs)
+
+
+def _record(fn, args, device: torch.device):
+    """Capture `fn(*args)` as one CUDA graph on `device`, in the device's
+    shared pool (on `torch.cuda.graph`'s one capture stream, as sharing a
+    pool asks), under `CaptureGuard`. Returns (graph, result); the graph
+    has not run yet."""
+    if device not in _POOLS:
+        _POOLS[device] = torch.cuda.graph_pool_handle()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(device), \
+            torch.cuda.graph(graph, pool=_POOLS[device]), \
+            CaptureGuard(device):
+        out = fn(*args)
+    return graph, out
+
+
+class _Graph:
+    """One captured body: its static inputs (one per leaf tensor), the
+    graph, its static outputs with the template they rebuild, and what the
+    capture added to `_counters`."""
+
+    __slots__ = ("graph", "inputs", "outputs", "template", "counts")
+
+    def __init__(self, fn, tensors, template, device):
+        self.inputs = [torch.empty_like(t, device=device) for t in tensors]
+        for s, t in zip(self.inputs, tensors):
+            s.copy_(t)
+        before = _counters()
+        t0 = time.perf_counter()
+        self.graph, out = _record(fn, _unflatten(template, iter(self.inputs)),
+                                  device)
+        _GRAPH_STATS["capture_s"] += time.perf_counter() - t0
+        _GRAPH_STATS["captured"] += 1
+        # the capture launched nothing: its counts belong to the replays
+        after = _counters()
+        self.counts = tuple(b - a for a, b in zip(before, after))
+        _add_counters(tuple(-c for c in self.counts))
+        self.outputs = []
+        self.template = _flatten(out, self.outputs)
+
+    def __call__(self, tensors):
+        for s, t in zip(self.inputs, tensors):
+            s.copy_(t)
+        self.graph.replay()
+        _GRAPH_STATS["replays"] += 1
+        _add_counters(self.counts)
+        return _unflatten(self.template, iter([o.clone()
+                                               for o in self.outputs]))
+
+
+class Program:
+    """One cached program: `fn(*leaves)`, its leaves tensors and PlanePacks.
+
+    A call with a leaf signature (shapes and dtypes) never seen runs the
+    eager body; on CUDA the second call with it captures the body as one
+    graph and every later call replays that graph (the reference's jit
+    retraces per shape too). Plain devices, `eager_programs()` and a
+    program made with `graphed=False` (a mesh program, `captures`) run the
+    eager body every time. `first` names the leaves of a call already made
+    eagerly (a schedule program's recording call)."""
+
+    __slots__ = ("fn", "graphed", "_seen", "graphs")
+
+    def __init__(self, fn, graphed: bool = True, first=None):
+        self.fn = fn
+        self.graphed = graphed
+        self._seen = set()
+        self.graphs: Dict[Tuple, _Graph] = {}
+        if first is not None:
+            tensors: List[torch.Tensor] = []
+            _flatten(tuple(first), tensors)
+            self._seen.add(_signature(tensors))
+
+    def __call__(self, *leaves):
+        if not self.graphed:
+            return self.fn(*leaves)
+        tensors: List[torch.Tensor] = []
+        template = _flatten(leaves, tensors)
+        device = _graph_device(tensors)
+        if device is None:
+            return self.fn(*leaves)
+        sig = _signature(tensors)
+        graph = self.graphs.get(sig)
+        if graph is None:
+            if sig not in self._seen:
+                self._seen.add(sig)
+                return self.fn(*leaves)
+            graph = self.graphs[sig] = _Graph(self.fn, tensors, template,
+                                              device)
+        return graph(tensors)
+
+    def drop(self) -> None:
+        """Release the graphs (and their static buffers)."""
+        self.graphs.clear()
+
+
+def _signature(tensors: Sequence[torch.Tensor]) -> Tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
 
 
 def _mesh_axis(mesh, axis: str):
@@ -204,13 +486,15 @@ def _tiled_program(ops, bk: Backend, mesh=None, axis: Optional[str] = None):
 def _cached_program(ops, n_bits: int, tile_shape: tuple, bk: Backend,
                     mesh=None, axis: Optional[str] = None):
     """The tiled program of one schedule key. The bank count is not part of
-    the key: the same tile shape is the same program. The mesh is (two
-    meshes of the same shape over other ranks must not share one)."""
+    the key: the same tile shape is the same program (one graph per tile
+    count). The mesh is (two meshes of the same shape over other ranks must
+    not share one)."""
     key = (ops, n_bits, tile_shape, bk.name,
            None if mesh is None else (mesh, axis))
     prog = program_cache_get(key)
     if prog is None:
-        prog = _tiled_program(ops, bk, mesh, axis)
+        prog = Program(_tiled_program(ops, bk, mesh, axis),
+                       graphed=captures(mesh))
         program_cache_put(key, prog)
     return prog
 

@@ -669,6 +669,10 @@ class LoweredComputation:
         # ops replayed into the pinned pack at pin time: dead in the body
         skip_eqns = frozenset(ei for ra in resident_kinds.values()
                               for ei in ra.chain_eqns)
+        # the region's scalar literals as device tensors, made at the
+        # program's first (eager) call and kept: a CUDA graph cannot copy
+        # host values to the device at its capture
+        literals: Dict[int, torch.Tensor] = {}
 
         def body(cur, *leaves):
             chain = macro.ChainExecutor.from_cursor(cur)
@@ -699,8 +703,11 @@ class LoweredComputation:
 
             def read(atom):
                 if isinstance(atom, Literal):
-                    return torch.tensor(atom.val, dtype=atom.aval.dtype,
-                                        device=device)
+                    lit = literals.get(id(atom))
+                    if lit is None:
+                        lit = literals[id(atom)] = torch.tensor(
+                            atom.val, dtype=atom.aval.dtype, device=device)
+                    return lit
                 if isinstance(atom, ConstVal):
                     return const_env[id(atom)]
                 return var_env[atom]

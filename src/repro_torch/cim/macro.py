@@ -7,15 +7,19 @@ op-sets) and nothing else, so ledger accesses == schedule.accesses by
 construction — or, on a banked `spec`, == schedule.placed_accesses: the
 cursor then routes every access through the tiling dispatcher.
 
-`run_schedule_program` is the eager counterpart of the reference's one
-jitted XLA program per schedule: the first call under a key runs the body
-through a recording cursor, stores the body with its charge-from-plan record
-(`PlannedCharges`) in the dispatch layer's bounded LRU, and every call —
-first or warm — is ONE dispatch whose recorded charges replay into the
-ledger. PyTorch runs eagerly, so each call re-executes the body's accesses
-on the device; what the cache keeps is the program identity, the counters
-and the plan. (CUDA-graph capture of a whole schedule is the later analogue
-of the compiled program.)
+`run_schedule_program` is the counterpart of the reference's one jitted
+XLA program per schedule (DESIGN.md §8): the first call under a key runs
+the body eagerly through a recording cursor and stores it with its
+charge-from-plan record (`PlannedCharges`) in the dispatch layer's bounded
+LRU as a `CompiledSchedule`; on CUDA the second call captures the whole
+body — every access, the packed-domain peripherals between them, the
+entry packs and the exit unpack — as ONE CUDA graph, and every later call
+replays it: one device launch (`dispatch.Program`). Every call, first or
+warm, is ONE dispatch whose recorded charges replay into the ledger, and
+the fused kernel's launch count moves as the eager body's would. CPU and
+`meta` tensors run the body eagerly every call, and so does a program over
+a mesh (`dispatch.captures`). XLA also fuses the peripherals; a graph
+replays them as the body launched them.
 
 Operands, partial products, accumulators and tree levels all stay in the
 PlanePack packed domain; the only codec entries are the entry packs and the
@@ -140,20 +144,22 @@ class ScheduleCursor:
 # ---------------------------------------------------------------------------
 
 
-class CompiledSchedule:
+class CompiledSchedule(dispatch.Program):
     """A cached schedule program plus its charge-from-plan record. Calling
-    it runs the body and then replays the recorded charges: ONE dispatch."""
+    it runs the program (the eager body, or on CUDA its graph) and then
+    replays the recorded charges: ONE dispatch."""
 
-    __slots__ = ("fn", "charges")
+    __slots__ = ("charges",)
 
-    def __init__(self, fn, charges: PlannedCharges):
-        self.fn = fn
+    def __init__(self, fn, charges: PlannedCharges, graphed: bool = True,
+                 first=None):
+        super().__init__(fn, graphed=graphed, first=first)
         self.charges = charges
 
     def __call__(self, *leaves):
         # invoke first, account after: a failed invocation must not leave
         # the ledger charged (or the dispatch counter bumped)
-        out = self.fn(*leaves)
+        out = super().__call__(*leaves)
         self.charges.replay()
         dispatch.count_dispatch()
         return out
@@ -182,12 +188,15 @@ def run_schedule_program(schedule: planner.Schedule, body, operands,
 
     Cached in the dispatch layer's bounded LRU under the schedule, the body
     identity (`body_key`), the operand signatures, the backend and the
-    banked geometry: a repeat hits (no new program), runs the cached body
-    and replays the charges recorded the first time — accesses ==
+    banked geometry: a repeat hits (no new program), runs the cached
+    program (on CUDA: captures it at the first hit, replays it after) and
+    replays the charges recorded the first time — accesses ==
     schedule.accesses (placed_accesses on a `spec`) either way. The body's
     accesses take the traced forms, which never see the fault overlay:
     the reference's programs are jitted, so a streamed fault campaign
-    injects nothing into them (and draws nothing for them)."""
+    injects nothing into them (and draws nothing for them). A body must be
+    capturable: the tensors it makes from host values are made at its
+    first call and kept (`lower`'s region literals)."""
     bk_name = get_backend(backend).name
     leaves = tuple(operands)
     key = ("step-program", schedule, tuple(body_key),
@@ -211,7 +220,8 @@ def run_schedule_program(schedule: planner.Schedule, body, operands,
             f"{schedule.macro}: recorded {planned.accesses} accesses but the "
             f"plan has {schedule.accesses}")
     dispatch.program_cache_put(
-        key, CompiledSchedule(lambda *args: run([], *args), planned))
+        key, CompiledSchedule(lambda *args: run([], *args), planned,
+                              graphed=dispatch.captures(mesh), first=leaves))
     planned.replay()
     dispatch.count_dispatch()
     return out

@@ -77,7 +77,11 @@ def ripple_chain(or_bits: torch.Tensor, and_bits: torch.Tensor,
     sign-extended inputs (bit n-1 replicated), handling two's-complement
     overflow exactly as the paper prescribes.
     """
-    sel = torch.as_tensor(select, dtype=or_bits.dtype, device=or_bits.device)
+    # filled in on the device, never copied from the host: the analog
+    # backend runs inside schedule programs that CUDA graphs capture
+    sel = select.to(dtype=or_bits.dtype, device=or_bits.device) \
+        if isinstance(select, torch.Tensor) else torch.full(
+            (), select, dtype=or_bits.dtype, device=or_bits.device)
     # the ripple is sequential in hardware too
     c = sel.expand(or_bits.shape[:-1])
     sums = []

@@ -69,6 +69,11 @@ class FEParams:
 
 
 def _f32(x, device=None) -> torch.Tensor:
+    """`x` as float32 on `device`. A Python number is filled in on the
+    device (no copy from the host, so a CUDA graph can capture it); the
+    rounding to float32 is the same."""
+    if isinstance(x, (int, float)):
+        return torch.full((), float(x), dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 

@@ -459,6 +459,9 @@ class ServeEngine:
             }
         if self.cim_lower:
             per_tok = max(1, decode_tokens)
+            # CUDA graphs of the programs (0 on the CPU): what the serve
+            # captured and replayed since the last fresh_cim_state
+            report["graphs"] = dispatch.graph_stats()
             report["ledger"] = {
                 "accesses": led.accesses,
                 "load_accesses": led.load_accesses,
@@ -599,6 +602,9 @@ def print_cim_report(tag: str) -> None:
           f"{cs['resident_pins']} pins / {cs['resident_hits']} hits / "
           f"{cs['resident_evictions']} evictions, "
           f"{cs['resident_rows']} rows held")
+    gs = dispatch.graph_stats()
+    print(f"  graphs: {gs['captured']} captured, {gs['replays']} replays, "
+          f"{gs['capture_s']:.3f} s capturing")
     ps = cost.PLAN_STATS
     print(f"  offload policy: {ps['plans']} plans cut, "
           f"{ps['eqns_lowered']} eqns lowered / {ps['eqns_demoted']} "

@@ -87,7 +87,7 @@ pins weights (residency is off under the reference's jit tracers too).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -138,6 +138,25 @@ def stack_kinds(cfg: ArchConfig) -> tuple:
     fd, p = cfg.first_dense_layers, cfg.block_pattern
     return ("attn",) * fd + tuple(p[i % len(p)]
                                   for i in range(cfg.n_layers - fd))
+
+
+@dataclasses.dataclass(frozen=True)
+class StackLayout:
+    """The stack as the reference counts it: the block pattern, the
+    `first_dense` prefix, the pattern's whole groups over the layers after
+    it and the remainder (`stack_kinds` lists the same layers one by one)."""
+
+    pattern: Tuple[str, ...]
+    n_first_dense: int
+    n_groups: int
+    n_rem: int
+
+    @classmethod
+    def from_config(cls, cfg: ArchConfig) -> "StackLayout":
+        p = cfg.block_pattern
+        body = cfg.n_layers - cfg.first_dense_layers
+        return cls(pattern=p, n_first_dense=cfg.first_dense_layers,
+                   n_groups=body // len(p), n_rem=body % len(p))
 
 
 def is_moe_layer(cfg: ArchConfig, index: int) -> bool:

@@ -433,3 +433,119 @@ def test_mesh_path_on_a_one_rank_nccl_group():
         assert led0 == led1 and n0 == n1
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# whole-schedule CUDA graphs (test_torch_graphs.py holds the bookkeeping
+# against a stand-in graph on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def _graph_calls():
+    """Each case: a call through one or more cached programs, its result as
+    a flat tuple of tensors."""
+    from repro_torch import cim
+    from repro_torch.cim import PlanePack, dispatch, macro
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import layers as tlayers
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, device="cuda", generator=g,
+                             dtype=torch.int32)
+
+    x, y = ints(-30000, 30000, (1 << 20,)), ints(-30000, 30000, (1 << 20,))
+    a, b = ints(-128, 128, (64, 2048)), ints(-128, 128, (2048, 256))
+    ba, bb = ints(-128, 128, (2, 4, 256)), ints(-128, 128, (2, 256, 16))
+    pa_, pb_ = _planes(5, 29, 4099)
+    pa = PlanePack(pa_, 29, True, (4099 * 32,))
+    pb = PlanePack(pb_, 29, True, (4099 * 32,))
+    spec = cim.ArraySpec(banks=2, subarrays=1, rows=256, bitline_words=32)
+    w = {k: torch.randn(shape, device="cuda", generator=g) * 0.05
+         for k, shape in (("w_in", (256, 1024)), ("w_gate", (256, 1024)),
+                          ("w_out", (1024, 256)))}
+    h = torch.randn((2, 1, 256), device="cuda", generator=g)
+    q = torch.randn((2, 1, 4, 64), device="cuda", generator=g)
+    k, v = (torch.randn((2, 16, 2, 64), device="cuda", generator=g)
+            for _ in range(2))
+    mask = (torch.arange(16, device="cuda")[None, :]
+            <= torch.tensor([[9], [15]], device="cuda"))[:, None, :]
+    return {
+        "multiply": lambda: (cim.multiply(PlanePack.pack(x, 16),
+                                          PlanePack.pack(y, 16)).planes,),
+        "matmul": lambda: (cim.matmul(a, b),),
+        "batched_matmul": lambda: (macro.batched_matmul(ba, bb),),
+        "banked_access": lambda: tuple(
+            o.planes for o in dispatch.execute_tiled(
+                pa, pb, ("add", "lt"), spec=spec).values()),
+        "resident_mlp": lambda: (tlayers.mlp_cim(w, h, "geglu",
+                                                 resident=True),),
+        "sdpa_cim": lambda: (tattn.sdpa_cim(q, k, v, mask, 0.125),),
+    }
+
+
+@pytest.mark.parametrize("case", ["multiply", "matmul", "batched_matmul",
+                                  "banked_access", "resident_mlp",
+                                  "sdpa_cim"])
+def test_graph_replay_equals_the_eager_body(case):
+    """Three calls (eager, captured, replayed) against the eager body's
+    warm call inside `eager_programs`: results to the bit, the whole ledger,
+    and the launch, byte and dispatch counts equal."""
+    import dataclasses
+
+    from repro_torch.cim import dispatch
+
+    call = _graph_calls()[case]
+
+    def once():
+        LEDGER.reset()
+        fp = tfk.fused_planes_op
+        c0 = (fp.launches, fp.bytes, dispatch.cache_stats()["dispatches"])
+        out = call()
+        torch.cuda.synchronize()
+        c1 = (fp.launches, fp.bytes, dispatch.cache_stats()["dispatches"])
+        return out, dataclasses.asdict(LEDGER), \
+            tuple(b - a for a, b in zip(c0, c1))
+
+    dispatch.clear_schedule_cache()
+    with dispatch.eager_programs():
+        once()                                # pins, for the resident MLP
+        want, want_led, want_counts = once()
+    assert want_counts[0] > 0 and want_counts[2] > 0
+    dispatch.clear_schedule_cache()
+    for i in range(3):
+        got, led, counts = once()
+        assert all(torch.equal(o, r) for o, r in zip(got, want)), (case, i)
+        assert led == want_led and counts == want_counts, (case, i)
+    stats = dispatch.graph_stats()
+    assert stats["captured"] >= 1 and stats["replays"] >= 2, stats
+    dispatch.clear_schedule_cache()
+
+
+def _item_body(cur, a, b):
+    out = cur.execute(a, b, ("add",))["add"]
+    int(out.planes.sum())                 # a host read of a device value
+    return out
+
+
+def test_a_body_that_cannot_be_captured_raises():
+    """`.item()` in a body runs at its first (eager) call, then the capture
+    of its second refuses it by name, and so does every later call: no
+    eager fallback. Inside `eager_programs` it runs."""
+    from repro_torch.cim import PlanePack, dispatch, macro, planner
+    from repro_torch.cim.opset import CimOpError
+
+    a_, b_ = _planes(2, 8, 64)
+    pa, pb = PlanePack(a_, 8, True, (2048,)), PlanePack(b_, 8, True, (2048,))
+    sched = planner.plan_elementwise(("add",), 9)
+    dispatch.clear_schedule_cache()
+    macro.run_schedule_program(sched, _item_body, (pa, pb), body_key=("i",))
+    for _ in range(2):
+        with pytest.raises(CimOpError, match="_local_scalar_dense"):
+            macro.run_schedule_program(sched, _item_body, (pa, pb),
+                                       body_key=("i",))
+    with dispatch.eager_programs():
+        macro.run_schedule_program(sched, _item_body, (pa, pb),
+                                   body_key=("i",))
+    dispatch.clear_schedule_cache()

@@ -1,0 +1,564 @@
+"""Whole-schedule compiled execution in the port: each cached program
+captured as one CUDA graph (DESIGN.md §8, the port's `jax.jit`).
+
+The CPU has no CUDA graph, so these cases inject a stand-in: the program
+path is taken on CPU tensors and `dispatch._record` returns a graph whose
+replay recomputes the captured body on its static inputs into its static
+outputs and, like a real replay, runs no Python side effect (the counters
+its rerun bumps are set back). The capture itself runs under
+`dispatch.CaptureGuard`, as on the card, so every body captured here
+passes the checks a CUDA capture makes: no host read of a device value, no
+tensor built from host data, no output whose shape depends on the data.
+
+(a) capture safety: the guard refuses what a graph cannot hold; every
+    macro of `cim/macro.py` (fused and analog-oracle backends, unbanked
+    and banked) and every region of the 2-layer bench decode step
+    (streamed, resident, `--sampler adra`) captures under it and replays
+    to the bit of the eager body;
+(b) the program's bookkeeping: launch, byte and codec counters replay on
+    every call, successive results do not alias, new leaf values give new
+    results, eviction drops the graph, a mesh program stays eager, the
+    tiled program keeps one graph per tile count, a body that cannot be
+    captured raises, and dispatch/hit/miss counts and ledgers move as the
+    reference's do (`tests/test_cim_program.py:48-93`, same inputs);
+plus the port's public surface: every public name of the reference's
+package `__init__`s resolves in the port's, with the listed departures.
+"""
+import ast
+import dataclasses
+import runpy
+import warnings
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import cim as rcim
+from repro.cim import dispatch as rdisp
+from repro.cim import macro as rmacro
+from repro.cim import planner as rplan
+from repro.cim.accounting import LEDGER as RLEDGER
+from repro.cim.planepack import PlanePack as RPack
+from repro.configs import registry as rreg
+from repro.models import model as rmodel
+from repro_torch import cim as tcim
+from repro_torch.cim import array as tarray
+from repro_torch.cim import backends as tbk
+from repro_torch.cim import dispatch as tdisp
+from repro_torch.cim import engine as teng
+from repro_torch.cim import macro as tmacro
+from repro_torch.cim import planner as tplan
+from repro_torch.cim.accounting import LEDGER as TLEDGER
+from repro_torch.cim.fused_kernel import fused_planes_op, fused_planes_op_ref
+from repro_torch.cim.opset import CimOpError
+from repro_torch.cim.planepack import PlanePack as TPack
+from repro_torch.configs import registry as treg
+from repro_torch.configs.base import ArchConfig as TArch
+from repro_torch.models import model as tmodel
+from repro_torch.models.model import build
+
+ROOT = Path(__file__).resolve().parents[1]
+
+#: a small banked geometry: 70-word operands place 3 tiles over 2 banks
+SPEC_KW = dict(banks=2, subarrays=1, rows=256, bitline_words=32)
+TSPEC = tarray.ArraySpec(**SPEC_KW)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_state():
+    for clear in (TLEDGER.reset, tarray.clear_resident,
+                  tdisp.clear_schedule_cache, rdisp.clear_schedule_cache):
+        clear()
+    yield
+    for clear in (TLEDGER.reset, tarray.clear_resident,
+                  tdisp.clear_schedule_cache, rdisp.clear_schedule_cache):
+        clear()
+
+
+class StandInGraph:
+    """A CUDA graph's contract on the CPU: `replay` recomputes the captured
+    body on its static inputs into its static outputs and leaves every
+    counter as it found it (a replay runs no Python)."""
+
+    def __init__(self, fn, args, out):
+        self.fn, self.args = fn, args
+        self.outputs = []
+        tdisp._flatten(out, self.outputs)
+
+    def replay(self):
+        before = tdisp._counters()
+        fresh = []
+        tdisp._flatten(self.fn(*self.args), fresh)
+        after = tdisp._counters()
+        tdisp._add_counters(tuple(b - a for a, b in zip(after, before)))
+        for o, f in zip(self.outputs, fresh):
+            o.copy_(f)
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """Programs on CPU tensors take the graph path, captured (under the
+    capture guard) into stand-in graphs; returns the list of captures."""
+    graphs = []
+
+    def record(fn, args, device):
+        assert device == torch.device("cpu")
+        with tdisp.CaptureGuard():
+            out = fn(*args)
+        graphs.append(StandInGraph(fn, args, out))
+        return graphs[-1], out
+
+    def graph_device(tensors):
+        return None if tdisp._EAGER or not tensors else torch.device("cpu")
+
+    monkeypatch.setattr(tdisp, "_record", record)
+    monkeypatch.setattr(tdisp, "_graph_device", graph_device)
+    return graphs
+
+
+@pytest.fixture
+def counting(monkeypatch):
+    """A backend that counts launches and bytes as the kernel's wrapper
+    does, on the plain version's arithmetic."""
+
+    def fn(a, b, ops):
+        outs = fused_planes_op_ref(a, b, tuple(ops))
+        fused_planes_op.launches += 1
+        fused_planes_op.bytes += 4 * sum(t.numel() for t in (a, b) + outs)
+        return outs
+
+    monkeypatch.setitem(tbk._REGISTRY, "test-counting",
+                        tbk.Backend("test-counting", fn, "counts launches"))
+    return "test-counting"
+
+
+def _ints(rng, lo, hi, shape):
+    return torch.from_numpy(rng.randint(lo, hi, shape).astype(np.int32))
+
+
+def _counts():
+    return tdisp._counters() + (tdisp.cache_stats()["dispatches"],
+                                TLEDGER.accesses)
+
+
+def _delta(before, after):
+    return tuple(b - a for a, b in zip(before, after))
+
+
+def _same(x, y):
+    xs, ys = [], []
+    tdisp._flatten(x, xs)
+    tdisp._flatten(y, ys)
+    return len(xs) == len(ys) and all(torch.equal(a, b) for a, b in zip(xs, ys))
+
+
+# ---------------------------------------------------------------------------
+# (a) capture safety
+# ---------------------------------------------------------------------------
+
+_X = torch.arange(10)
+
+
+@pytest.mark.parametrize("what,call", [
+    ("_local_scalar_dense", lambda: _X.sum().item()),
+    ("lift_fresh", lambda: torch.tensor(3)),
+    ("lift_fresh", lambda: torch.as_tensor(0.83, dtype=torch.float32)),
+    ("nonzero", lambda: _X.nonzero()),
+    ("index", lambda: _X[_X > 3]),
+    ("index_put", lambda: _X.clone().index_put_(
+        (_X > 3,), torch.zeros((), dtype=_X.dtype))),
+    ("masked_select", lambda: torch.masked_select(_X, _X > 3)),
+    ("unique", lambda: torch.unique(_X)),
+])
+def test_guard_refuses_what_a_graph_cannot_hold(what, call):
+    with pytest.raises(CimOpError, match=what):
+        with tdisp.CaptureGuard():
+            call()
+
+
+def test_guard_lets_integer_indexing_and_fills_through():
+    idx = torch.tensor([3, 1])
+    with tdisp.CaptureGuard():
+        picked = _X[idx]
+        filled = torch.full((), 0.83, dtype=torch.float32)
+        where = torch.where(_X > 3, 0.25, 1.45)
+        shifted = torch.arange(4) << 2
+    assert picked.tolist() == [3, 1] and shifted.tolist() == [0, 4, 8, 12]
+    assert torch.equal(filled, torch.as_tensor(0.83, dtype=torch.float32))
+    assert where.dtype == torch.float32
+
+
+def _macro_cases():
+    rng = np.random.RandomState(7)
+    x, y = _ints(rng, -100, 100, 70), _ints(rng, -100, 100, 70)
+    a, b = _ints(rng, -128, 128, (5, 12)), _ints(rng, -128, 128, (12, 3))
+    ba, bb = _ints(rng, -128, 128, (2, 3, 9)), _ints(rng, -128, 128, (2, 9, 4))
+    pa, pb = TPack.pack(x, 8), TPack.pack(y, 8)
+    ra = TPack.pack(_ints(rng, -100, 100, 70), 8, signed=False)
+    return {
+        "multiply": (tmacro.multiply, (pa, pb), {}),
+        "abs": (tmacro.abs_, (pa,), {}),
+        "relu": (tmacro.relu, (pa,), {}),
+        "minimum": (tmacro.minimum, (pa, pb), {}),
+        "maximum": (tmacro.maximum, (pa, pb), {}),
+        "popcount": (tmacro.popcount, (ra,), {}),
+        "reduce_sum": (tmacro.reduce_sum, (pa,), {}),
+        "matmul": (tmacro.matmul, (a, b), {}),
+        "matmul_resident": (tmacro.matmul, (a, None),
+                            {"b_pack": tmacro.matmul_rhs_pack(b, 5, 8)}),
+        "batched_matmul": (tmacro.batched_matmul, (ba, bb), {}),
+        "batched_matmul_resident": (
+            tmacro.batched_matmul, (ba, None),
+            {"b_pack": tmacro.batched_matmul_rhs_pack(bb, 3, 8)}),
+        "dot": (tmacro.dot, (x[:16], y[:16]), {}),
+    }
+
+
+MACROS = tuple(_macro_cases())
+
+
+@pytest.mark.parametrize("backend,spec", [("fused", None),
+                                          ("fused", TSPEC),
+                                          ("analog-oracle", None)],
+                         ids=["fused", "fused-banked", "analog"])
+@pytest.mark.parametrize("name", MACROS)
+def test_macro_body_captures_and_replays_to_the_bit(stand_in, name, backend,
+                                                    spec):
+    """Cold call eager, the warm call captured under the guard, a third
+    replayed: each result, ledger and counter delta equal to the eager
+    body's (run inside `eager_programs`)."""
+    fn, args, kw = _macro_cases()[name]
+    kw = dict(kw, backend=backend, spec=spec)
+    with tdisp.eager_programs():
+        TLEDGER.reset()
+        c0 = _counts()
+        want = fn(*args, **kw)
+        want_delta, want_acc = _delta(c0, _counts()), TLEDGER.accesses
+    tdisp.clear_schedule_cache()
+    for call in range(3):
+        TLEDGER.reset()
+        c0 = _counts()
+        got = fn(*args, **kw)
+        assert _same(got, want), (name, call)
+        assert _delta(c0, _counts()) == want_delta, (name, call)
+        assert TLEDGER.accesses == want_acc
+    assert len(stand_in) == 1 and tdisp.graph_stats()["captured"] == 1
+    assert tdisp.graph_stats()["replays"] == 2
+
+
+def _bench_cfg(resident):
+    return TArch(name="bench-decode", family="dense", n_layers=2, d_model=16,
+                 n_heads=4, n_kv_heads=2, head_dim=8, d_ff=32, vocab_size=64,
+                 dtype="float32", tensor_parallel=False, cim_mlp_bits=8,
+                 cim_attention_bits=8, cim_unroll_groups=True,
+                 cim_resident=resident)
+
+
+@pytest.mark.parametrize("mode", ["streamed", "resident", "adra-sampler"])
+def test_bench_decode_regions_capture_and_replay(stand_in, mode):
+    """The kernel bench's decode step (188 accesses, 10 dispatches; + 8 and
+    + 8 with the ADRA sampler): every region captured under the guard at
+    the warm step and replayed after, logits, tokens and counts equal to
+    the step's eager body."""
+    from repro_torch.train import adra_sample
+
+    model = build(_bench_cfg(mode == "resident"), device="cpu", seed=2)
+    caches = model.init_caches(2, 8)
+    step = {"tokens": torch.tensor([[1], [2]]),
+            "positions": torch.tensor([3, 5], dtype=torch.int32)}
+
+    def run():
+        TLEDGER.reset()
+        d0 = tdisp.cache_stats()["dispatches"]
+        _, logits = model.decode_step(caches, step)
+        tok = adra_sample(logits) if mode == "adra-sampler" else None
+        return (logits, tok, TLEDGER.accesses,
+                tdisp.cache_stats()["dispatches"] - d0,
+                TLEDGER.load_accesses, dict(TLEDGER.per_op))
+
+    extra = 8 if mode == "adra-sampler" else 0
+    with tdisp.eager_programs():
+        run()                                 # pins, as the serve's first
+        want = run()
+    assert want[2:4] == (188 + extra, 10 + extra)
+    tdisp.clear_schedule_cache()
+    for call in range(3):                     # eager, capture, replay
+        got = run()
+        assert torch.equal(got[0], want[0]), call
+        if extra:
+            assert torch.equal(got[1], want[1]), call
+        assert got[2:] == want[2:], call
+    # one eager call a program (its miss): a later layer's call of a
+    # structurally equal region already replays in the first step
+    programs = len(tdisp._PROGRAMS)
+    assert tdisp.graph_stats()["captured"] == programs == len(stand_in) > 0
+    assert tdisp.graph_stats()["replays"] == 3 * (10 + extra) - programs
+
+
+# ---------------------------------------------------------------------------
+# (b) the program's bookkeeping
+# ---------------------------------------------------------------------------
+
+
+def _packs(seed=5, n=70):
+    rng = np.random.RandomState(seed)
+    x, y = _ints(rng, -100, 100, n), _ints(rng, -100, 100, n)
+    return x, y, TPack.pack(x, 8), TPack.pack(y, 8)
+
+
+def test_counters_replay_on_every_call(stand_in, counting):
+    """Launches and bytes (the kernel wrapper's counts) and the codec's
+    packs move by the same amount at every call, eager, captured or
+    replayed: the capture's counts are added back at each replay."""
+    rng = np.random.RandomState(3)
+    a, b = _ints(rng, -128, 128, (4, 8)), _ints(rng, -128, 128, (8, 3))
+    plan = tplan.plan_matmul(8, 3)
+    deltas = []
+    for _ in range(4):
+        c0 = _counts()
+        tmacro.matmul(a, b, backend=counting)
+        deltas.append(_delta(c0, _counts()))
+    launches, nbytes, packs, unpacks, disp, acc = deltas[0]
+    assert launches == acc == plan.accesses and nbytes > 0 and packs == 2
+    assert disp == 1 and unpacks == 1
+    assert deltas == [deltas[0]] * 4
+    assert tdisp.graph_stats() == {"captured": 1, "replays": 3,
+                                   "capture_s": pytest.approx(
+                                       tdisp.graph_stats()["capture_s"])}
+
+
+def test_successive_results_do_not_alias(stand_in):
+    x, y, pa, pb = _packs()
+    out = [tmacro.multiply(pa, pb) for _ in range(4)]
+    ptrs = {o.planes.data_ptr() for o in out}
+    assert len(ptrs) == 4
+    keep = out[3].planes.clone()
+    out[2].planes.zero_()
+    tmacro.multiply(pa, pb)
+    assert torch.equal(out[3].planes, keep)
+    assert torch.equal(out[3].unpack(), x * y)
+
+
+def test_new_leaf_values_give_new_results(stand_in):
+    rng = np.random.RandomState(11)
+    for i in range(4):      # one signature: eager, capture, replay, replay
+        x, y = _ints(rng, -100, 100, 70), _ints(rng, -100, 100, 70)
+        got = tmacro.multiply(TPack.pack(x, 8), TPack.pack(y, 8)).unpack()
+        assert torch.equal(got, x * y), i
+        a, b = _ints(rng, -128, 128, (3, 9)), _ints(rng, -128, 128, (9, 2))
+        assert torch.equal(tmacro.matmul(a, b), a @ b), i
+    assert tdisp.graph_stats()["captured"] == 2
+
+
+def test_eviction_drops_the_graph(stand_in):
+    _, _, pa, pb = _packs()
+    for _ in range(2):
+        tmacro.multiply(pa, pb)
+    (prog,) = [p for _, p in tdisp._PROGRAMS.items()]
+    assert isinstance(prog, tmacro.CompiledSchedule) and len(prog.graphs) == 1
+    old = tdisp.cache_stats()["capacity"]
+    try:
+        tdisp.set_schedule_cache_capacity(1)
+        tmacro.relu(pa)                       # evicts the multiply program
+        assert tdisp.cache_stats()["evictions"] == 1
+        assert prog.graphs == {}
+        tmacro.relu(pa)
+        (relu,) = [p for _, p in tdisp._PROGRAMS.items()]
+        assert len(relu.graphs) == 1
+        tdisp.clear_schedule_cache()
+        assert relu.graphs == {}
+    finally:
+        tdisp.set_schedule_cache_capacity(old)
+
+
+class _Mesh:
+    """Hashable stand-in for a mesh key (unbanked programs never touch it)."""
+
+
+def test_mesh_program_stays_eager(stand_in):
+    x, y, pa, pb = _packs()
+    mesh = _Mesh()
+    for _ in range(3):
+        assert torch.equal(tmacro.multiply(pa, pb, mesh=mesh).unpack(), x * y)
+    (prog,) = [p for _, p in tdisp._PROGRAMS.items()]
+    assert not prog.graphed and prog.graphs == {}
+    assert tdisp.graph_stats()["captured"] == 0 and not stand_in
+    assert tdisp.cache_stats()["dispatches"] == 3
+    assert not tdisp.captures(mesh) and tdisp.captures(None)
+
+
+def test_tiled_program_keeps_one_graph_per_tile_count(stand_in):
+    """The standalone banked access: its program is keyed by tile shape,
+    so one graph per tile count, each from its count's second call."""
+    for n in (70, 200):
+        x, y, pa, pb = _packs(seed=n, n=n)
+        want = teng.execute(pa, pb, ("add", "lt"))
+        for _ in range(3):
+            got = tdisp.execute_tiled(pa, pb, ("add", "lt"), spec=TSPEC)
+            for op in ("add", "lt"):
+                assert torch.equal(got[op].planes, want[op].planes)
+    (prog,) = [p for _, p in tdisp._PROGRAMS.items()]
+    assert isinstance(prog, tdisp.Program) and len(prog.graphs) == 2
+    assert tdisp.graph_stats() == dict(tdisp.graph_stats(), captured=2,
+                                       replays=4)
+    assert tdisp.cache_stats()["dispatches"] == 6
+
+
+def _item_body(cur, a, b):
+    out = cur.execute(a, b, ("add",))["add"]
+    int(out.planes.sum())                 # a host read of a device value
+    return out
+
+
+def test_a_body_that_cannot_be_captured_raises(stand_in):
+    """The warm call's capture refuses `.item()` by name, every time: there
+    is no eager fallback."""
+    _, _, pa, pb = _packs()
+    sched = tplan.plan_elementwise(("add",), 9)
+    tmacro.run_schedule_program(sched, _item_body, (pa, pb),
+                                body_key=("item",))
+    for _ in range(2):
+        with pytest.raises(CimOpError, match="_local_scalar_dense"):
+            tmacro.run_schedule_program(sched, _item_body, (pa, pb),
+                                        body_key=("item",))
+    with tdisp.eager_programs():
+        tmacro.run_schedule_program(sched, _item_body, (pa, pb),
+                                    body_key=("item",))
+
+
+def _rints(rng, lo, hi, shape):
+    arr = rng.randint(lo, hi, shape).astype(np.int32)
+    return jnp.asarray(arr), torch.from_numpy(arr)
+
+
+def _stats(disp):
+    s = disp.cache_stats()
+    return s["dispatches"], s["hits"], s["misses"]
+
+
+def test_matmul_dispatches_like_reference(stand_in):
+    """tests/test_cim_program.py:48: one dispatch a warm call, no new
+    program, a hit; here over four calls (eager, capture, two replays)."""
+    rng = np.random.RandomState(5)
+    ra, ta = _rints(rng, -128, 128, (8, 16))
+    rb, tb = _rints(rng, -128, 128, (16, 4))
+    want = np.asarray(ra, np.int64) @ np.asarray(rb, np.int64)
+    for _ in range(4):
+        r0, t0 = _stats(rdisp), _stats(tdisp)
+        rc = rcim.matmul(ra, rb, n_bits=8, backend="jnp-boolean")
+        tc = tcim.matmul(ta, tb, n_bits=8, backend="torch-boolean")
+        assert _delta(t0, _stats(tdisp)) == _delta(r0, _stats(rdisp))
+        np.testing.assert_array_equal(np.asarray(rc), want)
+        np.testing.assert_array_equal(tc.numpy(), want)
+    assert tdisp.graph_stats()["captured"] == 1
+
+
+def _ledger(led):
+    out = {}
+    for f in dataclasses.fields(led):
+        if f.name != "enabled":
+            v = getattr(led, f.name)
+            out[f.name] = dict(v) if isinstance(v, dict) else v
+    return out
+
+
+def test_warm_ledger_equals_cold_like_reference(stand_in):
+    """tests/test_cim_program.py:63: every warm call's ledger equals the
+    cold one's, field for field, and equals the reference's."""
+    rng = np.random.RandomState(5)
+    rx, tx = _rints(rng, -100, 100, 66)
+    ry, ty = _rints(rng, -100, 100, 66)
+    rpa, rpb = RPack.pack(rx, 8), RPack.pack(ry, 8)
+    tpa, tpb = TPack.pack(tx, 8), TPack.pack(ty, 8)
+    RLEDGER.reset()
+    rcold = rmacro.multiply(rpa, rpb, backend="jnp-boolean")
+    rled = _ledger(RLEDGER)
+    for _ in range(3):
+        TLEDGER.reset()
+        got = tmacro.multiply(tpa, tpb, backend="torch-boolean")
+        tled = _ledger(TLEDGER)
+        for k in ("accesses", "words32", "per_op", "load_accesses"):
+            assert tled[k] == rled[k], k
+        np.testing.assert_array_equal(got.unpack().numpy(),
+                                      np.asarray(rcold.unpack()))
+
+
+def test_charges_replay_like_reference(stand_in):
+    """tests/test_cim_program.py:76: three popcounts charge three plans."""
+    rng = np.random.RandomState(5)
+    rx, tx = _rints(rng, -100, 100, 48)
+    RLEDGER.reset()
+    TLEDGER.reset()
+    for _ in range(3):
+        rmacro.popcount(RPack.pack(rx, 8), backend="jnp-boolean")
+        tmacro.popcount(TPack.pack(tx, 8), backend="torch-boolean")
+    assert TLEDGER.accesses == RLEDGER.accesses \
+        == 3 * rplan.plan_popcount(8).accesses
+    assert tdisp.graph_stats()["replays"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the port's public surface against the reference's
+# ---------------------------------------------------------------------------
+
+#: reference names the port leaves out, with the reason
+DEPARTURES = {
+    # the TPU probe: the port runs on CUDA or on a plain device
+    ("cim", "on_tpu"): "no TPU",
+    # the Pallas kernel's lane block; the CUDA kernel takes any width
+    ("cim", "DEFAULT_BLOCK_W"): "no Pallas block",
+}
+
+
+def _public_names(path: Path):
+    names = []
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names += [a.asname or a.name for a in node.names]
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+    return [n for n in names if n != "*" and not n.startswith("_")]
+
+
+PACKAGES = sorted(p.parent.name for p in
+                  (ROOT / "src" / "repro").glob("*/__init__.py"))
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_reference_public_names_resolve_in_the_port(pkg):
+    """`kernels`' rglru, slstm and flash_attention resolve to the port's
+    modules (route and launch counters), not the reference's functions
+    (`src/repro_torch/kernels/__init__.py`)."""
+    import importlib
+
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    names = _public_names(ROOT / "src" / "repro" / pkg / "__init__.py")
+    assert names
+    missing = [n for n in names if not hasattr(port, n)
+               and (pkg, n) not in DEPARTURES]
+    assert missing == []
+    for (p, n) in DEPARTURES:
+        if p == pkg:
+            assert n in names and not hasattr(port, n)
+
+
+@pytest.mark.parametrize("arch", treg.ARCH_IDS)
+def test_stack_layout_equals_reference(arch):
+    t = tmodel.StackLayout.from_config(treg.get_config(arch))
+    r = rmodel.StackLayout.from_config(rreg.get_config(arch))
+    assert dataclasses.asdict(t) == dataclasses.asdict(r)
+
+
+def test_cost_main_prints_the_wins_table(capsys):
+    """`python -m repro_torch.cim.cost` prints the table, as the
+    reference's module does."""
+    from repro_torch.cim import cost as tcost
+
+    with warnings.catch_warnings():     # runpy: the package imported it
+        warnings.simplefilter("ignore", RuntimeWarning)
+        runpy.run_module("repro_torch.cim.cost", run_name="__main__")
+    assert capsys.readouterr().out.strip() == tcost.cim_wins_table().strip()
