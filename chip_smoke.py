@@ -136,19 +136,24 @@ Phases, each fatal on failure (nothing is caught):
                `rglru.route` names, tokens equal the host twin's; prints
                peak device memory and the array used;
   4b. hybrid-prefill — the same model on the float path (no --cim-lower):
-               2 requests of prompt 2040 + gen 8 (the 2048-token window) on
-               2 slots: 26 x 2 prefill calls at (1,2040,4096) on the TMA
+               3 requests of prompt 2040 + gen 8 (the 2048-token window) on
+               2 slots: 26 x 3 prefill calls at (1,2040,4096) on the TMA
                RG-LRU kernel, decode calls on the kernel `rglru.route`
-               names, nothing on the ledger; prints prefill ms, tok/s, peak
-               memory, and one profiled prefill's RG-LRU device ms beside
-               its wall time;
+               names, nothing on the ledger; the prefill (eager, captured,
+               replayed), decode and insert programs as CUDA graphs, tokens
+               and launches equal to the run under `eager_programs()`;
+               prints prefill ms, tok/s, peak memory, and one profiled
+               prefill's RG-LRU device ms beside its wall time;
   5. xlstm   — xlstm-125m at full width through the same entry point on the
                float path (prompt 512, 16 tokens, 4 requests on 2 slots):
                every request completes, sLSTM launches = 3 x (decode steps +
                prefilled requests), every one on the persistent-grid
                kernel, the ledger charges 0 accesses and the
-               fused and RG-LRU kernels launch 0 times; prints tok/s,
-               p50/p99, prefill ms and peak device memory;
+               fused and RG-LRU kernels launch 0 times; the prefill,
+               decode (caches donated) and insert programs captured and
+               replayed as CUDA graphs, tokens and launches equal to the
+               run under `eager_programs()`; prints tok/s, p50/p99 (capture
+               steps left out), prefill ms and peak device memory;
   6. agree   — the same xlstm-125m weights in float32 on the card and,
                copied, on the CPU (the plain versions): one 512-token
                prompt and 8 greedy decode steps give equal tokens and
@@ -160,8 +165,10 @@ Phases, each fatal on failure (nothing is caught):
                losses, no restart, flash launches = 18 layers x 2
                microbatches x 2 (forward, recomputation) per step, every
                one on the wgmma/TMA kernel (bf16), no fused, RG-LRU or
-               sLSTM launch; prints step ms, tokens/s and peak device
-               memory;
+               sLSTM launch; the step (state donated) captured as one CUDA
+               graph at step 2 and replayed, losses equal to the bit to the
+               same steps under `eager_programs()` from the same weights;
+               prints step ms, tokens/s and peak device memory;
   8. train-agree — gemma's attention shape at 2 layers, d_model 512, vocab
                4096, float32 (so the SIMT flash kernel): the first batch's
                gradients and 2 train steps on the card and on the CPU from
@@ -174,17 +181,22 @@ Phases, each fatal on failure (nothing is caught):
                equal the host twin's; deepseek's MoE layers and MLA run in
                float, only its dense layer 0 lowers); qwen3-14b,
                granite-3-8b, musicgen-large and internvl2-26b on the float
-               path (the last two on seeded embed-stub inputs), built by
-               `serve.main` with bf16 layer weights only: every request
-               completes, 0 ledger accesses, 0 kernel launches; llama3.2-1b
-               training at full width (2 steps of 2 x 2048, 32 flash
-               launches a step, all on the wgmma/TMA kernel); reduced
+               path (the last two on seeded embed-stub inputs), built as
+               `serve.main` builds them, bf16 layer weights only, 12 tokens
+               a request: every request completes, 0 ledger accesses, 0
+               kernel launches; llama3.2-1b training at full width (4
+               steps of 2 x 2048, 32 flash launches a step, all on the
+               wgmma/TMA kernel); the hybrid (3 layers) and xLSTM train
+               cells (4 steps of 2 x 1024); reduced
                deepseek in float32 on the card against the CPU (prefill, 4
                greedy steps, first-batch loss and gradients, atol 1e-4).
+               Every float serve and train cell here is graphed and held to
+               its eager run, as in phases 5 and 7.
   10. mesh  — the mesh slice: (a) the geometry autotuner on gemma-2b's
                full-width decode MLP through `lower()` over
                DEFAULT_CANDIDATES, measured (predicted EDP per candidate,
-               measured ms, default and tuned ms, the winner and its
+               measured ms of replays only, `steady_ms` raising on a timed
+               call that compiled; default and tuned ms, the winner and its
                launches; tuned <= default; a warm call searches nothing;
                the winners file round-trips); (b) a one-rank NCCL group
                and a (1,) "data" mesh: `execute_sharded` of the largest
@@ -223,7 +235,14 @@ resident decode step of gemma-2b and recurrentgemma-9b (with the fused
 kernel's summed byte bound over the step; the step replays its programs'
 graphs, and the fused kernel's rows in the trace are held against its
 counted launches), of one xlstm-125m decode step and of one gemma-2b
-train step, with the peak device memory.
+train step, with the peak device memory. `--cells` runs instead only the
+cells whose timing the float step graphs and the steady windows move
+(`phase_cells`: the float serve and train cells, deepseek-v2-lite-16b's
+CiM serve and the autotuner, through the entry points alone, no check of
+graphs), and `--cells --src DIR` runs them on the port under DIR (another
+checkout's `src`, such as the parent commit's, unpacked into a directory
+the repository ignores), so that two versions compare in one call on one
+card.
 """
 import dataclasses
 import gc
@@ -235,7 +254,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+SRC = os.path.join(ROOT, "src")
+if "--src" in sys.argv[1:]:
+    SRC = os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
+sys.path.insert(0, SRC)
 
 SERVE = ["--preset", "full", "--device", "cuda", "--slots", "2",
          "--prompt-len", "8", "--cim-lower", "--cim-resident", "--assert-warm"]
@@ -306,9 +328,11 @@ FLASH_BF16_REL_L2 = 1e-2
 XLSTM_SERVE = ["--arch", "xlstm-125m", "--preset", "full", "--device",
                "cuda", "--slots", "2", "--requests", "4", "--prompt-len",
                "512", "--gen", "16"]
-#: the hybrid's float-path prefill: prompt + gen = the 2048-token window
+#: the hybrid's float-path prefill: prompt + gen = the 2048-token window;
+#: 3 requests, so that the third prefill replays the graph the second
+#: captured
 HYBRID_PREFILL = ["--arch", "recurrentgemma-9b", "--preset", "full",
-                  "--device", "cuda", "--slots", "2", "--requests", "2",
+                  "--device", "cuda", "--slots", "2", "--requests", "3",
                   "--prompt-len", "2040", "--gen", "8"]
 #: the train phase: gemma-2b at full width, microbatches 2 and remat from
 #: its config; a checkpoint (40 GB) never falls due
@@ -1865,6 +1889,124 @@ def phase_flash(dev) -> dict:
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from repro_torch.cim import fused_kernel
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import slstm as sm
+    fused_kernel.fused_planes_op.launches = 0
+    for w in (rg.rglru_sm90, rg.rglru_rows, sm.slstm_sm90, sm.slstm_rows,
+              fm.flash_attention_sm90, fm.flash_attention_simt):
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from repro_torch.cim import fused_kernel
+    from repro_torch.kernels import flash_attention as fm
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import slstm as sm
+    return {"fused": fused_kernel.fused_planes_op.launches,
+            "rglru_sm90": rg.rglru_sm90.launches,
+            "rglru_rows": rg.rglru_rows.launches,
+            "slstm_sm90": sm.slstm_sm90.launches,
+            "slstm_rows": sm.slstm_rows.launches,
+            "flash_sm90": fm.flash_attention_sm90.launches,
+            "flash_simt": fm.flash_attention_simt.launches}
+
+
+#: the float serve's step programs, each captured and replayed on the card
+STEP_PROGRAMS = ("prefill", "decode", "insert")
+
+
+def float_serve_eager(label: str, argv, model, rep: dict,
+                      launches: dict) -> dict:
+    """A float serve run `rep` (graphs on) against the same run under
+    `dispatch.eager_programs()` on the same model: every step program
+    captured once or more and replayed, tokens equal, every kernel's
+    launches equal (`launches`: the graphed run's, counted from 0; the
+    eager run's are counted from 0 too, and left for the caller to reset).
+    Prints the step graphs, the capture steps left out of the window and
+    both runs' p50 and tok/s. Returns the graph report's summary."""
+    from repro_torch.cim import dispatch
+    from repro_torch.launch import serve
+
+    graphs = rep["step_graphs"]
+    for name in STEP_PROGRAMS:
+        g = graphs[name]
+        assert g["captured"] > 0 and g["replays"] > 0, (label, name, g)
+    reset_launches()
+    with dispatch.eager_programs():
+        eager = serve.main(argv, model=model)
+    got = [r["token_ids"] for r in rep["per_request"]]
+    want = [r["token_ids"] for r in eager["per_request"]]
+    assert got == want, (label, got, want)
+    assert read_launches() == launches, (label, read_launches(), launches)
+    assert eager["graphs"]["captured"] == eager["graphs"]["replays"] == 0
+    kinds = [r["prefill_kind"] for r in rep["per_request"]]
+    print(f"{label}: step graphs " + ", ".join(
+        f"{k} {graphs[k]['captured']} captured / {graphs[k]['replays']} "
+        f"replays / {graphs[k]['capture_s']:.3f} s" for k in STEP_PROGRAMS)
+        + f"; capture steps {rep['capture_steps']} "
+        f"({[round(x, 2) for x in rep['capture_step_ms']]} ms) left out of "
+        f"the window; prefills {kinds}, replayed prefill mean "
+        f"{rep['prefill_ms_replay_mean']} ms; graphs: p50 "
+        f"{rep['p50_ms']:.3f} ms, {rep['tok_s_steady']:.4f} tok/s; eager "
+        f"programs: p50 {eager['p50_ms']:.3f} ms, "
+        f"{eager['tok_s_steady']:.4f} tok/s; tokens and launches equal")
+    return {"step_graphs": graphs, "capture_steps": rep["capture_steps"],
+            "capture_step_ms": rep["capture_step_ms"],
+            "prefill_kinds": kinds,
+            "prefill_ms_replay_mean": rep["prefill_ms_replay_mean"],
+            "p50_ms": rep["p50_ms"], "tok_s_steady": rep["tok_s_steady"],
+            "eager_p50_ms": eager["p50_ms"],
+            "eager_tok_s_steady": eager["tok_s_steady"]}
+
+
+def train_eager(label: str, argv, build_model, rep: dict, launches: dict,
+                dev) -> dict:
+    """A train run `rep` (the step captured as one CUDA graph) against the
+    same steps under `dispatch.eager_programs()` from a model rebuilt by
+    `build_model()` (the same seed, so the same weights; the first run's
+    state freed first): the step program captured and replayed, losses,
+    grad norms and learning rates equal to the bit, every kernel's
+    launches equal. Prints both runs' step ms and the capture steps."""
+    from repro_torch.cim import dispatch
+    from repro_torch.launch import train
+
+    g = rep["graphs"]
+    assert g["captured"] == 1 and g["replays"] > 0, (label, g)
+    held = _free(dev)
+    assert held < 2 ** 30, f"{held} bytes still allocated before {label}"
+    reset_launches()
+    with dispatch.eager_programs():
+        eager = train.main(argv, model=build_model())
+    for k in ("loss", "grad_norm", "lr"):
+        got = [r[k] for r in rep["records"]]
+        want = [r[k] for r in eager["records"]]
+        assert got == want, (label, k, got, want)
+    assert read_launches() == launches, (label, read_launches(), launches)
+    out = {"graphs": g, "capture_steps": rep["capture_steps"],
+           "step_ms": [r["ms"] for r in rep["records"]],
+           "eager_step_ms": [r["ms"] for r in eager["records"]],
+           "tok_s_steady": rep["tok_s_steady"],
+           "eager_tok_s_steady": eager["tok_s_steady"],
+           "peak_gib": rep["peak_gib"], "eager_peak_gib": eager["peak_gib"]}
+    print(f"{label}: step graph {g['captured']} captured / {g['replays']} "
+          f"replays / {g['capture_s']:.3f} s; capture steps "
+          f"{rep['capture_steps']} left out; step ms "
+          f"{[round(x, 2) for x in out['step_ms']]} against eager "
+          f"{[round(x, 2) for x in out['eager_step_ms']]}; steady "
+          f"{rep['tok_s_steady']:.2f} tokens/s against eager "
+          f"{eager['tok_s_steady']:.2f}; peak {rep['peak_gib']:.2f} GiB "
+          f"against eager {eager['peak_gib']:.2f}; losses, grad norms, lrs "
+          f"and launches equal to the bit")
+    del eager
+    _free(dev)
+    return out
+
+
 def rglru_expected(model, slots: int, prompt_len: int, prefills: int,
                    decode_steps: int) -> dict:
     """The RG-LRU launches a serve run makes on each kernel: one per rec
@@ -1942,7 +2084,17 @@ def phase_serve(arch: str, dev, profile: bool, spec=None) -> dict:
               f"{rep['total_accesses_per_token']} total accesses/token, "
               f"wall {rep['wall_s']:.2f} s; graphs {gs['captured']} "
               f"captured, {gs['replays']} replays, "
-              f"{gs['capture_s']:.3f} s capturing")
+              f"{gs['capture_s']:.3f} s capturing, {gs['eager']} eager "
+              f"first calls; capture steps {rep['capture_steps']} left out "
+              f"of the window")
+    # the resident phase's window holds no capture step (C1): its p50
+    # beside the warm phase's, where nothing is left to capture
+    print(f"{arch}: p50 resident {reps['resident']['p50_ms']:.2f} ms "
+          f"(capture steps {reps['resident']['capture_steps']}) beside warm "
+          f"{reps['warm']['p50_ms']:.2f} ms (capture steps "
+          f"{reps['warm']['capture_steps']}); tok/s resident "
+          f"{reps['resident']['tok_s_steady']:.4f}, warm "
+          f"{reps['warm']['tok_s_steady']:.4f}")
     print(f"{arch}: {spec['step_accesses']} accesses and "
           f"{spec['step_dispatches']} dispatches every decode step; "
           f"{fused_launches} fused launches for {charged} ledger accesses; "
@@ -1973,6 +2125,9 @@ def phase_serve(arch: str, dev, profile: bool, spec=None) -> dict:
     return {"model": model, "fused_launches": fused_launches,
             "rglru_launches": rglru_launches, "peak_gib": peak_gib,
             "graphs": {name: rep["graphs"] for name, rep in reps.items()},
+            "p50_ms": {name: rep["p50_ms"] for name, rep in reps.items()},
+            "capture_steps": {name: rep["capture_steps"]
+                              for name, rep in reps.items()},
             "times": times}
 
 
@@ -2279,12 +2434,16 @@ def phase_adra_faults(model, dev) -> dict:
 
 def phase_hybrid_prefill(model, dev) -> dict:
     """The hybrid phase's recurrentgemma-9b model (weights and compute
-    casts reused) through `serve.main` on the float path: 2 requests of a
-    2040-token prompt and 8 tokens each, prompt + gen = the model's
-    2048-token window. Every request completes; the 26 RG-LRU layers launch
-    once per prefill at (1, 2040, 4096), on the TMA kernel, and once per
-    decode step, on the kernel `rglru.route` names; nothing reaches the
-    ledger, the fused kernel or the sLSTM kernels. Then one more prefill
+    casts reused) through `serve.main` on the float path: 3 requests of a
+    2040-token prompt and 8 tokens each on 2 slots, prompt + gen = the
+    model's 2048-token window. Every request completes; the 26 RG-LRU
+    layers launch once per prefill at (1, 2040, 4096), on the TMA kernel,
+    and once per decode step, on the kernel `rglru.route` names; nothing
+    reaches the ledger, the fused kernel or the sLSTM kernels. The prefill,
+    decode and insert programs are captured as CUDA graphs (the first
+    prefill eager, the second captured, the third replayed), and the run
+    under `dispatch.eager_programs()` gives the same tokens and launches
+    (`float_serve_eager`). Then one more prefill
     under torch.profiler (its RG-LRU device time beside its wall time),
     and single prefills in turns, the TMA kernel's and, with the routing
     threshold raised past the prompt, the one-thread-per-channel
@@ -2303,12 +2462,11 @@ def phase_hybrid_prefill(model, dev) -> dict:
     n_rec = model.kinds.count("rec")
     torch.cuda.reset_peak_memory_stats(dev)
     serve.fresh_cim_state()
-    fused_kernel.fused_planes_op.launches = 0
-    rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
-    sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
+    reset_launches()
     t = time.perf_counter()
     rep = serve.main(HYBRID_PREFILL, model=model)
     serve_s = time.perf_counter() - t
+    all_launches = read_launches()
     launches = {"sm90": rg.rglru_sm90.launches,
                 "rows": rg.rglru_rows.launches}
     other = (fused_kernel.fused_planes_op.launches, sm.launches())
@@ -2331,6 +2489,8 @@ def phase_hybrid_prefill(model, dev) -> dict:
           f"{launches} = {n_rec} x {rep['requests']} prefills on sm90 + "
           f"{n_rec} x {rep['decode_steps']} decode steps; 0 fused, 0 slstm "
           f"launches, 0 ledger accesses; peak memory {peak_gib:.2f} GiB")
+    graphed = float_serve_eager("hybrid-prefill", HYBRID_PREFILL, model, rep,
+                                all_launches)
 
     fm = model.derive(preset_config(args.arch, args.preset))
     gen = torch.Generator().manual_seed(7)
@@ -2386,15 +2546,19 @@ def phase_hybrid_prefill(model, dev) -> dict:
             "tok_s_steady": rep["tok_s_steady"], "peak_gib": peak_gib,
             "profiled_wall_ms": wall_ms, "profiled_busy_ms": busy_ms,
             "profiled_rglru_ms": rglru_ms, "serve_s": serve_s,
-            "prefill_turns_ms": turns, "prefill_gain_ms": gain}
+            "prefill_turns_ms": turns, "prefill_gain_ms": gain,
+            "graphed": graphed}
 
 
 def phase_xlstm(dev, profile: bool) -> dict:
     """xlstm-125m at full width through `serve.main` on the float path:
     every request completes, each sLSTM layer launches its kernel once per
     prefill and once per decode step, every launch on the persistent-grid
-    kernel, and nothing reaches the CiM ledger, the fused kernel or the
-    RG-LRU kernel."""
+    kernel (cooperative, captured into the decode step's CUDA graph), and
+    nothing reaches the CiM ledger, the fused kernel or the RG-LRU kernel;
+    the prefill, decode and insert programs captured and replayed, and the
+    same run under `dispatch.eager_programs()` gives the same tokens and
+    launches."""
     import torch
     from repro_torch.cim import accounting, fused_kernel
     from repro_torch.configs import preset_config
@@ -2416,10 +2580,9 @@ def phase_xlstm(dev, profile: bool) -> dict:
 
     t = time.perf_counter()
     serve.fresh_cim_state()
-    fused_kernel.fused_planes_op.launches = 0
-    rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
-    sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
+    reset_launches()
     rep = serve.main(XLSTM_SERVE, model=model)
+    all_launches = read_launches()
     slstm_launches = sm.launches()
     sm90_launches = sm.slstm_sm90.launches
     fused_launches = fused_kernel.fused_planes_op.launches
@@ -2445,6 +2608,10 @@ def phase_xlstm(dev, profile: bool) -> dict:
           f"kernel; 0 fused, 0 rglru launches, 0 ledger "
           f"accesses; peak memory {peak_gib:.2f} GiB")
     print(f"xlstm-125m tokens: {[r['token_ids'] for r in rep['per_request']]}")
+    t = time.perf_counter()
+    graphed = float_serve_eager("xlstm-125m", XLSTM_SERVE, model, rep,
+                                all_launches)
+    times["eager_s"] = time.perf_counter() - t
     if profile:
         t = time.perf_counter()
         phase_profile(model, dev, args.prompt_len + args.gen, args.prompt_len)
@@ -2453,7 +2620,7 @@ def phase_xlstm(dev, profile: bool) -> dict:
             "sm90_launches": sm90_launches,
             "prefill_ms": rep["prefill_ms_mean"],
             "tok_s_steady": rep["tok_s_steady"],
-            "peak_gib": peak_gib, "times": times}
+            "peak_gib": peak_gib, "graphed": graphed, "times": times}
 
 
 def phase_agree(dev, prompt_len: int = 512, steps: int = 8) -> dict:
@@ -2525,7 +2692,10 @@ def phase_train(dev, profile: bool) -> dict:
     model must be gone (the hybrid peaks at 74 GiB, this state alone is
     40 GB). Asserts finite losses, no restart, the flash kernel launched
     once per layer, microbatch and pass (forward and recomputation), and
-    no launch of the serve paths' kernels."""
+    no launch of the serve paths' kernels. The step is captured as one
+    CUDA graph at step 2 and replayed at steps 3 and 4; the same 4 steps
+    under `dispatch.eager_programs()` from the same weights give the same
+    losses to the bit (`train_eager`)."""
     import math
 
     import torch
@@ -2552,6 +2722,7 @@ def phase_train(dev, profile: bool) -> dict:
     fm.flash_attention_sm90.launches = 0
     fm.flash_attention_simt.launches = 0
     rep = train.main(TRAIN, model=model)
+    all_launches = read_launches()
     flash_launches = fm.launches()
     sm90_launches = fm.flash_attention_sm90.launches
     simt_launches = fm.flash_attention_simt.launches
@@ -2575,10 +2746,15 @@ def phase_train(dev, profile: bool) -> dict:
           f"slstm launches; peak memory {rep['peak_gib']:.2f} GiB")
     if profile:
         profile_train_step(model, args, dev)
+    del model
+    graphed = train_eager("train[gemma-2b full]", TRAIN,
+                          lambda: build(cfg, device=dev, seed=args.seed),
+                          rep, all_launches, dev)
     return {"flash_launches": flash_launches, "per_step": per_step,
             "sm90_launches": sm90_launches, "simt_launches": simt_launches,
             "losses": losses, "step_ms": ms,
-            "tok_s_steady": rep["tok_s_steady"], "peak_gib": rep["peak_gib"]}
+            "tok_s_steady": rep["tok_s_steady"], "peak_gib": rep["peak_gib"],
+            "graphed": graphed}
 
 
 def profile_train_step(model, args, dev) -> None:
@@ -2751,26 +2927,38 @@ CONFIG_PATHS = {
                                  step_accesses=26 + 26 + 29,
                                  step_dispatches=3),
 }
-#: the float path at full width (2 slots, 2 requests, prompt 8 + gen 4);
+#: the float path at full width (2 slots, 2 requests, prompt 8 + gen 12:
+#: decode step 1 runs the decode program eagerly and step 2 captures it,
+#: so 12 tokens leave 9 replayed steps in the steady window);
 #: musicgen-large and internvl2-26b take embed-stub inputs
 CONFIG_FLOAT = ("qwen3-14b", "granite-3-8b", "musicgen-large",
                 "internvl2-26b")
+CONFIG_FLOAT_ARGS = ["--requests", "2", "--gen", "12"]
+#: llama3.2-1b's training: 4 steps, so that steps 3 and 4 replay the step
+#: graph step 2 captured
 CONFIG_TRAIN = ["--arch", "llama3.2-1b", "--preset", "full", "--device",
-                "cuda", "--steps", "2", "--batch", "2", "--seq", "2048",
+                "cuda", "--steps", "4", "--batch", "2", "--seq", "2048",
                 "--ckpt-every", "1000", "--log-every", "1"]
 #: card-vs-CPU tolerance of the float32 reduced agreements (deepseek's
 #: serve and train step, the hybrid's and xLSTM's train step)
 CONFIG_AGREE_ATOL = 1e-4
 #: the recurrent families' train path at full width through the train
-#: entry point, 2 steps of 2 x 1024: xlstm-125m whole; recurrentgemma-9b
+#: entry point, 4 steps of 2 x 1024: xlstm-125m whole; recurrentgemma-9b
 #: cut to one pattern period (rec, rec, local: 3 of its 38 layers; the
 #: whole model's float32 weights, gradients and moments would take 144
 #: GB). 1024 positions, not 2048: the sLSTM backward reruns its plain
 #: version one step at a time (8.2 s a step at 2048 on an H100 SXM)
 CONFIG_RECURRENT_TRAIN = {"xlstm-125m": None, "recurrentgemma-9b": 3}
 CONFIG_RECURRENT_ARGS = ["--preset", "full", "--device", "cuda", "--steps",
-                         "2", "--batch", "2", "--seq", "1024",
+                         "4", "--batch", "2", "--seq", "1024",
                          "--ckpt-every", "1000", "--log-every", "1"]
+
+
+def with_steps(argv, n: int) -> list:
+    """A train entry point's arguments with `--steps n`."""
+    argv = list(argv)
+    argv[argv.index("--steps") + 1] = str(n)
+    return argv
 
 
 def _free(dev) -> int:
@@ -2789,19 +2977,25 @@ def phase_configs(dev, profile: bool = False) -> dict:
       (b) deepseek-v2-lite-16b at full width the same way: 81 accesses and
           3 dispatches a step (layer 0's dense MLP; MoE and MLA float);
       (c) qwen3-14b, granite-3-8b, musicgen-large and internvl2-26b at full
-          width on the float path (serve.main builds them: cast layer
-          weights in bf16 only): every request completes, 0 ledger
-          accesses, 0 fused launches;
-      (d) llama3.2-1b training at full width, 2 steps of 2 x 2048: finite
+          width on the float path (built as serve.main builds them: cast
+          layer weights in bf16 only), 12 tokens each: every request
+          completes, 0 ledger accesses, 0 kernel launches; the prefill,
+          decode and insert programs captured and replayed, and the same
+          run under `dispatch.eager_programs()` gives the same tokens;
+      (d) llama3.2-1b training at full width, 4 steps of 2 x 2048: finite
           losses, 16 x 2 flash launches a step, all on the wgmma/TMA
-          kernel;
+          kernel; the step captured as one CUDA graph and replayed, its
+          losses equal to the bit to the same steps under
+          `dispatch.eager_programs()`;
       (e) reduced deepseek-v2-lite-16b in float32 on the card against the
           CPU from the same weights: prefill, 4 greedy decode steps, the
           first batch's loss and gradients within CONFIG_AGREE_ATOL;
       (f) the hybrid's and xLSTM's train path (CONFIG_RECURRENT_TRAIN):
-          finite losses, the RG-LRU and sLSTM kernels launched once per
-          recurrent layer, microbatch and forward (remat: twice), no
-          flash launch; then both reduced in float32, the card's loss
+          4 steps, finite losses, the RG-LRU and sLSTM kernels launched
+          once per recurrent layer, microbatch and forward (remat: twice),
+          no flash launch, losses equal to the bit to eager steps (the
+          step graph replays the cooperative sLSTM launch); then both
+          reduced in float32, the card's loss
           and gradients (kernel forward, plain-version backward) against
           the CPU's within CONFIG_AGREE_ATOL.
     grok-1-314b (628 GB of bf16 parameters) runs reduced only, in the CPU
@@ -2834,24 +3028,25 @@ def phase_configs(dev, profile: bool = False) -> dict:
               f"{held} bytes held after")
     fused_launches = sum(r["fused_launches"] for r in out["serve"].values())
 
+    out["float_graphs"] = {}
     for arch in CONFIG_FLOAT:
         t = time.perf_counter()
         argv = ["--arch", arch, "--preset", "full", "--device", "cuda",
-                "--slots", "2", "--prompt-len", "8"] + CONFIG_SERVE_ARGS
+                "--slots", "2", "--prompt-len", "8"] + CONFIG_FLOAT_ARGS
         assert _free(dev) < 2 ** 30
         torch.cuda.reset_peak_memory_stats(dev)
         serve.fresh_cim_state()
-        fused_kernel.fused_planes_op.launches = 0
-        rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
-        sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
-        fm.flash_attention_sm90.launches = 0
-        fm.flash_attention_simt.launches = 0
-        rep = serve.main(argv)
+        args = serve.parse_args(argv)
+        # the model serve.main builds, kept for the eager run
+        model = build(preset_config(arch, args.preset), device=dev,
+                      seed=args.seed, for_serving=True)
+        reset_launches()
+        rep = serve.main(argv, model=model)
+        all_launches = read_launches()
         counts = (fused_kernel.fused_planes_op.launches, rg.launches(),
                   sm.launches(), fm.launches())
         led = accounting.ledger()
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        args = serve.parse_args(argv)
         assert rep["completed"] == args.requests, (arch, rep["completed"])
         assert all(len(r["token_ids"]) == args.gen
                    for r in rep["per_request"]), arch
@@ -2860,17 +3055,19 @@ def phase_configs(dev, profile: bool = False) -> dict:
         assert peak < 80, (arch, peak)
         out["peak_gib"][arch] = peak
         out["serve"][arch] = {k: rep[k] for k in (
-            "tok_s_steady", "p50_ms", "prefill_ms_mean", "decode_steps")}
-        out["times"][arch] = time.perf_counter() - t
+            "tok_s_steady", "p50_ms", "p99_ms", "prefill_ms_mean",
+            "decode_steps")}
         print(f"configs[{arch} float]: {rep['tok_s_steady']:.4f} tok/s "
               f"steady, p50 {rep['p50_ms']:.2f} ms, prefill "
               f"{rep['prefill_ms_mean']:.1f} ms mean, "
               f"{rep['decode_steps']} decode steps, {rep['completed']} of "
               f"{args.requests} requests, 0 ledger accesses, 0 kernel "
               f"launches; peak memory {peak:.2f} GiB; "
-              f"{out['times'][arch]:.1f} s; tokens "
-              f"{[r['token_ids'] for r in rep['per_request']]}")
-        del rep
+              f"tokens {[r['token_ids'] for r in rep['per_request']]}")
+        out["float_graphs"][arch] = float_serve_eager(
+            f"configs[{arch} float]", argv, model, rep, all_launches)
+        out["times"][arch] = time.perf_counter() - t
+        del rep, model
 
     t = time.perf_counter()
     held = _free(dev)
@@ -2878,10 +3075,9 @@ def phase_configs(dev, profile: bool = False) -> dict:
     targs = train.parse_args(CONFIG_TRAIN)
     cfg = preset_config(targs.arch, targs.preset)
     per_step = cfg.n_layers * cfg.microbatches * (2 if cfg.remat else 1)
-    fm.flash_attention_sm90.launches = 0
-    fm.flash_attention_simt.launches = 0
-    fused_kernel.fused_planes_op.launches = 0
+    reset_launches()
     trep = train.main(CONFIG_TRAIN)
+    all_launches = read_launches()
     flash_launches = fm.launches()
     sm90 = fm.flash_attention_sm90.launches
     losses = [r["loss"] for r in trep["records"]]
@@ -2903,6 +3099,10 @@ def phase_configs(dev, profile: bool = False) -> dict:
           f"{flash_launches} flash launches = {per_step} per step x "
           f"{targs.steps}, {sm90} on the wgmma/TMA kernel; peak memory "
           f"{trep['peak_gib']:.2f} GiB")
+    out["train"]["graphed"] = train_eager(
+        "configs[llama3.2-1b train]", CONFIG_TRAIN,
+        lambda: build(cfg, device=dev, seed=targs.seed), trep, all_launches,
+        dev)
     del trep
     _free(dev)
 
@@ -2926,11 +3126,9 @@ def phase_configs(dev, profile: bool = False) -> dict:
         per = cfg.microbatches * (2 if cfg.remat else 1)
         want = {"rglru": model.kinds.count("rec") * per * targs.steps,
                 "slstm": model.kinds.count("slstm") * per * targs.steps}
-        fm.flash_attention_sm90.launches = 0
-        fm.flash_attention_simt.launches = 0
-        rg.rglru_sm90.launches = rg.rglru_rows.launches = 0
-        sm.slstm_sm90.launches = sm.slstm_rows.launches = 0
+        reset_launches()
         trep = train.main(argv, model=model)
+        all_launches = read_launches()
         got = {"rglru": rg.launches(), "slstm": sm.launches()}
         losses = [r["loss"] for r in trep["records"]]
         assert len(losses) == targs.steps and trep["restarts"] == 0, trep
@@ -2953,7 +3151,11 @@ def phase_configs(dev, profile: bool = False) -> dict:
               f"{got} (rglru sm90 {rg.rglru_sm90.launches}, slstm sm90 "
               f"{sm.slstm_sm90.launches}), 0 flash; peak memory "
               f"{trep['peak_gib']:.2f} GiB; {out['times'][key]:.1f} s")
-        del model, trep
+        del model
+        out["recurrent_train"][arch]["graphed"] = train_eager(
+            f"configs[{key}]", argv,
+            lambda: build(cfg, device=dev, seed=0), trep, all_launches, dev)
+        del trep
     _free(dev)
     t = time.perf_counter()
     out["recurrent_agree"] = recurrent_agree(dev)
@@ -3186,9 +3388,13 @@ def phase_mesh(dev, llama_losses) -> dict:
     t = time.perf_counter()
     tuner = Autotuner()
     fused.launches = 0
+    g0 = dispatch.graph_stats()
+    # `steady_ms` raises if a timed call runs an eager first call or
+    # captures (C1): every measured ms is of replays only
     res = tuner.tune(mlp, (p, x), candidates=DEFAULT_CANDIDATES,
                      measure=True)
     torch.cuda.synchronize()
+    g1 = dispatch.graph_stats()
     launches_tune = fused.launches
     assert not res.from_cache and tuner.searches == 1
     assert res.tuned_ms <= res.default_ms, (res.tuned_ms, res.default_ms)
@@ -3217,7 +3423,8 @@ def phase_mesh(dev, llama_losses) -> dict:
         "winner": repr(res.winner), "winner_launches": winner_launches,
         "walltime_ratio": res.tuned_vs_default_walltime_ratio,
         "edp_ratio": res.tuned_vs_default_edp_ratio,
-        "launches": launches_tune}
+        "launches": launches_tune,
+        "warmup_graphs": {k: g1[k] - g0[k] for k in g1}}
     out["times"]["autotune"] = time.perf_counter() - t
     for name, edp in res.predicted_edp.items():
         print(f"mesh[autotune]: predicted_edp {edp:.6g} "
@@ -3227,7 +3434,10 @@ def phase_mesh(dev, llama_losses) -> dict:
           f" edp ratio {res.tuned_vs_default_edp_ratio:.3f}); winner "
           f"{res.winner!r}, {winner_launches} fused launches a call; "
           f"{launches_tune} launches in the search; warm: 0 new searches; "
-          f"winners file round-tripped; {out['times']['autotune']:.1f} s")
+          f"winners file round-tripped; {out['times']['autotune']:.1f} s; "
+          f"{g1['captured'] - g0['captured']} graphs captured and "
+          f"{g1['eager'] - g0['eager']} eager first calls, all in "
+          f"warm-up calls: no timed call compiled")
 
     # (b) a one-rank NCCL group: the tiled access and lower() over a mesh
     t = time.perf_counter()
@@ -3293,8 +3503,9 @@ def phase_mesh(dev, llama_losses) -> dict:
         fm.flash_attention_sm90.launches = 0
         fm.flash_attention_simt.launches = 0
         fused.launches = 0
-        trep = train.main(CONFIG_TRAIN)
+        trep = train.main(with_steps(CONFIG_TRAIN, 2))
         losses = [r["loss"] for r in trep["records"]]
+        llama_losses = llama_losses[:2]
         assert trep["restarts"] == 0 and len(losses) == 2
         assert max(abs(a - b) for a, b in zip(losses, llama_losses)) <= \
             1e-6, (losses, llama_losses)
@@ -3436,9 +3647,12 @@ def rank_kernels(dev) -> dict:
 #: process a card, NCCL), held to the same step on one card: (arch, layers
 #: or None for all, the train entry point's arguments, compute dtype)
 TP_CARDS = (2, 4)
-TP_TRAIN = [("llama3.2-1b", None, CONFIG_TRAIN[2:], "float32"),
-            ("llama3.2-1b", None, CONFIG_TRAIN[2:], "bfloat16"),
-            ("recurrentgemma-9b", 3, CONFIG_RECURRENT_ARGS, "bfloat16")]
+TP_TRAIN = [("llama3.2-1b", None, with_steps(CONFIG_TRAIN[2:], 2),
+             "float32"),
+            ("llama3.2-1b", None, with_steps(CONFIG_TRAIN[2:], 2),
+             "bfloat16"),
+            ("recurrentgemma-9b", 3, with_steps(CONFIG_RECURRENT_ARGS, 2),
+             "bfloat16")]
 #: how far the float32 sharded losses may be from the one-card losses: the
 #: partial sums over "model" reorder float32 additions. In bfloat16 the
 #: reordered sums also flip bfloat16 roundings of the activations, so the
@@ -3559,6 +3773,118 @@ def phase_tp_cards(device_type: str = "cuda", preset: str = "full",
     return out
 
 
+#: `--cells`: the float serve cells (xlstm-125m, the four float configs,
+#: the hybrid's 2040-token prefill) and train cells (gemma-2b,
+#: llama3.2-1b, xlstm-125m, the 3-layer hybrid) at this file's lengths,
+#: then deepseek-v2-lite-16b's CiM serve and the autotuner
+CELLS_SERVE = [("xlstm-125m", XLSTM_SERVE)] + [
+    (a, ["--arch", a, "--preset", "full", "--device", "cuda", "--slots",
+         "2", "--prompt-len", "8"] + CONFIG_FLOAT_ARGS)
+    for a in CONFIG_FLOAT] + [("recurrentgemma-9b prefill", HYBRID_PREFILL)]
+
+
+def _serve_cell(rep: dict) -> dict:
+    """A serve report's timings (keys a port without step graphs lacks are
+    None)."""
+    out = {k: rep.get(k) for k in (
+        "p50_ms", "p99_ms", "tok_s_steady", "prefill_ms_mean",
+        "prefill_ms_replay_mean", "decode_steps", "capture_steps",
+        "capture_step_ms", "graphs", "step_graphs")}
+    out["prefill_ms"] = [r["prefill_ms"] for r in rep["per_request"]]
+    out["prefill_kinds"] = [r.get("prefill_kind")
+                            for r in rep["per_request"]]
+    out["tokens"] = [r["token_ids"] for r in rep["per_request"]]
+    return out
+
+
+def phase_cells(dev) -> dict:
+    """The cells alone, through the entry points, one model on the card at
+    a time, each with its peak device memory; on whatever port `SRC`
+    holds, so only the entry points' reports are read."""
+    import torch
+    from repro_torch.cim import dispatch
+    from repro_torch.cim.autotune import DEFAULT_CANDIDATES, Autotuner
+    from repro_torch.configs import preset_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models import layers
+
+    torch.empty(0, device=dev)      # a context before the first reading
+    out = {"src": SRC, "serve": {}, "train": {}}
+    for name, argv in CELLS_SERVE:
+        assert _free(dev) < 2 ** 30, name
+        torch.cuda.reset_peak_memory_stats(dev)
+        serve.fresh_cim_state()
+        t = time.perf_counter()
+        rep = serve.main(argv)
+        cell = _serve_cell(rep)
+        cell["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        cell["s"] = time.perf_counter() - t
+        out["serve"][name] = cell
+        print(f"cells[{name}]: p50 {cell['p50_ms']:.3f} ms, p99 "
+              f"{cell['p99_ms']:.3f} ms, {cell['tok_s_steady']:.4f} tok/s, "
+              f"prefill ms {cell['prefill_ms']} ({cell['prefill_kinds']}), "
+              f"capture steps {cell['capture_steps']}, peak "
+              f"{cell['peak_gib']:.2f} GiB", flush=True)
+        del rep
+    trains = [("gemma-2b", TRAIN, None), ("llama3.2-1b", CONFIG_TRAIN, None)]
+    trains += [(a, ["--arch", a] + CONFIG_RECURRENT_ARGS, layers_)
+               for a, layers_ in CONFIG_RECURRENT_TRAIN.items()]
+    for arch, argv, n_layers in trains:
+        assert _free(dev) < 2 ** 30, arch
+        targs = train.parse_args(argv)
+        cfg = preset_config(arch, targs.preset)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        from repro_torch.models.model import build
+        t = time.perf_counter()
+        rep = train.main(argv, model=build(cfg, device=dev, seed=0))
+        cell = {"step_ms": [r["ms"] for r in rep["records"]],
+                "losses": [r["loss"] for r in rep["records"]],
+                "tok_s_steady": rep["tok_s_steady"],
+                "capture_steps": rep.get("capture_steps"),
+                "graphs": rep.get("graphs"), "peak_gib": rep["peak_gib"],
+                "s": time.perf_counter() - t}
+        out["train"][arch] = cell
+        print(f"cells[{arch} train]: step ms "
+              f"{[round(x, 2) for x in cell['step_ms']]}, "
+              f"{cell['tok_s_steady']:.2f} tokens/s, capture steps "
+              f"{cell['capture_steps']}, peak {cell['peak_gib']:.2f} GiB",
+              flush=True)
+        del rep
+    assert _free(dev) < 2 ** 30
+    serve.fresh_cim_state()
+    rep = serve.main(["--arch", "deepseek-v2-lite-16b"] + SERVE
+                     + CONFIG_SERVE_ARGS)
+    out["deepseek"] = {k: _serve_cell(r) for k, r in rep["phases"].items()}
+    print("cells[deepseek-v2-lite-16b]: p50 " + ", ".join(
+        f"{k} {c['p50_ms']:.2f} ms (capture steps {c['capture_steps']})"
+        for k, c in out["deepseek"].items()), flush=True)
+    del rep
+    serve.fresh_cim_state()
+    assert _free(dev) < 2 ** 30
+    cfg = preset_config("gemma-2b", "full")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    act = cfg.activation_dtype()
+    p = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gating, act, dev)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen, device=dev).to(act)
+
+    def mlp(p_, x_):
+        return layers._mlp_quantized(p_, x_, cfg.gating, 8)
+    res = Autotuner().tune(mlp, (p, x), candidates=DEFAULT_CANDIDATES,
+                           measure=True)
+    out["autotune"] = {"measured_ms": {repr(c): ms for c, ms in
+                                       res.measured_ms.items()},
+                       "default_ms": res.default_ms,
+                       "tuned_ms": res.tuned_ms, "winner": repr(res.winner),
+                       "graphs": dispatch.graph_stats()}
+    print(f"cells[autotune]: measured ms "
+          f"{sorted(out['autotune']['measured_ms'].values())}, default "
+          f"{res.default_ms:.3f}, tuned {res.tuned_ms:.3f}, winner "
+          f"{res.winner!r}", flush=True)
+    serve.fresh_cim_state()
+    return out
+
+
 def phase_profile(m, dev, max_len: int, position: int) -> None:
     """One decode step at 2 slots under torch.profiler (after two warm-up
     steps: the first pins a resident model's weights and runs each program
@@ -3653,6 +3979,21 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--cells" in sys.argv[1:]:
+        t = time.perf_counter()
+        sources = (fused_kernel.SOURCE, rglru_mod.SOURCE_SM90,
+                   rglru_mod.SOURCE, slstm_mod.SOURCE_SM90, slstm_mod.SOURCE,
+                   flash_mod.SOURCE, flash_mod.SOURCE_SM90)
+        kernel_build.compile_all(sources)
+        print(f"gpu: {smi_line()}")
+        cells = phase_cells(dev)
+        cells["s"] = time.perf_counter() - t
+        print("cells: " + json.dumps(cells))
+        print(f"gpu: {smi_line()}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--tp-cards" in sys.argv[1:]:
         tp = phase_tp_cards()
         print("tp: " + json.dumps(tp))
@@ -3877,6 +4218,15 @@ def main() -> int:
         "serve": {a: r["graphs"] for a, r in runs.items()},
         "configs": conf["graphs"],
         "gemma_step": graph_step}))
+    # the float paths' step programs: serve (prefill, decode, insert) and
+    # train (the whole step), each against its eager run
+    print("step_graphs: " + json.dumps({
+        "xlstm-125m": xl["graphed"], "hybrid_prefill": pre["graphed"],
+        "float_configs": conf["float_graphs"],
+        "train_gemma-2b": tr["graphed"],
+        "train_llama3.2-1b": conf["train"]["graphed"],
+        **{f"train_{a}": r["graphed"]
+           for a, r in conf["recurrent_train"].items()}}))
     print("mesh: " + json.dumps({k: mesh[k] for k in (
         "sharded", "train", "moe", "dryrun", "rank_kernels")}))
     print("configs: " + json.dumps({k: conf[k] for k in (

@@ -36,7 +36,8 @@ import torch
 
 from . import cost as cost_mod
 from .array import ArraySpec
-from .dispatch import BoundedLRU
+from .dispatch import BoundedLRU, compiled, graph_stats
+from .opset import CimOpError
 
 # ---------------------------------------------------------------------------
 # search space
@@ -105,14 +106,32 @@ def _block(x) -> None:
         torch.cuda.synchronize(dev)
 
 
+#: warm-up calls `steady_ms` makes at most before it times
+WARMUP_CALLS = 4
+
+
 def steady_ms(fn: Callable[[], object], n: int = 5) -> float:
-    """Mean wall ms per call after a capture/warmup call, every call
-    synchronized with its results' device."""
-    _block(fn())
+    """Mean wall ms per call over `n` steady calls, every call synchronized
+    with its results' device. A program runs eagerly at a signature's first
+    call and is captured at its second (`dispatch.Program`), where the
+    reference compiles once: so it warms up until one call runs no eager
+    first call and captures nothing (`dispatch.compiled`), at most
+    `WARMUP_CALLS` calls, and raises `CimOpError` if a timed call still
+    compiles."""
+    for _ in range(WARMUP_CALLS):
+        g0 = graph_stats()
+        _block(fn())
+        if not compiled(g0, graph_stats()):
+            break
+    g0 = graph_stats()
     t0 = time.perf_counter()
     for _ in range(n):
         _block(fn())
-    return (time.perf_counter() - t0) * 1e3 / max(1, n)
+    ms = (time.perf_counter() - t0) * 1e3 / max(1, n)
+    if compiled(g0, graph_stats()):
+        raise CimOpError(f"a timed call compiled after {WARMUP_CALLS} "
+                         f"warm-up calls: {graph_stats()}")
+    return ms
 
 
 # ---------------------------------------------------------------------------

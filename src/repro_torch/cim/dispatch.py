@@ -36,14 +36,20 @@ program called once, such as a prefill shape seen once, is never
 captured) and replayed from then on, one device launch per warm call.
 Each call copies its leaves into the graph's static inputs, replays, and
 hands the caller clones of the static outputs; what the capture added to
-the fused kernel's launch and byte counters and to the codec counters is
-added again at every replay, so counts do not depend on graphs. Graphs of
-one device share one memory pool (replays are serialized on the current
-stream), and a program evicted from the LRU drops its graphs. Plain
-devices (`repro_torch.PLAIN_DEVICES`) run the eager body, as does a
-program over a mesh (`captures`) and every program inside
-`eager_programs()`. A capture runs under `CaptureGuard`, which refuses by
-name any op a graph cannot hold; there is no eager fallback.
+the kernels' launch counters (the fused kernel's launches and bytes, the
+flash, RG-LRU and sLSTM kernels' launches) and to the codec counters is
+added again at every replay, so counts do not depend on graphs. A program
+made with `donate=` (the reference's `donate_argnums`) takes the caller's
+own tensors of those leaves as the graph's static inputs and leaves its
+new values in them. Graphs of one device share one memory pool (replays
+are serialized on the current stream), and a program evicted from the LRU
+drops its graphs. Plain devices (`repro_torch.PLAIN_DEVICES`) run the
+eager body, as does a program over a mesh (`captures`), every program
+inside `eager_programs()` and a program called inside another's capture.
+A capture runs under `CaptureGuard`, which refuses by name any op a graph
+cannot hold; there is no eager fallback. `graph_stats()` counts the eager
+first calls on a graph device, the captures and the replays, so a timed
+window can tell a steady call from one that compiled.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ import contextlib
 import dataclasses
 import os
 import time
+import weakref
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -175,7 +182,7 @@ def clear_schedule_cache() -> None:
     global _DISPATCHES
     _PROGRAMS.clear()
     _DISPATCHES = 0
-    _GRAPH_STATS.update(captured=0, replays=0, capture_s=0.0)
+    _GRAPH_STATS.update(captured=0, replays=0, capture_s=0.0, eager=0)
     _POOLS.clear()
 
 
@@ -206,15 +213,45 @@ def program_cache_put(key, prog) -> None:
 # ---------------------------------------------------------------------------
 
 _EAGER = False
-_GRAPH_STATS = {"captured": 0, "replays": 0, "capture_s": 0.0}
-#: one graph memory pool per device
+#: a capture is running: programs called inside it run their eager body
+_CAPTURING = False
+_GRAPH_STATS = {"captured": 0, "replays": 0, "capture_s": 0.0, "eager": 0}
+#: one graph memory pool per device: (its handle, the live graphs in it)
 _POOLS: Dict[torch.device, tuple] = {}
 
 
+def _pool(device: torch.device) -> tuple:
+    """The device's shared graph pool (handle, live graphs). A pool whose
+    graphs have all been freed is released by the caching allocator and
+    cannot be captured into again, so it is replaced by a new one."""
+    entry = _POOLS.get(device)
+    if entry is None or not entry[1]:
+        entry = _POOLS[device] = (torch.cuda.graph_pool_handle(),
+                                  weakref.WeakSet())
+    return entry
+
+
 def graph_stats() -> Dict[str, float]:
-    """Graphs captured, graph replays and the seconds spent capturing since
-    the last `clear_schedule_cache`."""
+    """Graphs captured, graph replays, the seconds spent capturing and the
+    eager first calls a graph device ran (`eager`: a call with a signature
+    never seen, which captures nothing but is not steady either) since the
+    last `clear_schedule_cache`."""
     return dict(_GRAPH_STATS)
+
+
+def compiled(before: Dict[str, float], after: Dict[str, float]) -> bool:
+    """Whether the calls between two `graph_stats()` readings ran a
+    signature's eager first call or captured a graph: such a call is the
+    counterpart of the reference's jit compile, and no steady window may
+    hold it."""
+    return after["captured"] > before["captured"] \
+        or after["eager"] > before["eager"]
+
+
+def _note(stats: Dict[str, float], key: str, n: float = 1) -> None:
+    """Add `n` to `key` of a program's own stats and of the global ones."""
+    stats[key] += n
+    _GRAPH_STATS[key] += n
 
 
 @contextlib.contextmanager
@@ -242,8 +279,9 @@ _TENSOR = object()          # the slot of one tensor in a template
 
 def _flatten(obj, out: List[torch.Tensor]):
     """Append the tensors of a program's leaves or result (tensors,
-    PlanePacks, tuples and lists of them; anything else is a constant) to
-    `out`, and return the template `_unflatten` rebuilds it from."""
+    PlanePacks, tuples, lists and dicts of them; anything else is a
+    constant) to `out`, and return the template `_unflatten` rebuilds it
+    from."""
     if isinstance(obj, torch.Tensor):
         out.append(obj)
         return _TENSOR
@@ -252,6 +290,8 @@ def _flatten(obj, out: List[torch.Tensor]):
         return dataclasses.replace(obj, planes=None)
     if isinstance(obj, (tuple, list)):
         return (type(obj), [_flatten(x, out) for x in obj])
+    if isinstance(obj, dict):
+        return (dict, [(k, _flatten(v, out)) for k, v in obj.items()])
     return obj
 
 
@@ -262,9 +302,11 @@ def _unflatten(template, tensors):
         return next(tensors)
     if isinstance(template, PlanePack):
         return dataclasses.replace(template, planes=next(tensors))
-    if isinstance(template, tuple) and len(template) == 2 \
-            and template[0] in (tuple, list):
-        return template[0](_unflatten(t, tensors) for t in template[1])
+    if isinstance(template, tuple) and len(template) == 2:
+        if template[0] in (tuple, list):
+            return template[0](_unflatten(t, tensors) for t in template[1])
+        if template[0] is dict:
+            return {k: _unflatten(t, tensors) for k, t in template[1]}
     return template
 
 
@@ -283,12 +325,32 @@ def _graph_device(tensors: Sequence[torch.Tensor]) -> Optional[torch.device]:
     return devices.pop() if devices else None
 
 
+_KERNEL_WRAPPERS: List = []
+
+
+def _wrappers() -> List:
+    """The float kernels' wrappers whose `launches` a body bumps: flash
+    attention (wgmma/TMA, SIMT), RG-LRU (TMA tiles, rows) and sLSTM
+    (persistent grid, rows). Imported at first use: `repro_torch.kernels`
+    imports the CiM engine."""
+    if not _KERNEL_WRAPPERS:
+        from repro_torch.kernels import flash_attention, rglru, slstm
+
+        _KERNEL_WRAPPERS.extend((
+            flash_attention.flash_attention_sm90,
+            flash_attention.flash_attention_simt, rglru.rglru_sm90,
+            rglru.rglru_rows, slstm.slstm_sm90, slstm.slstm_rows))
+    return _KERNEL_WRAPPERS
+
+
 def _counters() -> Tuple[int, ...]:
     """The counters a body bumps from Python, which a replay does not run:
-    the fused kernel's launches and bytes, the codec's packs and unpacks."""
+    the fused kernel's launches and bytes, the codec's packs and unpacks,
+    and the float kernels' launches (`_wrappers`)."""
     codec = bitplane._CODEC_CALLS
     return (fused_planes_op.launches, fused_planes_op.bytes,
-            codec["pack"], codec["unpack"])
+            codec["pack"], codec["unpack"]) \
+        + tuple(w.launches for w in _wrappers())
 
 
 def _add_counters(delta: Tuple[int, ...]) -> None:
@@ -297,9 +359,12 @@ def _add_counters(delta: Tuple[int, ...]) -> None:
     fused_planes_op.bytes += delta[1]
     codec["pack"] += delta[2]
     codec["unpack"] += delta[3]
+    for w, d in zip(_wrappers(), delta[4:]):
+        w.launches += d
 
 
 _LIFTS = ("lift_fresh", "lift_fresh_copy", "lift")
+_EMPTY = ("empty", "empty_strided", "empty_like")
 _INDEXING = ("index", "index_put", "index_put_", "_index_put_impl_")
 
 
@@ -317,14 +382,19 @@ def _capture_refusal(func, args, kwargs, device) -> Optional[str]:
             return "a boolean index gives a shape that depends on the data"
     elif torch.Tag.dynamic_output_shape in func.tags:
         return "its output's shape depends on the data"
-    if device is not None:
+    # a view (`detach` included) reads no data: `torch.utils.checkpoint`
+    # detaches its host placeholders
+    if device is not None and not func.is_view:
         flat = list(args) + list(kwargs.values())
         flat += [x for a in flat if isinstance(a, (tuple, list)) for x in a]
         for x in flat:
             if isinstance(x, torch.Tensor) and x.device != device:
                 return f"it reads a tensor on {x.device}, not on {device}"
         dev = kwargs.get("device")
-        if dev is not None and torch.device(dev).type != device.type:
+        # an uninitialized host tensor holds no data a graph could freeze
+        # (`torch.utils.checkpoint` makes such placeholders)
+        if dev is not None and torch.device(dev).type != device.type \
+                and name not in _EMPTY:
             return f"it makes a tensor on {dev}, not on {device}"
     return None
 
@@ -336,9 +406,10 @@ class CaptureGuard(TorchDispatchMode):
     from host data (`aten.lift_fresh`: `torch.tensor`, `torch.as_tensor` of
     a Python value), gives an output whose shape depends on the data (ops
     tagged dynamic_output_shape: `nonzero`, `masked_select`, boolean
-    indexing) or, with a `device`, reads or makes a tensor on another
-    device. Every capture runs under it; the CPU tests run warm bodies
-    under it without a device."""
+    indexing) or, with a `device`, reads a tensor on another device (a
+    view reads nothing) or makes one there with data (an empty host
+    placeholder passes). Every capture runs under it; the CPU tests run
+    warm bodies under it without a device, and on `meta` with one."""
 
     def __init__(self, device: Optional[torch.device] = None):
         super().__init__()
@@ -358,75 +429,152 @@ def _record(fn, args, device: torch.device):
     shared pool (on `torch.cuda.graph`'s one capture stream, as sharing a
     pool asks), under `CaptureGuard`. Returns (graph, result); the graph
     has not run yet."""
-    if device not in _POOLS:
-        _POOLS[device] = torch.cuda.graph_pool_handle()
+    global _CAPTURING
+    pool, live = _pool(device)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.device(device), \
-            torch.cuda.graph(graph, pool=_POOLS[device]), \
-            CaptureGuard(device):
-        out = fn(*args)
+    _CAPTURING = True
+    try:
+        with torch.cuda.device(device), \
+                torch.cuda.graph(graph, pool=pool), \
+                CaptureGuard(device):
+            out = fn(*args)
+    finally:
+        _CAPTURING = False
+    live.add(graph)
     return graph, out
 
 
 class _Graph:
-    """One captured body: its static inputs (one per leaf tensor), the
-    graph, its static outputs with the template they rebuild, and what the
-    capture added to `_counters`."""
+    """One captured body: its static inputs (one per leaf tensor; a donated
+    leaf's are the capturing caller's own tensors), the graph, its static
+    outputs with the template they rebuild (outputs that are static inputs
+    are handed back as they are, the rest cloned), and what the capture
+    added to `_counters`."""
 
-    __slots__ = ("graph", "inputs", "outputs", "template", "counts")
+    __slots__ = ("graph", "inputs", "outputs", "template", "counts",
+                 "shared")
 
-    def __init__(self, fn, tensors, template, device):
-        self.inputs = [torch.empty_like(t, device=device) for t in tensors]
-        for s, t in zip(self.inputs, tensors):
-            s.copy_(t)
+    def __init__(self, fn, tensors, template, device, donated, stats):
+        self.inputs = []
+        for t, own in zip(tensors, donated):
+            if own:
+                self.inputs.append(t)
+            else:
+                self.inputs.append(torch.empty_like(t, device=device))
+                self.inputs[-1].copy_(t)
         before = _counters()
         t0 = time.perf_counter()
         self.graph, out = _record(fn, _unflatten(template, iter(self.inputs)),
                                   device)
-        _GRAPH_STATS["capture_s"] += time.perf_counter() - t0
-        _GRAPH_STATS["captured"] += 1
+        _note(stats, "capture_s", time.perf_counter() - t0)
+        _note(stats, "captured")
         # the capture launched nothing: its counts belong to the replays
         after = _counters()
         self.counts = tuple(b - a for a, b in zip(before, after))
         _add_counters(tuple(-c for c in self.counts))
         self.outputs = []
         self.template = _flatten(out, self.outputs)
+        # the donated leaves' own tensors go back as they are
+        ids = {id(s) for s, own in zip(self.inputs, donated) if own}
+        self.shared = [id(o) in ids for o in self.outputs]
 
-    def __call__(self, tensors):
+    def __call__(self, tensors, stats):
         for s, t in zip(self.inputs, tensors):
-            s.copy_(t)
+            if s is not t:
+                s.copy_(t)
         self.graph.replay()
-        _GRAPH_STATS["replays"] += 1
+        _note(stats, "replays")
         _add_counters(self.counts)
-        return _unflatten(self.template, iter([o.clone()
-                                               for o in self.outputs]))
+        return _unflatten(self.template, iter([
+            o if shared else o.clone()
+            for o, shared in zip(self.outputs, self.shared)]))
+
+
+def _pairs(old, new, out: List[Tuple[torch.Tensor, torch.Tensor]]) -> bool:
+    """Append (leaf tensor, new tensor) for each tensor of the donated leaf
+    `old`, walking `new` alongside (dicts by key); False where the two
+    differ in structure, shape or dtype."""
+    if isinstance(old, torch.Tensor):
+        out.append((old, new))
+        return isinstance(new, torch.Tensor) and new.shape == old.shape \
+            and new.dtype == old.dtype
+    if isinstance(old, PlanePack):
+        return isinstance(new, PlanePack) and _pairs(old.planes, new.planes,
+                                                     out)
+    if isinstance(old, (tuple, list)):
+        return isinstance(new, (tuple, list)) and len(new) == len(old) \
+            and all(_pairs(a, b, out) for a, b in zip(old, new))
+    if isinstance(old, dict):
+        return isinstance(new, dict) and new.keys() == old.keys() \
+            and all(_pairs(old[k], new[k], out) for k in old)
+    return True
+
+
+def _donating(fn, donate: Tuple[int, ...]):
+    """`fn` that leaves the new value of each donated leaf in the leaf's
+    own tensors: the body's result `i` is leaf `i`'s new value, of the same
+    structure, shapes and dtypes; each of its tensors that is not already
+    the leaf's is copied into it, and the leaf itself takes its place in
+    the result."""
+    def run(*leaves):
+        out = list(fn(*leaves))
+        for i in donate:
+            pairs: List[Tuple[torch.Tensor, torch.Tensor]] = []
+            if not _pairs(leaves[i], out[i], pairs):
+                raise opset.CimOpError(
+                    f"donated leaf {i}: the body's result {i} does not "
+                    f"match its structure, shapes and dtypes")
+            for a, b in pairs:
+                if a is not b:
+                    a.copy_(b)
+            out[i] = leaves[i]
+        return tuple(out)
+    return run
 
 
 class Program:
-    """One cached program: `fn(*leaves)`, its leaves tensors and PlanePacks.
+    """One cached program: `fn(*leaves)`, its leaves tensors, PlanePacks
+    and tuples, lists and dicts of them.
 
     A call with a leaf signature (shapes and dtypes) never seen runs the
     eager body; on CUDA the second call with it captures the body as one
     graph and every later call replays that graph (the reference's jit
-    retraces per shape too). Plain devices, `eager_programs()` and a
-    program made with `graphed=False` (a mesh program, `captures`) run the
-    eager body every time. `first` names the leaves of a call already made
-    eagerly (a schedule program's recording call)."""
+    retraces per shape too). Plain devices, `eager_programs()`, a call
+    inside another program's capture and a program made with
+    `graphed=False` (a mesh program, `captures`) run the eager body every
+    time. `first` names the leaves of a call already made eagerly (a
+    schedule program's recording call).
 
-    __slots__ = ("fn", "graphed", "_seen", "graphs")
+    `donate` (the reference's `donate_argnums`) names leaves whose tensors
+    the program takes over: the body returns a tuple whose item `i` is
+    donated leaf `i`'s new value, and the program leaves that value in the
+    leaf's own tensors (inside the graph, so a replay does too) and returns
+    those tensors in its place, not clones. The capture keeps the
+    capturing call's tensors of a donated leaf as static inputs, so a later
+    call with the same tensors copies nothing in; a call with other tensors
+    has them copied in. `stats` counts this program's eager first calls
+    (on a graph device), captures, capture seconds and replays."""
 
-    def __init__(self, fn, graphed: bool = True, first=None):
-        self.fn = fn
+    __slots__ = ("fn", "graphed", "_seen", "graphs", "donate", "stats")
+
+    def __init__(self, fn, graphed: bool = True, first=None,
+                 donate: Sequence[int] = ()):
+        self.donate = tuple(donate)
+        self.fn = _donating(fn, self.donate) if self.donate else fn
         self.graphed = graphed
         self._seen = set()
         self.graphs: Dict[Tuple, _Graph] = {}
+        self.stats = {"captured": 0, "replays": 0, "capture_s": 0.0,
+                      "eager": 0}
         if first is not None:
             tensors: List[torch.Tensor] = []
             _flatten(tuple(first), tensors)
             self._seen.add(_signature(tensors))
+            if graphed and _graph_device(tensors) is not None:
+                _note(self.stats, "eager")
 
     def __call__(self, *leaves):
-        if not self.graphed:
+        if not self.graphed or _CAPTURING:
             return self.fn(*leaves)
         tensors: List[torch.Tensor] = []
         template = _flatten(leaves, tensors)
@@ -438,10 +586,16 @@ class Program:
         if graph is None:
             if sig not in self._seen:
                 self._seen.add(sig)
+                _note(self.stats, "eager")
                 return self.fn(*leaves)
+            donated: List[bool] = []
+            for i, leaf in enumerate(leaves):
+                n: List[torch.Tensor] = []
+                _flatten(leaf, n)
+                donated += [i in self.donate] * len(n)
             graph = self.graphs[sig] = _Graph(self.fn, tensors, template,
-                                              device)
-        return graph(tensors)
+                                              device, donated, self.stats)
+        return graph(tensors, self.stats)
 
     def drop(self) -> None:
         """Release the graphs (and their static buffers)."""

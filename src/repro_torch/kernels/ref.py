@@ -150,8 +150,8 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         mask = torch.tril(torch.ones((tq, tk), dtype=torch.bool,
                                      device=q.device), diagonal=tk - tq)
-        logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=dt,
-                                                        device=q.device))
+        logits = torch.where(mask, logits, torch.full((), -1e30, dtype=dt,
+                                                      device=q.device))
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)

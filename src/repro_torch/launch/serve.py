@@ -53,8 +53,25 @@ request that waited past `timeout_s` and the tail past `queue_limit`.
 
 Timing: every prefill and decode step ends in `torch.cuda.synchronize()`
 on the card, so a step's latency is device time. Steady-state tok/s and the
-p50/p99 per-token latencies exclude prefill and the first `--warmup-steps`
-decode steps.
+p50/p99 per-token latencies exclude prefill, the first `--warmup-steps`
+decode steps (the reference's compile step) and every decode step that ran
+a program's eager first call or captured a CUDA graph
+(`dispatch.compiled`): the reference compiles before its window, so a
+*capture step* is left out as its compile step is. The report lists the
+capture steps and their ms, the capture seconds inside every prefill and
+decode step, and marks each prefill eager, capture or replay.
+
+On the float path (no --cim-lower) the engine runs the reference's jitted
+steps as programs (`dispatch.Program`, one CUDA graph each per signature
+on the card): the prefill keyed on its input shapes (the reference's jit
+retraces per prompt length), the decode step with the batched caches
+donated (the reference's `donate_argnums=(0,)`: the engine's caches are
+the graph's, and the step leaves its new caches in them) and the slot
+insert with the batched caches donated and the slot a device integer.
+Sampling stays outside the graphs, as in the reference. With --cim-lower
+the decode step stays eager around its graphed CiM programs (the
+reference leaves it unjitted and its retry reruns it on the same caches),
+and so do the prefill and the insert.
 
 With --cim-lower every decode MLP and global-attention contraction runs
 through the lowering compiler (`repro_torch.cim.lower`): each is one fused
@@ -131,6 +148,8 @@ class ServeRequest:
     slot: int = -1
     tokens: List[int] = dataclasses.field(default_factory=list)
     prefill_ms: float = 0.0
+    prefill_kind: str = ""         # eager, capture or replay (see `_kind`)
+    prefill_capture_s: float = 0.0
     first_token_s: float = -1.0
     done_s: float = -1.0
     accesses: float = 0.0          # ledger attribution (see module docstring)
@@ -150,6 +169,8 @@ class ServeRequest:
             "first_token_s": round(self.first_token_s, 6),
             "done_s": round(self.done_s, 6),
             "prefill_ms": round(self.prefill_ms, 3),
+            "prefill_kind": self.prefill_kind,
+            "prefill_capture_s": round(self.prefill_capture_s, 6),
             "tokens": len(self.tokens),
             "token_ids": list(self.tokens),
             "shed": self.shed,
@@ -171,6 +192,38 @@ def _percentile(xs: List[float], q: float) -> float:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _mean(xs: List[float]) -> Optional[float]:
+    return sum(xs) / len(xs) if xs else None
+
+
+def _delta(before: Dict[str, float], after: Dict[str, float]
+           ) -> Dict[str, float]:
+    return {k: after[k] - before[k] for k in after}
+
+
+def _kind(before: Dict[str, float], after: Dict[str, float]) -> str:
+    """A prefill's kind from the graph counters around it: "capture" if
+    it captured a graph, "eager" if it ran a program's eager first call
+    on a graph device or graphed nothing (a plain device, an eager CiM
+    prefill with no program), else "replay"."""
+    if after["captured"] > before["captured"]:
+        return "capture"
+    if after["eager"] > before["eager"] \
+            or after["replays"] == before["replays"]:
+        return "eager"
+    return "replay"
+
+
+def _insert_body(caches, single, slot: torch.Tensor):
+    """Land the batch-1 caches `single` in batch row `slot` (a device
+    int64 [1]) of the batched `caches`, in place; returns (caches,), the
+    donated leaf's new value."""
+    for c, s in zip(caches, single):
+        for name in c:
+            c[name].index_copy_(0, slot, s[name].to(c[name].dtype))
+    return (caches,)
 
 
 class ServeEngine:
@@ -209,6 +262,21 @@ class ServeEngine:
                              "corrected": 0, "uncorrected": 0}
         self.prefill_fn = make_prefill_step(model, max_len)
         self.decode_fn = make_decode_step(model)
+        self.insert_fn = _insert_body
+        #: the float path's step programs, by name (none with --cim-lower)
+        self.programs: Dict[str, dispatch.Program] = {}
+        if not cim_lower:
+            self.programs = {
+                "prefill": dispatch.Program(self.prefill_fn),
+                "decode": dispatch.Program(self.decode_fn, donate=(0,)),
+                "insert": dispatch.Program(self.insert_fn, donate=(0,))}
+            self.prefill_fn = self.programs["prefill"]
+            self.decode_fn = self.programs["decode"]
+            self.insert_fn = self.programs["insert"]
+        # the slot of an insert as a device integer: a graph replays it
+        self._slot_ids = [torch.tensor([i], dtype=torch.int64,
+                                       device=self.device)
+                          for i in range(self.slots)]
 
     # -- fault handling ------------------------------------------------------
 
@@ -286,9 +354,7 @@ class ServeEngine:
     def _insert(self, caches, single, slot: int) -> None:
         """Land a batch-1 prefill cache in slot `slot` (in place: the
         batched cache belongs to this engine alone)."""
-        for c, s in zip(caches, single):
-            for name in c:
-                c[name][slot] = s[name][0].to(c[name].dtype)
+        self.insert_fn(caches, single, self._slot_ids[slot])
 
     def run(self, requests: List[ServeRequest]) -> Dict[str, Any]:
         led = accounting.ledger()
@@ -304,6 +370,10 @@ class ServeEngine:
         token_lat_ms: List[float] = []
         step_accesses: List[int] = []
         step_dispatches: List[int] = []
+        step_capture_s: List[float] = []
+        capture_steps: List[int] = []
+        capture_step_ms: List[float] = []
+        g_run = dispatch.graph_stats()
         t0 = time.perf_counter()
 
         def now() -> float:
@@ -341,11 +411,15 @@ class ServeEngine:
                     pending.popleft()
                     slot = free.pop(0)
                     req.slot = slot
+                    g0 = dispatch.graph_stats()
                     ta = time.perf_counter()
                     l0 = (led.accesses, led.load_accesses)
                     c1, logits1 = self.prefill_fn(self._prompt_inputs(req))
                     _sync(self.device)
                     req.prefill_ms = (time.perf_counter() - ta) * 1e3
+                    g1 = dispatch.graph_stats()
+                    req.prefill_kind = _kind(g0, g1)
+                    req.prefill_capture_s = g1["capture_s"] - g0["capture_s"]
                     req.accesses += led.accesses - l0[0]
                     req.load_accesses += led.load_accesses - l0[1]
                     self._insert(caches, c1, slot)
@@ -365,6 +439,7 @@ class ServeEngine:
                 continue
 
             step_in = self._step_inputs(tok, positions, decode_steps)
+            g0 = dispatch.graph_stats()
             ts = time.perf_counter()
             l0 = (led.accesses, led.load_accesses)
             d0 = dispatch.cache_stats()["dispatches"]
@@ -385,6 +460,7 @@ class ServeEngine:
                         raise
             _sync(self.device)
             dt = time.perf_counter() - ts
+            g1 = dispatch.graph_stats()
             d_acc = led.accesses - l0[0]
             d_load = led.load_accesses - l0[1]
             tok = self.sample(logits).to(torch.int64)
@@ -394,7 +470,14 @@ class ServeEngine:
             tok_host = tok.tolist()
             n_active = len(active)
             decode_steps += 1
-            steady = decode_steps > self.warmup_steps
+            step_capture_s.append(g1["capture_s"] - g0["capture_s"])
+            # a step that compiled is the reference's compile step: out of
+            # the window, whatever its index
+            captured = dispatch.compiled(g0, g1)
+            if captured:
+                capture_steps.append(decode_steps)
+                capture_step_ms.append(dt * 1e3)
+            steady = decode_steps > self.warmup_steps and not captured
             if steady:
                 steady_tokens += n_active
                 steady_time += dt
@@ -431,12 +514,25 @@ class ServeEngine:
             "p99_ms": _percentile(token_lat_ms, 99),
             "prefill_ms_mean": (sum(r.prefill_ms for r in requests)
                                 / max(1, len(requests))),
+            # the prefills that neither ran an eager first call nor
+            # captured (None: none did)
+            "prefill_ms_replay_mean": _mean([
+                r.prefill_ms for r in requests
+                if not r.shed and r.prefill_kind == "replay"]),
+            "capture_steps": capture_steps,
+            "capture_step_ms": capture_step_ms,
+            "step_capture_s": step_capture_s,
+            # what this run captured and replayed (0 on plain devices)
+            "graphs": _delta(g_run, dispatch.graph_stats()),
             "shed": self.shed_count,
             "completed": sum(1 for r in requests if not r.shed and r.done),
             "step_accesses": step_accesses,
             "step_dispatches": step_dispatches,
             "per_request": [r.report() for r in requests],
         }
+        if self.programs:
+            report["step_graphs"] = {k: dict(p.stats)
+                                     for k, p in self.programs.items()}
         fm = faults_mod.active()
         if fm is not None or self.repairs or self.failovers:
             report["faults"] = {
@@ -459,9 +555,6 @@ class ServeEngine:
             }
         if self.cim_lower:
             per_tok = max(1, decode_tokens)
-            # CUDA graphs of the programs (0 on the CPU): what the serve
-            # captured and replayed since the last fresh_cim_state
-            report["graphs"] = dispatch.graph_stats()
             report["ledger"] = {
                 "accesses": led.accesses,
                 "load_accesses": led.load_accesses,
@@ -604,7 +697,8 @@ def print_cim_report(tag: str) -> None:
           f"{cs['resident_rows']} rows held")
     gs = dispatch.graph_stats()
     print(f"  graphs: {gs['captured']} captured, {gs['replays']} replays, "
-          f"{gs['capture_s']:.3f} s capturing")
+          f"{gs['capture_s']:.3f} s capturing, {gs['eager']} eager first "
+          f"calls")
     ps = cost.PLAN_STATS
     print(f"  offload policy: {ps['plans']} plans cut, "
           f"{ps['eqns_lowered']} eqns lowered / {ps['eqns_demoted']} "
@@ -718,7 +812,8 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
         print(f"served {rep['requests']} requests / {rep['total_tokens']} "
               f"tokens in {rep['wall_s']:.2f}s: {rep['tok_s_steady']:.1f} "
               f"tok/s steady, p50 {rep['p50_ms']:.1f} ms, "
-              f"p99 {rep['p99_ms']:.1f} ms")
+              f"p99 {rep['p99_ms']:.1f} ms; "
+              f"{len(rep['capture_steps'])} capture steps left out")
     else:
         model_resident = model.derive(dataclasses.replace(cfg,
                                                           cim_resident=True))

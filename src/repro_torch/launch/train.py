@@ -30,12 +30,20 @@ parameter at its use (`repro_torch.models.model`):
       --preset full --device cuda --steps 4 --batch 2 --seq 2048
 
 With a single process it trains on one device with no process group and
-no mesh. There is no `jax.jit` and no donation. Each
+no mesh, and the step is the reference's `jax.jit(train_step,
+donate_argnums=(0,))`: a `dispatch.Program` with the state donated, which
+on the card runs eagerly at the first step, is captured as ONE CUDA graph
+(forward, backward over the microbatches, the optional int8 compression
+and AdamW in place; gradients live in the graph's pool) at the second and
+replays from the third, the learning rate read from the state's device
+step counter. A step over a mesh stays eager (`dispatch.captures`). Each
 step is timed between two device synchronizes, so its wall ms covers the
 device's work as well as the host's. Rank 0 prints. It
 prints every `--log-every`-th step's loss, ce, grad norm and wall ms; at
-the end the steady tokens/s (the first step excluded), the flash, RG-LRU
-and sLSTM kernels' launches and the peak device memory.
+the end the steady tokens/s (the first step and every step that ran an
+eager first call or captured a graph excluded: the reference compiles
+before its window), the flash, RG-LRU and sLSTM kernels' launches, the
+step graph's captures and replays and the peak device memory.
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ import torch.distributed as dist
 
 from repro_torch import kernel_build, resolve_device
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.cim import dispatch
 from repro_torch.configs import preset_config
 from repro_torch.data import (DataConfig, embed_stub_batch, sharded_batch,
                               synthetic_batch)
@@ -149,19 +158,28 @@ def _train(args, dev: torch.device, mesh, model: Optional[Model]):
 
     step_fn = make_train_step(model, opt_cfg, lr_schedule=sched,
                               compress_grads=args.compress_grads)
+    program = None
+    if dispatch.captures(mesh):
+        # the state donated: the step leaves its new state in its tensors
+        program = step_fn = dispatch.Program(step_fn, donate=(0,))
     records = []
 
     def logging_step(state, batch):
+        step = int(state["step"])
         if on_card:
             torch.cuda.synchronize(dev)
+        g0 = dispatch.graph_stats()
         t0 = time.perf_counter()
         out = step_fn(state, batch)
         if on_card:
             torch.cuda.synchronize(dev)
         ms = (time.perf_counter() - t0) * 1e3
+        g1 = dispatch.graph_stats()
         m = {k: float(out[1][k]) for k in ("loss", "ce", "aux", "grad_norm",
                                             "lr")}
-        records.append({"step": int(state["step"]), **m, "ms": ms})
+        records.append({"step": step, **m, "ms": ms,
+                        "compiled": dispatch.compiled(g0, g1),
+                        "capture_s": g1["capture_s"] - g0["capture_s"]})
         if lead and len(records) % args.log_every == 0:
             print(f"step {int(out[0]['step']):5d}  loss {m['loss']:.4f}  ce "
                   f"{m['ce']:.4f}  gnorm {m['grad_norm']:.4f}  lr "
@@ -178,9 +196,13 @@ def _train(args, dev: torch.device, mesh, model: Optional[Model]):
     wall_s = time.perf_counter() - t0
     flash_launches, rglru_launches, slstm_launches = (
         f() - n for f, n in zip(counters, launches0))
-    steady = records[1:]
+    # the first step is the reference's compile step; a step that ran an
+    # eager first call or captured is one too
+    steady = [r for r in records[1:] if not r["compiled"]]
+    capture_steps = [r["step"] for r in records if r["compiled"]]
     tok_s = (len(steady) * args.batch * args.seq
              / (sum(r["ms"] for r in steady) / 1e3)) if steady else None
+    graphs = dict(program.stats) if program is not None else None
     peak_gib = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                 if on_card else None)
     if lead:
@@ -188,8 +210,13 @@ def _train(args, dev: torch.device, mesh, model: Optional[Model]):
               f"{float(metrics['loss']):.4f}; steady "
               + (f"{tok_s:.1f} tokens/s" if tok_s else "tokens/s not measured "
                  "(one step)")
-              + f"; {flash_launches} flash launches; {rglru_launches} rglru "
-              f"launches; {slstm_launches} slstm launches; peak device memory "
+              + f" ({len(capture_steps)} capture steps left out)"
+              f"; {flash_launches} flash launches; {rglru_launches} rglru "
+              f"launches; {slstm_launches} slstm launches; step graph "
+              + (f"{graphs['captured']} captured, {graphs['replays']} "
+                 f"replays, {graphs['capture_s']:.3f} s capturing"
+                 if graphs else "none (mesh)")
+              + "; peak device memory "
               + (f"{peak_gib:.2f} GiB" if on_card else "not measured (CPU)"),
               flush=True)
     return {"steps": args.steps, "records": records,
@@ -197,6 +224,7 @@ def _train(args, dev: torch.device, mesh, model: Optional[Model]):
             "flash_launches": flash_launches,
             "rglru_launches": rglru_launches,
             "slstm_launches": slstm_launches, "peak_gib": peak_gib,
+            "capture_steps": capture_steps, "graphs": graphs,
             "wall_s": wall_s, "n_params": n_params,
             "final_loss": float(metrics["loss"])}
 

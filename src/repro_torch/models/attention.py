@@ -54,13 +54,14 @@ def _sdpa(q, k, v, mask, scale, scores_reduce=None) -> torch.Tensor:
     b, tq, hq, d = q.shape
     hkv = k.shape[2]
     group = hq // hkv
-    qg = (q * torch.tensor(scale, dtype=q.dtype)).reshape(b, tq, hkv, group, d)
+    qg = (q * torch.full((), scale, dtype=q.dtype, device=q.device)) \
+        .reshape(b, tq, hkv, group, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
     if scores_reduce is not None:
         logits = scores_reduce(logits)
     logits = torch.where(mask[:, None, None], logits,
-                         torch.tensor(-1e30, dtype=logits.dtype,
-                                      device=logits.device))
+                         torch.full((), -1e30, dtype=logits.dtype,
+                                    device=logits.device))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
                        v.float())
@@ -83,8 +84,8 @@ def _sdpa_quantized_core(qs, k, v, mask, n_bits: int) -> torch.Tensor:
     logits = quantized_batched_matmul(qg, kt, n_bits) \
         .reshape(b, hkv, g, tq, tk)
     logits = torch.where(mask[:, None, None], logits,
-                         torch.tensor(-1e30, dtype=logits.dtype,
-                                      device=logits.device))
+                         torch.full((), -1e30, dtype=logits.dtype,
+                                    device=logits.device))
     probs = torch.softmax(logits, dim=-1)
     vt = v.float().permute(0, 2, 1, 3)                        # [B,Hkv,Tk,Dv]
     out = quantized_batched_matmul(probs.reshape(b, hkv, g * tq, tk), vt,
@@ -96,7 +97,8 @@ def _sdpa_quantized_core(qs, k, v, mask, n_bits: int) -> torch.Tensor:
 def _sdpa_quantized(q, k, v, mask, scale, n_bits: int = 8) -> torch.Tensor:
     """Plain quantized twin of `_sdpa`: the function `sdpa_cim` must match
     bit for bit."""
-    qs = q.float() * torch.tensor(scale, dtype=torch.float32)
+    qs = q.float() * torch.full((), scale, dtype=torch.float32,
+                                device=q.device)
     return _sdpa_quantized_core(qs, k, v, mask, n_bits).to(q.dtype)
 
 
@@ -128,7 +130,8 @@ def sdpa_cim(q, k, v, mask, scale, n_bits: int = 8,
     the SAME k/v tensors across calls to skip their entry packs (decode
     with a functionally-updated cache gets fresh tensors each step, so the
     serve path streams KV instead)."""
-    qs = q.float() * torch.tensor(scale, dtype=torch.float32)
+    qs = q.float() * torch.full((), scale, dtype=torch.float32,
+                                device=q.device)
     lf = _lowered_sdpa(n_bits, backend, spec, resident)
     return lf(qs, k, v, mask).to(q.dtype)
 
@@ -218,7 +221,9 @@ def _attend_split(q, k, v, scale, window, scores_reduce, block: int = 512):
         q1 = min(q0 + block, t)
         k0 = max(0, q0 - window + 1) if window else 0
         args = (q[:, q0:q1], k[:, k0:q1], v[:, k0:q1])
-        outs.append(checkpoint(part, *args, use_reentrant=False)
+        # no random draws: no RNG state to save (see Model._train_stack)
+        outs.append(checkpoint(part, *args, use_reentrant=False,
+                               preserve_rng_state=False)
                     if torch.is_grad_enabled() else part(*args))
     return torch.cat(outs, dim=1)
 
@@ -430,8 +435,8 @@ def _mla_attend(p, cfg: ArchConfig, q_nope, q_rope, c_kv, k_rope, mask):
     s_rope = torch.einsum("bthk,bsk->bhts", q_rope.float(), k_rope.float())
     logits = (s_nope + s_rope) * _mla_scale(cfg)
     logits = torch.where(mask[:, None], logits,
-                         torch.tensor(-1e30, dtype=logits.dtype,
-                                      device=logits.device))
+                         torch.full((), -1e30, dtype=logits.dtype,
+                                    device=logits.device))
     probs = torch.softmax(logits, dim=-1)
     o_lat = torch.einsum("bhts,bsr->bthr", probs, c_kv.float())
     return torch.einsum("bthr,rhv->bthv", o_lat, p["w_uv"].float())
@@ -667,8 +672,8 @@ def _mla_latent_tp(p, cfg: ArchConfig, q_lat, q_rope, c_kv, k_rope, mask,
         torch.einsum("bthk,bsk->bhts", q_rope.float(), k_rope.float())
     logits = shard_rules.tp_sum(s, mesh) * _mla_scale(cfg)
     logits = torch.where(mask[:, None], logits,
-                         torch.tensor(-1e30, dtype=logits.dtype,
-                                      device=logits.device))
+                         torch.full((), -1e30, dtype=logits.dtype,
+                                    device=logits.device))
     return torch.softmax(logits, dim=-1)
 
 

@@ -76,7 +76,7 @@ def _fwd(q, k, v, causal, scale, window, block_k):
     (b, tq, hq, _, tk, hkv, dv, g, _, dt, bk, nk), qg, ks, vs = \
         _setup(q, k, v, scale, block_k)
     dev = q.device
-    neg = torch.tensor(NEG, dtype=dt, device=dev)
+    neg = torch.full((), NEG, dtype=dt, device=dev)
     m_run = torch.full((b, hkv, g, tq), NEG, dtype=dt, device=dev)
     l_run = torch.zeros((b, hkv, g, tq), dtype=dt, device=dev)
     acc = torch.zeros((b, hkv, g, tq, dv), dtype=dt, device=dev)
@@ -105,7 +105,7 @@ def _bwd(causal, scale, window, block_k, res, do):
     (b, tq, hq, d, tk, hkv, dv, g, scale_v, dt, bk, nk), qg, ks, vs = \
         _setup(q, k, v, scale, block_k)
     dev = q.device
-    neg = torch.tensor(NEG, dtype=dt, device=dev)
+    neg = torch.full((), NEG, dtype=dt, device=dev)
     dog = do.to(dt).reshape(b, tq, hkv, g, dv)
     og = o.to(dt).reshape(b, tq, hkv, g, dv)
     delta = torch.einsum("bqhgd,bqhgd->bhgq", dog, og)       # [B,Hkv,G,Tq]
@@ -190,7 +190,7 @@ def blockwise_attention_quantized(q, k, v, causal=True, scale=None, window=0,
 
     qm = (q.float() * scale_v).reshape(b, tq, hkv, g, d) \
         .permute(0, 2, 3, 1, 4).reshape(b, hkv, g * tq, d)
-    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG, dtype=torch.float32, device=dev)
     m_run = torch.full((b, hkv, g, tq), NEG, dtype=torch.float32, device=dev)
     l_run = torch.zeros((b, hkv, g, tq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, g, tq, dv), dtype=torch.float32, device=dev)

@@ -373,7 +373,8 @@ def chunked_lm_loss(x: torch.Tensor, w_head: torch.Tensor,
     for i in range(s // c):
         total = total + checkpoint(body, x[:, i * c:(i + 1) * c],
                                    targets[:, i * c:(i + 1) * c],
-                                   use_reentrant=False)
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
     return total / (b * s)
 
 

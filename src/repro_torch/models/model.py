@@ -723,8 +723,12 @@ class Model(nn.Module):
                 # reference's period body
                 x = hint_activation_sharding(x)
                 if cfg.remat:
+                    # the forward draws no random numbers, so the CUDA RNG
+                    # state is not saved: a train step captured as a CUDA
+                    # graph never reads the generator
                     x, aux = checkpoint(self._train_layer, i, x, positions,
-                                        use_reentrant=False)
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
                 else:
                     x, aux = self._train_layer(i, x, positions)
                 aux_total = aux_total + aux

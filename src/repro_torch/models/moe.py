@@ -62,6 +62,14 @@ def top_k_desc(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _one_hot(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """`F.one_hot(idx, e)` as a comparison: the same int64 one-hots without
+    the host read of `idx`'s range that `one_hot` makes on the CPU (a CUDA
+    graph capture refuses it)."""
+    return (idx[..., None] == torch.arange(e, device=idx.device)) \
+        .to(torch.int64)
+
+
 def _top_k_gating(logits: torch.Tensor, k: int,
                   renorm: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits [N, E] -> (weights [N, k], indices [N, k])."""
@@ -180,7 +188,7 @@ def moe_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
     xf = x.reshape(n, d)
     logits = torch.matmul(xf.float(), p["router"].float())
     weights, idx = _top_k_gating(logits, k, m.router_renorm)
-    onehot = F.one_hot(idx, e).to(torch.int32)
+    onehot = _one_hot(idx, e).to(torch.int32)
     pos, keep = route(onehot, cap)
     tokens = None if rows is None else slice(rows.start * t, rows.stop * t)
     y = dispatch_combine(xf, weights, idx, pos, keep, e, cap,
@@ -193,6 +201,6 @@ def moe_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
                         shared_mesh)
 
     me = torch.softmax(logits, dim=-1).mean(0)
-    ce = F.one_hot(idx[:, 0], e).float().mean(0)
+    ce = _one_hot(idx[:, 0], e).float().mean(0)
     aux = e * torch.sum(me * ce)
     return y.reshape(-1, t, d), aux

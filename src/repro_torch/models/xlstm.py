@@ -79,7 +79,8 @@ def mlstm_init(gen: torch.Generator, cfg: ArchConfig, dtype,
 
 def _inv_sqrt(dh: int, device) -> torch.Tensor:
     """1 / sqrt(dh) rounded as the reference's float32 `1.0 / jnp.sqrt(dh)`."""
-    return 1.0 / torch.sqrt(torch.tensor(float(dh), device=device))
+    return 1.0 / torch.sqrt(torch.full((), float(dh), dtype=torch.float32,
+                                        device=device))
 
 
 def _mlstm_cell(q, k, v, i_pre, f_pre, state: Optional[State]):
@@ -135,11 +136,16 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state: State, chunk: int = 256):
     is_, fs = gate_chunks(i_pre), gate_chunks(f_pre)
     causal = torch.tril(torch.ones((L, L), dtype=torch.float32,
                                    device=q.device))
+    below = causal > 0
 
     def chunk_body(c, n, m_in, qc, kc, vc, ic, fc):
         big_f = torch.cumsum(fc, dim=-1)                       # [B, H, L]
         big_d = ic - big_f
-        big_m = torch.cummax(big_d, dim=2).values
+        # cummax(D) as each row's max over s <= t: the same values, and a
+        # backward that reduces where cummax's scatter-adds with atomics on
+        # CUDA (run to run, two train steps would differ in the last bits)
+        big_m = torch.where(below, big_d[:, :, None, :],
+                            float("-inf")).amax(-1)
         g = torch.maximum(m_in[..., None], big_m)              # [B, H, L]
         alpha = torch.exp(m_in[..., None] - g)                 # inter coeff.
 
@@ -168,7 +174,8 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state: State, chunk: int = 256):
     for ci in range(nc):
         xs = (qs[ci], ks[ci], vs[ci], is_[ci], fs[ci])
         h_out, c, n, m_in = (checkpoint(chunk_body, c, n, m_in, *xs,
-                                        use_reentrant=False)
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
                              if train else chunk_body(c, n, m_in, *xs))
         outs.append(h_out)
     hs = torch.stack(outs, 0).movedim(0, 2).reshape(b, h, t, dh)

@@ -51,6 +51,11 @@ def _full(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+def _fill(value: float, device) -> torch.Tensor:
+    """A float32 scalar on `device`, rounded as `torch.tensor(value)`."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
@@ -76,8 +81,10 @@ def update(grads: Params, state: Dict[str, Any], params: Params,
     clip = _clip_scale(gnorm, cfg.grad_clip)
     count = state["count"] + 1
     cf = count.float()
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=cf.device), cf)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=cf.device), cf)
+    # device fills, not tensors from host data: a CUDA graph captures them
+    b1c = 1.0 - torch.pow(_fill(cfg.b1, cf.device), cf)
+    b2c = 1.0 - torch.pow(_fill(cfg.b2, cf.device), cf)
+    lr_at: Dict[torch.device, torch.Tensor] = {}
     for g, m, v, p in zip(leaves(grads), leaves(state["m"]),
                           leaves(state["v"]), leaves(params)):
         dev = p.device
@@ -86,8 +93,10 @@ def update(grads: Params, state: Dict[str, Any], params: Params,
         vf = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
         step = (mf / b1c.to(dev)) / (torch.sqrt(vf / b2c.to(dev)) + cfg.eps)
         pf = p.float()
-        lr_t = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-        p.copy_(pf - lr_t * (step + cfg.weight_decay * pf))
+        if dev not in lr_at:
+            lr_at[dev] = lr.to(dev, torch.float32) if torch.is_tensor(lr) \
+                else _fill(lr, dev)
+        p.copy_(pf - lr_at[dev] * (step + cfg.weight_decay * pf))
         m.copy_(mf)
         v.copy_(vf)
     state = {"m": state["m"], "v": state["v"], "count": count}

@@ -9,8 +9,10 @@ Port of `repro.runtime.supervisor`:
     (one host here; the detector takes any number)
 
 A restore writes the checkpoint into the live state's tensors
-(`CheckpointManager.restore`); re-placing a checkpoint on another mesh is
-`runtime/elastic.py`'s `restore_on_mesh`.
+(`CheckpointManager.restore`), so a step program that took the state as a
+donated leaf (`launch/train.py`: one CUDA graph a step on one card) goes
+on replaying on the same tensors; re-placing a checkpoint on another mesh
+is `runtime/elastic.py`'s `restore_on_mesh`.
 """
 from __future__ import annotations
 

@@ -112,7 +112,9 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
         del grads
         new_state["step"] = state["step"] + 1
         metrics = {**sums, "grad_norm": shard_rules.to_plain(om["grad_norm"]),
-                   "lr": torch.as_tensor(lr, dtype=torch.float32)}
+                   "lr": (lr.to(torch.float32) if torch.is_tensor(lr)
+                          else torch.full((), lr, dtype=torch.float32,
+                                          device=model.device))}
         return new_state, metrics
 
     return train_step

@@ -11,6 +11,9 @@ The autotuner measures on the card, and the tiled access, `cim.multiply`
 and `lower()` over a one-rank NCCL mesh equal their unsharded calls (the
 CPU tests hold the mesh path to the reference over 1, 2 and 4 gloo ranks).
 
+The float paths' step programs (the donated decode, the donated train
+step, the float serve) replay as CUDA graphs equal to their eager runs.
+
 Every case is marked `cuda` and skips without a card. `tests/conftest.py`
 imports the reference, so on the card the file runs without it:
 
@@ -549,3 +552,125 @@ def test_a_body_that_cannot_be_captured_raises():
         macro.run_schedule_program(sched, _item_body, (pa, pb),
                                    body_key=("i",))
     dispatch.clear_schedule_cache()
+
+
+# ---------------------------------------------------------------------------
+# the float paths' step programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def _reduced_model(arch: str, seed: int = 0):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    return Model(get_config(arch).reduced(), device="cuda", seed=seed)
+
+
+def _launch_counts():
+    from repro_torch.cim import dispatch
+
+    return dispatch._counters()
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "recurrentgemma-9b",
+                                  "xlstm-125m", "deepseek-v2-lite-16b"])
+def test_donated_decode_graph_equals_eager(arch):
+    """Prefill 9 positions, then 4 decode steps through the donated decode
+    program (eager, captured, replayed twice; xlstm-125m's sLSTM decode is
+    the cooperative grid's launch, captured): logits and caches equal to
+    the eager `decode_step`'s to the bit, the caller's cache tensors
+    updated in place, every kernel counter moved as eager's."""
+    from repro_torch import tree
+    from repro_torch.cim import dispatch
+    from repro_torch.train import make_decode_step
+
+    model = _reduced_model(arch)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, model.cfg.vocab_size, (2, 13))).cuda()
+    caches, _ = model.prefill({"tokens": toks[:, :9]}, max_len=13)
+    eager = [{k: v.clone() for k, v in c.items()} for c in caches]
+    held = tree.leaves(caches)
+    prog = dispatch.Program(make_decode_step(model), donate=(0,))
+    dispatch.clear_schedule_cache()
+    for t in range(9, 13):
+        inp = {"tokens": toks[:, t:t + 1],
+               "positions": torch.full((2,), t, dtype=torch.int32,
+                                       device="cuda")}
+        c0 = _launch_counts()
+        _, logits = prog(caches, inp)
+        c1 = _launch_counts()
+        eager, want = model.decode_step(eager, inp)
+        c2 = _launch_counts()
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want), (arch, t)
+        assert all(a is b for a, b in zip(tree.leaves(caches), held))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree.leaves(caches), tree.leaves(eager))), (arch, t)
+        assert tuple(b - a for a, b in zip(c0, c1)) == \
+            tuple(b - a for a, b in zip(c1, c2)), (arch, t)
+    assert (prog.stats["eager"], prog.stats["captured"],
+            prog.stats["replays"]) == (1, 1, 3)
+    dispatch.clear_schedule_cache()
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "recurrentgemma-9b",
+                                  "xlstm-125m"])
+def test_train_step_graph_equals_eager(arch):
+    """3 train steps of 2 x 64 through the donated step program (eager,
+    captured, replayed) and 3 eager steps from the same weights under a
+    cosine schedule that moves the learning rate: losses, grad norms and
+    learning rates equal to the bit, every kernel counter as eager's."""
+    from repro_torch.cim import dispatch
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.train import init_state, make_train_step
+
+    opt = AdamWConfig(lr=1e-3)
+    runs = []
+    for graphed in (True, False):
+        model = _reduced_model(arch, seed=1)
+        state = init_state(model, opt)
+        step = make_train_step(model, opt,
+                               lr_schedule=cosine_schedule(1e-3, 5, 10))
+        prog = dispatch.Program(step, donate=(0,))
+        rng = np.random.default_rng(9)
+        out = []
+        dispatch.clear_schedule_cache()
+        for s in range(3):
+            batch = {k: torch.from_numpy(rng.integers(
+                0, model.cfg.vocab_size, (2, 64))).cuda()
+                for k in ("tokens", "targets")}
+            c0 = _launch_counts()
+            if graphed:
+                _, m = prog(state, batch)
+            else:
+                with dispatch.eager_programs():
+                    _, m = prog(state, batch)
+            torch.cuda.synchronize()
+            out.append(([float(m[k]) for k in ("loss", "grad_norm", "lr")],
+                        tuple(b - a for a, b in zip(c0, _launch_counts()))))
+        assert prog.stats["captured"] == (1 if graphed else 0)
+        runs.append(out)
+        dispatch.clear_schedule_cache()
+    assert runs[0] == runs[1], runs
+
+
+def test_float_serve_graphs_equal_eager():
+    """The reduced hybrid's float serve (3 requests on 2 slots): prefill,
+    decode and insert replayed from CUDA graphs give the tokens the same
+    run under `eager_programs` gives."""
+    from repro_torch.cim import dispatch
+    from repro_torch.launch import serve
+
+    model = _reduced_model("recurrentgemma-9b", seed=2)
+    reqs = [serve.ServeRequest(rid=i, prompt_len=6, gen=5)
+            for i in range(3)]
+    rep = serve.ServeEngine(model, slots=2, max_len=11).run(reqs)
+    with dispatch.eager_programs():
+        eager = serve.ServeEngine(model, slots=2, max_len=11).run(
+            [serve.ServeRequest(rid=i, prompt_len=6, gen=5)
+             for i in range(3)])
+    assert [r["token_ids"] for r in rep["per_request"]] == \
+        [r["token_ids"] for r in eager["per_request"]]
+    for name in ("prefill", "decode", "insert"):
+        assert rep["step_graphs"][name]["replays"] > 0, name
+    assert rep["capture_steps"] and eager["capture_steps"] == []

@@ -16,11 +16,15 @@ tensor built from host data, no output whose shape depends on the data.
     (streamed, resident, `--sampler adra`) captures under it and replays
     to the bit of the eager body;
 (b) the program's bookkeeping: launch, byte and codec counters replay on
-    every call, successive results do not alias, new leaf values give new
-    results, eviction drops the graph, a mesh program stays eager, the
-    tiled program keeps one graph per tile count, a body that cannot be
-    captured raises, and dispatch/hit/miss counts and ledgers move as the
-    reference's do (`tests/test_cim_program.py:48-93`, same inputs);
+    every call, and so do the float kernels' launch counters (flash,
+    RG-LRU, sLSTM); eager first calls are counted, so a timed window can
+    tell them from steady calls; a program inside another's capture runs
+    eagerly; dict leaves round-trip; successive results do not alias, new
+    leaf values give new results, eviction drops the graph, a mesh program
+    stays eager, the tiled program keeps one graph per tile count, a body
+    that cannot be captured raises, and dispatch/hit/miss counts and
+    ledgers move as the reference's do (`tests/test_cim_program.py:48-93`,
+    same inputs);
 plus the port's public surface: every public name of the reference's
 package `__init__`s resolves in the port's, with the listed departures.
 """
@@ -90,7 +94,11 @@ class StandInGraph:
     def replay(self):
         before = tdisp._counters()
         fresh = []
-        tdisp._flatten(self.fn(*self.args), fresh)
+        tdisp._CAPTURING = True          # programs inside: part of the graph
+        try:
+            tdisp._flatten(self.fn(*self.args), fresh)
+        finally:
+            tdisp._CAPTURING = False
         after = tdisp._counters()
         tdisp._add_counters(tuple(b - a for a, b in zip(after, before)))
         for o, f in zip(self.outputs, fresh):
@@ -105,8 +113,12 @@ def stand_in(monkeypatch):
 
     def record(fn, args, device):
         assert device == torch.device("cpu")
-        with tdisp.CaptureGuard():
-            out = fn(*args)
+        tdisp._CAPTURING = True
+        try:
+            with tdisp.CaptureGuard():
+                out = fn(*args)
+        finally:
+            tdisp._CAPTURING = False
         graphs.append(StandInGraph(fn, args, out))
         return graphs[-1], out
 
@@ -188,6 +200,24 @@ def test_guard_lets_integer_indexing_and_fills_through():
     assert picked.tolist() == [3, 1] and shifted.tolist() == [0, 4, 8, 12]
     assert torch.equal(filled, torch.as_tensor(0.83, dtype=torch.float32))
     assert where.dtype == torch.float32
+
+
+def test_guard_with_a_device_refuses_host_data_but_not_placeholders():
+    """Capturing for a device, the guard refuses a host tensor read by an
+    op and one made there with data, and lets an empty host placeholder
+    and a view of a host tensor through (`torch.utils.checkpoint` makes
+    and detaches such placeholders each call)."""
+    meta = torch.device("meta")
+    host = torch.ones(3)
+    x = torch.empty(3, device=meta)
+    with tdisp.CaptureGuard(meta):
+        torch.empty((0,), device="cpu", requires_grad=True).detach()
+        host.view(3, 1)
+        x + x
+        with pytest.raises(CimOpError, match="makes a tensor on cpu"):
+            torch.zeros(2, device="cpu")
+        with pytest.raises(CimOpError, match="reads a tensor on cpu"):
+            torch.add(x, host)
 
 
 def _macro_cases():
@@ -320,13 +350,123 @@ def test_counters_replay_on_every_call(stand_in, counting):
         c0 = _counts()
         tmacro.matmul(a, b, backend=counting)
         deltas.append(_delta(c0, _counts()))
-    launches, nbytes, packs, unpacks, disp, acc = deltas[0]
+    launches, nbytes, packs, unpacks = deltas[0][:4]
+    disp, acc = deltas[0][-2:]
     assert launches == acc == plan.accesses and nbytes > 0 and packs == 2
     assert disp == 1 and unpacks == 1
+    # the float kernels' launch counters (flash, RG-LRU, sLSTM) stay put
+    assert deltas[0][4:-2] == (0,) * 6
     assert deltas == [deltas[0]] * 4
-    assert tdisp.graph_stats() == {"captured": 1, "replays": 3,
+    assert tdisp.graph_stats() == {"captured": 1, "replays": 3, "eager": 1,
                                    "capture_s": pytest.approx(
                                        tdisp.graph_stats()["capture_s"])}
+
+
+def _bump_float_kernels(x):
+    """A body that counts one launch on each float kernel's wrapper, as
+    the wrappers count where they launch."""
+    for w in tdisp._wrappers():
+        w.launches += 1
+    return x + 1
+
+
+def test_float_kernel_launch_counters_replay(stand_in):
+    """The flash (wgmma/TMA, SIMT), RG-LRU (TMA tiles, rows) and sLSTM
+    (persistent grid, rows) wrappers count in Python, which a replay does
+    not run: the capture's counts are added back at each replay, so every
+    call, eager, captured or replayed, moves each counter by one."""
+    from repro_torch.kernels import flash_attention, rglru, slstm
+
+    prog = tdisp.Program(_bump_float_kernels)
+    x = torch.arange(4)
+    names = [w.__name__ for w in tdisp._wrappers()]
+    assert names == ["flash_attention_sm90", "flash_attention_simt",
+                     "rglru_sm90", "rglru_rows", "slstm_sm90", "slstm_rows"]
+    sums = (flash_attention.launches, rglru.launches, slstm.launches)
+    for _ in range(4):
+        c0, s0 = tdisp._counters(), [f() for f in sums]
+        assert torch.equal(prog(x), x + 1)
+        assert _delta(c0, tdisp._counters())[4:] == (1,) * 6
+        assert [f() - n for f, n in zip(sums, s0)] == [2, 2, 2]
+    assert (prog.stats["eager"], prog.stats["captured"],
+            prog.stats["replays"]) == (1, 1, 3)
+
+
+def test_eager_first_calls_are_counted(stand_in):
+    """`graph_stats()["eager"]` counts the eager first call of every
+    signature on a graph device, a schedule program's recording call
+    included; `compiled` reads a call that ran one or captured as not
+    steady, and a replay as steady."""
+    _, _, pa, pb = _packs()
+    g = [tdisp.graph_stats()]
+    for _ in range(3):
+        tmacro.multiply(pa, pb)
+        g.append(tdisp.graph_stats())
+    assert [s["eager"] for s in g] == [0, 1, 1, 1]
+    assert [s["captured"] for s in g] == [0, 0, 1, 1]
+    assert [tdisp.compiled(a, b) for a, b in zip(g, g[1:])] == \
+        [True, True, False]
+    with tdisp.eager_programs():           # no graph device: not counted
+        tmacro.relu(pa)
+    assert tdisp.graph_stats()["eager"] == 1
+    tdisp.clear_schedule_cache()
+    assert tdisp.graph_stats() == {"captured": 0, "replays": 0,
+                                   "capture_s": 0.0, "eager": 0}
+
+
+def test_a_program_inside_a_capture_runs_its_eager_body(stand_in):
+    """A program called by another program's body while that body is
+    captured runs its eager body (it is part of the outer graph): no
+    graph of its own, no eager first call counted."""
+    inner = tdisp.Program(lambda x: x * 3)
+    outer = tdisp.Program(lambda x: inner(x) + 1)
+    x = torch.arange(5)
+    for _ in range(3):
+        assert torch.equal(outer(x), x * 3 + 1)
+    assert (outer.stats["eager"], outer.stats["captured"]) == (1, 1)
+    # the outer eager call was inner's first call; the capture ran it
+    # eagerly inside, and replays never reach it
+    assert (inner.stats["eager"], inner.stats["captured"],
+            inner.stats["replays"]) == (1, 0, 0)
+
+
+def test_a_pool_whose_graphs_are_gone_is_replaced(monkeypatch):
+    """Graphs of a device share one pool while any of them lives; once the
+    last is freed the caching allocator releases the pool, and the next
+    capture takes a new one (capturing into a released pool fails)."""
+    import gc
+
+    handles = iter(range(100))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: ("pool", next(handles)))
+
+    class Graph:
+        pass
+    dev = torch.device("cuda", 0)
+    first, live = tdisp._pool(dev)
+    g1, g2 = Graph(), Graph()
+    live.add(g1)
+    live.add(g2)
+    assert tdisp._pool(dev)[0] == first
+    del g1
+    gc.collect()
+    assert tdisp._pool(dev)[0] == first
+    del g2
+    gc.collect()
+    assert tdisp._pool(dev)[0] != first
+
+
+def test_dict_leaves_round_trip():
+    """Leaves and results may be dicts (caches, train state, metrics):
+    flattened in insertion order and rebuilt with the same keys."""
+    tree_ = {"a": torch.zeros(2), "b": [{"c": torch.ones(3)}, 4],
+             "d": (torch.arange(2), "e")}
+    flat = []
+    template = tdisp._flatten(tree_, flat)
+    assert len(flat) == 3
+    back = tdisp._unflatten(template, iter(flat))
+    assert back.keys() == tree_.keys() and back["b"][1] == 4
+    assert back["b"][0]["c"] is flat[1] and back["d"][1] == "e"
 
 
 def test_successive_results_do_not_alias(stand_in):
