@@ -201,12 +201,19 @@ Phases, each fatal on failure (nothing is caught):
                the winners file round-trips); (b) a one-rank NCCL group
                and a (1,) "data" mesh: `execute_sharded` of the largest
                access and the MLP through `lower(mesh=)` on the paper's
-               array equal to the unsharded calls (planes, outputs,
-               ledgers; 81 launches); (c) a (1, 1) mesh: llama3.2-1b
-               trained through the train entry point on DTensor state (2
-               steps of 2 x 2048, losses equal to phase 9's to 1e-6, 32
-               flash launches a step on the wgmma/TMA kernel, peak
-               memory), and `moe_apply_ep` of one full-width
+               array, 3 calls each (each mesh program's eager first call,
+               its capture as a CUDA graph with its all-gathers, a
+               replay), every call equal to the unsharded call (planes,
+               outputs, ledgers; 1 and 81 launches), each program captured
+               once and replayed, the calls timed; (c) a (1, 1) mesh:
+               llama3.2-1b trained through the train entry point on
+               DTensor state (4 steps of 2 x 2048: the step program eager,
+               captured with its collectives at the second step and
+               replayed; losses equal to phase 9's to 1e-6, and losses,
+               grad norms, lrs and launches to the bit to the same steps
+               under `eager_programs()`; 32 flash launches a step on the
+               wgmma/TMA kernel, peak memory), and `moe_apply_ep` of one
+               full-width
                deepseek-v2-lite-16b layer (4096 tokens) equal to
                `moe_apply`'s routed output; (d) one dry-run cell
                (llama3.2-1b x decode_32k on a 256-rank fake group), its
@@ -226,7 +233,11 @@ carry the metrics and one JSON `kernels` line; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result. `--tp-cards` runs instead the sharded train step across 2
 and 4 cards (`phase_tp_cards`: one process a card, NCCL; the
-tensor-parallel step's losses held to one card's); two processes on one
+tensor-parallel step's losses held to one card's, each rank's step
+program captured with its collectives and replayed, equal to the bit to
+its eager run; `--tp-cards --src DIR` times another port's steps), and
+`--mesh-cells [--src DIR]` only the mesh programs' timings on one card
+(`phase_mesh_cells`); two processes on one
 card cannot run it, as gloo's functional all-gather of CUDA tensors
 (`torch.ops._c10d_functional.all_gather_into_tensor`, which DTensor and
 `sharding.rules.tp_gather` use) crashes the process in torch 2.11.
@@ -3332,6 +3343,12 @@ MESH_RANK_RGLRU = ((1, 2040, 4096), (16, 2))
 #: heads and the kv heads they share (`attention.gqa_heads_tp`)
 MESH_RANK_FLASH = [("gemma-2b", FLASH_TRAIN_SHAPE, (2,)),
                    ("llama3.2-1b", FLASH_LLAMA_TRAIN_SHAPE, (2, 16))]
+#: calls of each mesh program in phase (b): its eager first call, its
+#: capture, then replays
+MESH_CALLS = 3
+#: steps of llama3.2-1b on the (1, 1) mesh in phase (c): eager, capture,
+#: replays
+MESH_TRAIN_STEPS = 4
 #: MoE equality on one rank: the routed output of one full-width
 #: deepseek-v2-lite-16b layer, 4096 seeded tokens
 MESH_MOE_TOKENS = (2, 2048)
@@ -3368,7 +3385,6 @@ def phase_mesh(dev, llama_losses) -> dict:
     from repro_torch.cim.lower import lower
     from repro_torch.cim.planepack import PlanePack
     from repro_torch.configs import preset_config
-    from repro_torch.kernels import flash_attention as fm
     from repro_torch.launch import dryrun, train
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import layers, moe, moe_ep
@@ -3455,72 +3471,116 @@ def phase_mesh(dev, llama_losses) -> dict:
                                  generator=gen)
         pa = PlanePack(planes(), n_bits, True, (w * 32,))
         pb = PlanePack(planes(), n_bits, True, (w * 32,))
-        ledgers, outs, access_launches = [], [], []
-        for m in (None, mesh):
+
+        def timed(fn):
+            """(fn(), its fused launches, its ledger, its wall ms)."""
             LEDGER.reset()
             fused.launches = 0
-            o = (dispatch.execute_tiled(pa, pb, ("add",), spec=spec)
-                 if m is None else
-                 dispatch.execute_sharded(pa, pb, ("add",), m, spec=spec))
             torch.cuda.synchronize()
-            access_launches.append(fused.launches)
-            outs.append(o["add"].planes)
-            ledgers.append(dataclasses.asdict(LEDGER))
-        assert torch.equal(outs[0], outs[1])
-        assert ledgers[0] == ledgers[1], (ledgers[0], ledgers[1])
-        assert access_launches == [1, 1], access_launches
-        mlp_res = []
-        for m in (None, mesh):
-            LEDGER.reset()
-            dispatch.clear_schedule_cache()
-            fused.launches = 0
-            y = lower(mlp, spec=spec, policy="always", mesh=m)(p, x)
+            t0 = time.perf_counter()
+            r = fn()
             torch.cuda.synchronize()
-            mlp_res.append((y, dataclasses.asdict(LEDGER), fused.launches))
-        assert torch.equal(mlp_res[0][0], mlp_res[1][0])
-        assert mlp_res[0][1] == mlp_res[1][1]
-        assert mlp_res[0][2] == mlp_res[1][2] == 81, \
-            (mlp_res[0][2], mlp_res[1][2])
-        out["sharded"] = {"access_accesses": ledgers[1]["accesses"],
-                          "access_launches": access_launches[1],
-                          "mlp_accesses": mlp_res[1][1]["accesses"],
-                          "mlp_launches": mlp_res[1][2]}
-        out["launches_mesh"] = access_launches[1] + mlp_res[1][2]
+            return (r, fused.launches, dataclasses.asdict(LEDGER),
+                    (time.perf_counter() - t0) * 1e3)
+
+        def mesh_programs():
+            """The stats of every cached program over the mesh."""
+            return [dict(prog.stats) for k, prog in dispatch._PROGRAMS.items()
+                    if k[-1] is not None]
+
+        def check(label, want, calls, launches):
+            """Every call over the mesh equal to the unsharded call: output,
+            ledger, `launches` fused launches; every program over the mesh
+            captured once and replayed."""
+            for i, got in enumerate(calls):
+                assert torch.equal(got[0], want[0]), (label, i)
+                assert got[2] == want[2], (label, i, got[2], want[2])
+                assert got[1] == want[1] == launches, (label, i, got[1])
+            stats = mesh_programs()
+            assert stats and all(g["captured"] == 1 and g["replays"] >= 1
+                                 for g in stats), (label, stats)
+            return {"accesses": want[2]["accesses"], "launches": want[1],
+                    "ms": [c[3] for c in calls], "unsharded_ms": want[3],
+                    "programs": len(stats),
+                    "replays": sum(g["replays"] for g in stats),
+                    "capture_s": sum(g["capture_s"] for g in stats)}
+        # the unsharded call, then MESH_CALLS calls over the mesh: each
+        # program's eager first call, its capture, then replays
+        dispatch.clear_schedule_cache()
+        want = timed(lambda: dispatch.execute_tiled(pa, pb, ("add",),
+                                                    spec=spec)["add"].planes)
+        calls = [timed(lambda: dispatch.execute_sharded(
+            pa, pb, ("add",), mesh, spec=spec)["add"].planes)
+            for _ in range(MESH_CALLS)]
+        acc = check("access", want, calls, 1)
+        del want, calls
+        dispatch.clear_schedule_cache()
+        want = timed(lambda: lower(mlp, spec=spec, policy="always")(p, x))
+        lowered = lower(mlp, spec=spec, policy="always", mesh=mesh)
+        calls = [timed(lambda: lowered(p, x)) for _ in range(MESH_CALLS)]
+        low = check("mlp", want, calls, 81)
+        del want, calls, lowered
+        dispatch.clear_schedule_cache()
+        out["sharded"] = {"access": acc, "mlp": low}
+        out["launches_mesh"] = MESH_CALLS * (acc["launches"]
+                                             + low["launches"])
         out["times"]["sharded"] = time.perf_counter() - t
         print(f"mesh[sharded]: execute_sharded of {n_bits} planes x {w} "
-              f"columns on a (1,) data mesh: planes and ledger equal to the "
-              f"unsharded call ({ledgers[1]['accesses']} activations, "
-              f"{access_launches[1]} launch); "
-              f"gemma-2b MLP through lower(mesh=): output and ledger equal, "
-              f"{mlp_res[1][1]['accesses']} accesses, {mlp_res[1][2]} "
-              f"launches; {out['times']['sharded']:.1f} s")
+              f"columns on a (1,) data mesh, {MESH_CALLS} calls (eager, "
+              f"capture, replay): planes and ledger equal to the unsharded "
+              f"call ({acc['accesses']} activations, {acc['launches']} "
+              f"launch a call), {acc['programs']} program, "
+              f"{acc['replays']} replays, {acc['capture_s']:.3f} s "
+              f"capturing; ms {[round(v, 3) for v in acc['ms']]} against "
+              f"unsharded {acc['unsharded_ms']:.3f}; gemma-2b MLP through "
+              f"lower(mesh=): output and ledger equal, {low['accesses']} "
+              f"accesses, {low['launches']} launches a call, "
+              f"{low['programs']} programs, {low['replays']} replays, "
+              f"{low['capture_s']:.3f} s capturing; ms "
+              f"{[round(v, 3) for v in low['ms']]} against unsharded "
+              f"{low['unsharded_ms']:.3f}; {out['times']['sharded']:.1f} s")
 
-        # (c) llama3.2-1b on DTensor state over a (1, 1) mesh
+        # (c) llama3.2-1b on DTensor state over a (1, 1) mesh: the step
+        # program captured at step 2 with its collectives, then replayed
         t = time.perf_counter()
-        del pa, pb, outs, mlp_res
+        del pa, pb
         held = _free(dev)
         assert held < 2 ** 30, f"{held} bytes still allocated"
-        fm.flash_attention_sm90.launches = 0
-        fm.flash_attention_simt.launches = 0
-        fused.launches = 0
-        trep = train.main(with_steps(CONFIG_TRAIN, 2))
+        argv = with_steps(CONFIG_TRAIN, MESH_TRAIN_STEPS)
+        reset_launches()
+        trep = train.main(argv)
+        launches = read_launches()
         losses = [r["loss"] for r in trep["records"]]
-        llama_losses = llama_losses[:2]
-        assert trep["restarts"] == 0 and len(losses) == 2
+        llama_losses = llama_losses[:MESH_TRAIN_STEPS]
+        assert trep["restarts"] == 0 and len(losses) == MESH_TRAIN_STEPS
         assert max(abs(a - b) for a, b in zip(losses, llama_losses)) <= \
             1e-6, (losses, llama_losses)
-        assert fm.flash_attention_sm90.launches == fm.launches() == 64
-        assert fused.launches == 0
+        assert launches["flash_sm90"] == trep["flash_launches"] == \
+            32 * MESH_TRAIN_STEPS, launches
+        assert sum(launches.values()) == launches["flash_sm90"], launches
+        assert trep["capture_steps"] == [0, 1], trep["capture_steps"]
+        g = trep["graphs"]
+        # the capture's step replays its graph at once, then 2 more
+        assert (g["eager"], g["captured"], g["replays"]) == \
+            (1, 1, MESH_TRAIN_STEPS - 1), g
+        graphed = train_eager("mesh[train]", argv, lambda: None, trep,
+                              launches, dev)
         out["train"] = {"losses": losses, "unsharded": llama_losses,
                         "step_ms": [r["ms"] for r in trep["records"]],
                         "peak_gib": trep["peak_gib"],
-                        "flash_launches": fm.launches()}
+                        "flash_launches": launches["flash_sm90"],
+                        "graphed": graphed}
         out["times"]["train"] = time.perf_counter() - t
         print(f"mesh[train]: llama3.2-1b on a (1, 1) mesh, DTensor state: "
               f"losses {losses} (unsharded {llama_losses}); step ms "
-              f"{[round(r['ms'], 2) for r in trep['records']]}; "
-              f"{fm.launches()} flash launches (32 a step, wgmma/TMA); "
-              f"peak {trep['peak_gib']:.2f} GiB; "
+              f"{[round(r['ms'], 2) for r in trep['records']]} (eager "
+              f"programs {[round(v, 2) for v in graphed['eager_step_ms']]}); "
+              f"capture steps {trep['capture_steps']}, step graph "
+              f"{g['captured']} captured / {g['replays']} replays / "
+              f"{g['capture_s']:.3f} s; {launches['flash_sm90']} flash "
+              f"launches (32 a step, wgmma/TMA); peak "
+              f"{trep['peak_gib']:.2f} GiB (eager programs "
+              f"{graphed['eager_peak_gib']:.2f}); "
               f"{out['times']['train']:.1f} s")
         del trep
         _free(dev)
@@ -3647,26 +3707,38 @@ def rank_kernels(dev) -> dict:
 #: process a card, NCCL), held to the same step on one card: (arch, layers
 #: or None for all, the train entry point's arguments, compute dtype)
 TP_CARDS = (2, 4)
-TP_TRAIN = [("llama3.2-1b", None, with_steps(CONFIG_TRAIN[2:], 2),
+TP_STEPS = 4
+TP_TRAIN = [("llama3.2-1b", None, with_steps(CONFIG_TRAIN[2:], TP_STEPS),
              "float32"),
-            ("llama3.2-1b", None, with_steps(CONFIG_TRAIN[2:], 2),
+            ("llama3.2-1b", None, with_steps(CONFIG_TRAIN[2:], TP_STEPS),
              "bfloat16"),
-            ("recurrentgemma-9b", 3, with_steps(CONFIG_RECURRENT_ARGS, 2),
-             "bfloat16")]
-#: how far the float32 sharded losses may be from the one-card losses: the
-#: partial sums over "model" reorder float32 additions. In bfloat16 the
-#: reordered sums also flip bfloat16 roundings of the activations, so the
-#: bfloat16 steps' differences are reported, not bounded (1.4e-5-2.9e-5 at
-#: reduced width on CPU ranks, against 4.8e-7 in float32)
+            ("recurrentgemma-9b", 3,
+             with_steps(CONFIG_RECURRENT_ARGS, TP_STEPS), "bfloat16")]
+#: how far the float32 sharded losses of the first TP_HELD_STEPS steps may
+#: be from the one-card losses: the partial sums over "model" reorder
+#: float32 additions. AdamW carries the reordered roundings into the
+#: weights, so later steps drift further (2.575e-05 at step 4 on 2 and 4
+#: H100s, eager and graphed alike) and are reported, not bounded. In
+#: bfloat16 the reordered sums also flip bfloat16 roundings of the
+#: activations, so the bfloat16 steps' differences are reported, not
+#: bounded (1.4e-5-2.9e-5 at reduced width on CPU ranks, against 4.8e-7
+#: in float32)
 TP_LOSS_ATOL = 1e-5
+TP_HELD_STEPS = 2
 
 
 def _tp_train(arch: str, layers, argv, dtype: str, dev,
               preset: str) -> dict:
     """`train.main` of `arch` (cut to `layers`, computing in `dtype`) from
-    seed 0's weights, the launches and tensor-parallel regions it ran."""
+    seed 0's weights, the launches and tensor-parallel regions it ran. On
+    a card of this port the step program is captured at step 2 (with its
+    collectives on a mesh) and replayed, and the same steps are run again
+    under `dispatch.eager_programs()` from the same weights: losses, grad
+    norms, lrs and every kernel's launches equal to the bit. With `--src`
+    (another port) the run is timed as it is."""
     import torch.distributed as dist
 
+    from repro_torch.cim import dispatch
     from repro_torch.configs import preset_config
     from repro_torch.launch import train
     from repro_torch.models.model import build
@@ -3684,18 +3756,52 @@ def _tp_train(arch: str, layers, argv, dtype: str, dev,
     def counted(y, mesh):
         regions[0] += 1
         return exit_(y, mesh)
-    rules.tp_exit = counted
-    try:
-        rep = train.main(argv, model=build(cfg, device=dev, seed=0))
-    finally:
-        rules.tp_exit = exit_
+
+    def run():
+        reset_launches()
+        regions[0] = 0
+        rules.tp_exit = counted
+        try:
+            rep = train.main(argv, model=build(cfg, device=dev, seed=0))
+        finally:
+            rules.tp_exit = exit_
+        if dev.type == "cuda":
+            _free(dev)
+        return rep, read_launches(), regions[0]
+    rep, launches, n_regions = run()
     steps = len(rep["records"])
-    return {"losses": [r["loss"] for r in rep["records"]],
-            "step_ms": [r["ms"] for r in rep["records"]],
-            "peak_gib": rep["peak_gib"], "flash": rep["flash_launches"],
-            "rglru": rep["rglru_launches"],
-            "regions_per_step": regions[0] / steps,
-            "ranks": dist.get_world_size() if dist.is_initialized() else 1}
+    # a replay runs no Python: regions are counted on the steps that ran
+    # the body (the eager first call, the capture)
+    g = rep.get("graphs")
+    ran = steps - g["replays"] + g["captured"] if g else steps
+    out = {"losses": [r["loss"] for r in rep["records"]],
+           "step_ms": [r["ms"] for r in rep["records"]],
+           "peak_gib": rep["peak_gib"], "flash": rep["flash_launches"],
+           "rglru": rep["rglru_launches"],
+           "regions_per_step": n_regions / ran,
+           "graphs": rep.get("graphs"),
+           "capture_steps": rep.get("capture_steps"),
+           "ranks": dist.get_world_size() if dist.is_initialized() else 1}
+    if "--src" in sys.argv[1:] or dev.type != "cuda":
+        return out
+    # eager first step, the capture (its graph replayed at once), replays
+    assert (g["eager"], g["captured"], g["replays"]) == (1, 1, steps - 1), \
+        (arch, dtype, g)
+    assert rep["capture_steps"] == [0, 1], rep["capture_steps"]
+    with dispatch.eager_programs():
+        eager, eager_launches, eager_regions = run()
+    for k in ("loss", "grad_norm", "lr"):
+        got = [r[k] for r in rep["records"]]
+        want = [r[k] for r in eager["records"]]
+        assert got == want, (arch, dtype, k, got, want)
+    assert launches == eager_launches, (arch, dtype, launches,
+                                        eager_launches)
+    assert eager_regions / steps == out["regions_per_step"], \
+        (n_regions, eager_regions)
+    assert eager["graphs"]["captured"] == 0
+    out.update(eager_step_ms=[r["ms"] for r in eager["records"]],
+               eager_peak_gib=eager["peak_gib"])
+    return out
 
 
 def _tp_rank(rank: int, n: int, port: int, device_type: str, preset: str,
@@ -3705,13 +3811,16 @@ def _tp_rank(rank: int, n: int, port: int, device_type: str, preset: str,
 
     dev = torch.device(device_type, rank) if device_type == "cuda" else \
         torch.device("cpu")
+    kw = {}
     if device_type == "cuda":
         torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # the communicators made now, before any step's capture
+        kw["device_id"] = dev
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
                             init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=n)
+                            rank=rank, world_size=n, **kw)
     try:
         res = {f"{arch} {dtype}": _tp_train(arch, layers, argv, dtype, dev,
                                             preset)
@@ -3723,14 +3832,30 @@ def _tp_rank(rank: int, n: int, port: int, device_type: str, preset: str,
         dist.destroy_process_group()
 
 
+def _tp_line(label: str, r: dict) -> str:
+    """One run's step ms, graphs, eager step ms and peak."""
+    g = r["graphs"]
+    graphs = (f"step graph {g['captured']} captured / {g['replays']} "
+              f"replays / {g['capture_s']:.3f} s" if g else "no step graph")
+    eager = (f" (eager programs {[round(x, 2) for x in r['eager_step_ms']]},"
+             f" peak {r['eager_peak_gib']} GiB; losses, grad norms, lrs and "
+             f"launches equal to the bit)" if "eager_step_ms" in r else "")
+    return (f"{label}: {graphs}; capture steps {r['capture_steps']}; step ms "
+            f"{[round(x, 2) for x in r['step_ms']]}, peak {r['peak_gib']} "
+            f"GiB{eager}")
+
+
 def phase_tp_cards(device_type: str = "cuda", preset: str = "full",
                    cards=TP_CARDS) -> dict:
     """The sharded train step across cards (`--tp-cards`): TP_TRAIN on
     one device, then on (1, n) meshes of n processes, one card each
     (NCCL; gloo with `device_type="cpu"`, a CPU rehearsal at `preset`
-    "reduced"): the whole step tensor-parallel over "model", float32
-    losses within TP_LOSS_ATOL of the one-device losses and the bfloat16
-    losses' differences reported, the tensor-parallel regions a step, the
+    "reduced"): the whole step tensor-parallel over "model", each rank's
+    step program captured with its collectives at step 2 and replayed,
+    equal to the bit to the same steps under `eager_programs()`, float32
+    losses of the first TP_HELD_STEPS steps within TP_LOSS_ATOL of the
+    one-device losses and every other difference reported, the
+    tensor-parallel regions a step, the
     flash and RG-LRU launches of each rank, its step ms and its peak
     device memory."""
     import tempfile
@@ -3742,11 +3867,10 @@ def phase_tp_cards(device_type: str = "cuda", preset: str = "full",
         torch.device("cpu")
     one = {}
     for arch, layers, argv, dtype in TP_TRAIN:
-        one[f"{arch} {dtype}"] = _tp_train(arch, layers, argv, dtype, dev,
-                                           preset)
-        if device_type == "cuda":
-            _free(dev)
-    out = {"one": one}
+        one[f"{arch} {dtype}"] = r = _tp_train(arch, layers, argv, dtype,
+                                               dev, preset)
+        print(_tp_line(f"tp[1 card]: {arch} {dtype}", r), flush=True)
+    out = {"one": one, "src": SRC}
     work = tempfile.mkdtemp()
     diffs = {}
     for n in cards:
@@ -3756,20 +3880,95 @@ def phase_tp_cards(device_type: str = "cuda", preset: str = "full",
         with open(os.path.join(work, f"tp_{n}.json")) as f:
             res = json.load(f)
         for arch, r in res.items():
-            diff = max(abs(a - b) for a, b in
-                       zip(r["losses"], one[arch]["losses"]))
+            diffs_ = [abs(a - b) for a, b in
+                      zip(r["losses"], one[arch]["losses"])]
+            diff = max(diffs_[:TP_HELD_STEPS])
             r["max_loss_diff"] = diff
+            r["max_loss_diff_all"] = max(diffs_)
             print(f"tp[{n} cards]: {arch}: losses {r['losses']} (one card "
-                  f"{one[arch]['losses']}, max |diff| {diff:.3e}); "
+                  f"{one[arch]['losses']}, max |diff| {diff:.3e} over the "
+                  f"first {TP_HELD_STEPS} steps, {max(diffs_):.3e} over "
+                  f"all); "
                   f"{r['regions_per_step']:g} tensor-parallel regions a step;"
-                  f" rank 0: {r['flash']} flash, {r['rglru']} rglru launches,"
-                  f" step ms {[round(x, 2) for x in r['step_ms']]}, peak "
-                  f"{r['peak_gib']} GiB", flush=True)
+                  f" rank 0: {r['flash']} flash, {r['rglru']} rglru "
+                  f"launches", flush=True)
+            print(_tp_line(f"tp[{n} cards]: {arch} rank 0", r), flush=True)
             diffs[(n, arch)] = diff
         out[n] = res
         out[f"{n}_s"] = time.perf_counter() - t
     f32 = {k: d for k, d in diffs.items() if k[1].endswith("float32")}
     assert max(f32.values()) <= TP_LOSS_ATOL, diffs
+    return out
+
+
+def phase_mesh_cells(dev) -> dict:
+    """`--mesh-cells`: the timings of the mesh programs on one card, on
+    this port or another (`--src`), without the checks of phase 10: on a
+    one-rank NCCL group, MESH_CALLS calls of `execute_sharded` of the
+    largest access and of gemma-2b's decode MLP through `lower(mesh=)`
+    (wall ms each), then MESH_TRAIN_STEPS steps of llama3.2-1b on a (1, 1)
+    mesh (step ms, capture steps, graphs, peak)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.cim import array, dispatch
+    from repro_torch.cim.lower import lower
+    from repro_torch.cim.planepack import PlanePack
+    from repro_torch.configs import preset_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+
+    out = {"src": SRC}
+    cfg = preset_config("gemma-2b", "full")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    act = cfg.activation_dtype()
+    p = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gating, act, dev)
+    x = torch.randn((2, 1, cfg.d_model), generator=gen, device=dev).to(act)
+    n_bits, w = 29, (2 * 16384 * 2048) // 32
+    pa, pb = (PlanePack(torch.randint(
+        -2 ** 31, 2 ** 31, (n_bits, w), dtype=torch.int32, device=dev,
+        generator=gen), n_bits, True, (w * 32,)) for _ in range(2))
+
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_mesh((1,), ("data",), "cuda")
+        spec = array.DEFAULT_SPEC
+        dispatch.clear_schedule_cache()
+        out["access_ms"] = [ms(lambda: dispatch.execute_sharded(
+            pa, pb, ("add",), mesh, spec=spec)) for _ in range(MESH_CALLS)]
+        dispatch.clear_schedule_cache()
+        lowered = lower(lambda p_, x_: layers._mlp_quantized(
+            p_, x_, cfg.gating, 8), spec=spec, policy="always", mesh=mesh)
+        out["mlp_ms"] = [ms(lambda: lowered(p, x))
+                         for _ in range(MESH_CALLS)]
+        out["graph_stats"] = dispatch.graph_stats()
+        del lowered, pa, pb, p, x
+        dispatch.clear_schedule_cache()
+        _free(dev)
+        rep = train.main(with_steps(CONFIG_TRAIN, MESH_TRAIN_STEPS))
+        out["train"] = {"step_ms": [r["ms"] for r in rep["records"]],
+                        "losses": [r["loss"] for r in rep["records"]],
+                        "capture_steps": rep.get("capture_steps"),
+                        "graphs": rep.get("graphs"),
+                        "peak_gib": rep["peak_gib"]}
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh-cells[{SRC}]: execute_sharded ms "
+          f"{[round(v, 3) for v in out['access_ms']]}; lower(mesh=) MLP ms "
+          f"{[round(v, 3) for v in out['mlp_ms']]}; llama3.2-1b (1, 1) "
+          f"step ms {[round(v, 2) for v in out['train']['step_ms']]}, "
+          f"capture steps {out['train']['capture_steps']}, graphs "
+          f"{out['train']['graphs']}, peak {out['train']['peak_gib']:.2f} "
+          f"GiB", flush=True)
     return out
 
 
@@ -3994,7 +4193,19 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--mesh-cells" in sys.argv[1:]:
+        kernel_build.compile_all((fused_kernel.SOURCE, flash_mod.SOURCE,
+                                  flash_mod.SOURCE_SM90))
+        print(f"gpu: {smi_line()}")
+        cells = phase_mesh_cells(dev)
+        print("mesh-cells: " + json.dumps(cells))
+        print(f"gpu: {smi_line()}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--tp-cards" in sys.argv[1:]:
+        print(f"gpu: {smi_line()}")
         tp = phase_tp_cards()
         print("tp: " + json.dumps(tp))
         print(f"gpu: {smi_line()}")

@@ -44,12 +44,31 @@ own tensors of those leaves as the graph's static inputs and leaves its
 new values in them. Graphs of one device share one memory pool (replays
 are serialized on the current stream), and a program evicted from the LRU
 drops its graphs. Plain devices (`repro_torch.PLAIN_DEVICES`) run the
-eager body, as does a program over a mesh (`captures`), every program
-inside `eager_programs()` and a program called inside another's capture.
+eager body, as does every program inside `eager_programs()` and a program
+called inside another's capture.
 A capture runs under `CaptureGuard`, which refuses by name any op a graph
 cannot hold; there is no eager fallback. `graph_stats()` counts the eager
 first calls on a graph device, the captures and the replays, so a timed
 window can tell a steady call from one that compiled.
+
+A program over a mesh (the tiled access, a schedule program over a
+`DeviceMesh`, the sharded train step: the reference jits each) follows the
+same rule, one graph per rank and signature, with its NCCL collectives
+(functional all-gathers, all-reduces and reduce-scatters, DTensor's
+redistributes) captured into the graph; `captures` says which meshes a
+graph may hold. A mesh is keyed by identity (`mesh_key`): an equal mesh
+over new process groups (a re-initialised group, an elastic restore)
+gets programs and graphs of its own. A DTensor leaf's signature holds
+its mesh and placements too. Every rank captures at the same call,
+because every rank makes the same program calls in the same order with
+the same signatures: its program table, LRU order and `_seen` sets then
+move alike, so no rank captures a collective that another runs eagerly
+or replays. The communicators exist before any capture: the eager first
+call creates them, or `init_process_group(device_id=)` did. While a
+process group exists a capture runs in the thread-local capture mode, so
+that the NCCL watchdog's event queries of eager collectives in its own
+thread cannot invalidate it (ProcessGroupNCCL records no watchdog work
+for a captured collective).
 """
 from __future__ import annotations
 
@@ -267,11 +286,28 @@ def eager_programs():
         _EAGER = prev
 
 
-def captures(mesh) -> bool:
-    """Whether a program keyed on `mesh` may be captured: a program over a
-    mesh runs its eager body, since the port captures no collective yet
-    (the reference jits its shard_map bodies too)."""
-    return mesh is None
+def captures(mesh, device: torch.device) -> bool:
+    """Whether a program over `mesh` (None: no mesh) may be captured on
+    the graph device `device`: with no mesh, on a device that is not CUDA
+    (the CPU tests' stand-in graphs), or over a mesh whose groups are all
+    NCCL, whose collectives a CUDA graph holds. A program over a gloo mesh
+    whose leaves lie on CUDA is refused at its capture (`Program`), not
+    run eagerly."""
+    if mesh is None or device.type != "cuda" \
+            or not hasattr(mesh, "get_all_groups"):
+        return True
+    import torch.distributed as dist
+
+    return all("nccl" in str(dist.get_backend(g))
+               for g in mesh.get_all_groups())
+
+
+def mesh_key(mesh):
+    """A mesh as part of a program's key: by identity, since two equal
+    meshes may stand on different process groups (a graph replays the
+    communicator it captured). The key holds the mesh, so its id is not
+    reused while the key lives."""
+    return None if mesh is None else (mesh, id(mesh))
 
 
 _TENSOR = object()          # the slot of one tensor in a template
@@ -409,7 +445,18 @@ class CaptureGuard(TorchDispatchMode):
     indexing) or, with a `device`, reads a tensor on another device (a
     view reads nothing) or makes one there with data (an empty host
     placeholder passes). Every capture runs under it; the CPU tests run
-    warm bodies under it without a device, and on `meta` with one."""
+    warm bodies under it without a device, and on `meta` with one.
+
+    Over a mesh it sees ops at the DTensor level: a DTensor op itself (its
+    `.item()` is refused by name, as `aten._local_scalar_dense` of a
+    DTensor), and the functional collectives of an explicit
+    `redistribute` or `full_tensor` that a body calls (they run on local
+    tensors from Python). It does not see the local ops that DTensor's own
+    dispatch runs for an op (the mode is off inside its handler): an
+    implicit redistribute, such as the all-reduce that turns a `Partial`
+    sum `Replicate`, or a host read there, would reach CUDA's capture
+    unchecked and fail as CUDA's own capture error, not as a named
+    refusal (`tests/_torch_gloo_ranks.py::case_capture_guard`)."""
 
     def __init__(self, device: Optional[torch.device] = None):
         super().__init__()
@@ -424,6 +471,18 @@ class CaptureGuard(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
+def _distributed() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor, a plain tensor itself: a copy into a
+    static input of the same mesh and placements stays on this rank."""
+    return getattr(t, "_local_tensor", t)
+
+
 def _record(fn, args, device: torch.device):
     """Capture `fn(*args)` as one CUDA graph on `device`, in the device's
     shared pool (on `torch.cuda.graph`'s one capture stream, as sharing a
@@ -432,10 +491,13 @@ def _record(fn, args, device: torch.device):
     global _CAPTURING
     pool, live = _pool(device)
     graph = torch.cuda.CUDAGraph()
+    # beside a process group, capture in the thread-local mode: the NCCL
+    # watchdog thread queries eager collectives' events meanwhile
+    mode = "thread_local" if _distributed() else "global"
     _CAPTURING = True
     try:
         with torch.cuda.device(device), \
-                torch.cuda.graph(graph, pool=pool), \
+                torch.cuda.graph(graph, pool=pool, capture_error_mode=mode), \
                 CaptureGuard(device):
             out = fn(*args)
     finally:
@@ -460,8 +522,9 @@ class _Graph:
             if own:
                 self.inputs.append(t)
             else:
+                # a DTensor's is a DTensor of its mesh and placements
                 self.inputs.append(torch.empty_like(t, device=device))
-                self.inputs[-1].copy_(t)
+                _local(self.inputs[-1]).copy_(_local(t))
         before = _counters()
         t0 = time.perf_counter()
         self.graph, out = _record(fn, _unflatten(template, iter(self.inputs)),
@@ -481,7 +544,7 @@ class _Graph:
     def __call__(self, tensors, stats):
         for s, t in zip(self.inputs, tensors):
             if s is not t:
-                s.copy_(t)
+                _local(s).copy_(_local(t))
         self.graph.replay()
         _note(stats, "replays")
         _add_counters(self.counts)
@@ -536,14 +599,16 @@ class Program:
     """One cached program: `fn(*leaves)`, its leaves tensors, PlanePacks
     and tuples, lists and dicts of them.
 
-    A call with a leaf signature (shapes and dtypes) never seen runs the
-    eager body; on CUDA the second call with it captures the body as one
-    graph and every later call replays that graph (the reference's jit
-    retraces per shape too). Plain devices, `eager_programs()`, a call
-    inside another program's capture and a program made with
-    `graphed=False` (a mesh program, `captures`) run the eager body every
-    time. `first` names the leaves of a call already made eagerly (a
-    schedule program's recording call).
+    A call with a leaf signature (shapes and dtypes; a DTensor's mesh and
+    placements too) never seen runs the eager body; on CUDA the second
+    call with it captures the body as one graph and every later call
+    replays that graph (the reference's jit retraces per shape too). Plain
+    devices, `eager_programs()` and a call inside another program's
+    capture run the eager body. `mesh` is the mesh a body's collectives
+    run over (the tiled access's, a schedule's, the sharded train step's):
+    a capture over a mesh that `captures` refuses raises. `first` names
+    the leaves of a call already made eagerly (a schedule program's
+    recording call).
 
     `donate` (the reference's `donate_argnums`) names leaves whose tensors
     the program takes over: the body returns a tuple whose item `i` is
@@ -552,16 +617,17 @@ class Program:
     those tensors in its place, not clones. The capture keeps the
     capturing call's tensors of a donated leaf as static inputs, so a later
     call with the same tensors copies nothing in; a call with other tensors
-    has them copied in. `stats` counts this program's eager first calls
-    (on a graph device), captures, capture seconds and replays."""
+    has them copied in (a DTensor's local tensor into the static input's).
+    `stats` counts this program's eager first calls (on a graph device),
+    captures, capture seconds and replays."""
 
-    __slots__ = ("fn", "graphed", "_seen", "graphs", "donate", "stats")
+    __slots__ = ("fn", "mesh", "_seen", "graphs", "donate", "stats")
 
-    def __init__(self, fn, graphed: bool = True, first=None,
-                 donate: Sequence[int] = ()):
+    def __init__(self, fn, first=None, donate: Sequence[int] = (),
+                 mesh=None):
         self.donate = tuple(donate)
         self.fn = _donating(fn, self.donate) if self.donate else fn
-        self.graphed = graphed
+        self.mesh = mesh
         self._seen = set()
         self.graphs: Dict[Tuple, _Graph] = {}
         self.stats = {"captured": 0, "replays": 0, "capture_s": 0.0,
@@ -570,11 +636,11 @@ class Program:
             tensors: List[torch.Tensor] = []
             _flatten(tuple(first), tensors)
             self._seen.add(_signature(tensors))
-            if graphed and _graph_device(tensors) is not None:
+            if _graph_device(tensors) is not None:
                 _note(self.stats, "eager")
 
     def __call__(self, *leaves):
-        if not self.graphed or _CAPTURING:
+        if _CAPTURING:
             return self.fn(*leaves)
         tensors: List[torch.Tensor] = []
         template = _flatten(leaves, tensors)
@@ -588,6 +654,14 @@ class Program:
                 self._seen.add(sig)
                 _note(self.stats, "eager")
                 return self.fn(*leaves)
+            meshes = {self.mesh} | {t.device_mesh for t in tensors
+                                    if _placements(t) is not None}
+            for m in meshes:
+                if not captures(m, device):
+                    raise opset.CimOpError(
+                        f"a program over a mesh of non-NCCL groups has "
+                        f"leaves on {device}: a CUDA graph cannot hold its "
+                        f"collectives")
             donated: List[bool] = []
             for i, leaf in enumerate(leaves):
                 n: List[torch.Tensor] = []
@@ -602,8 +676,18 @@ class Program:
         self.graphs.clear()
 
 
+def _placements(t: torch.Tensor):
+    """A DTensor's placements, None for a plain tensor."""
+    return getattr(t, "placements", None)
+
+
 def _signature(tensors: Sequence[torch.Tensor]) -> Tuple:
-    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+    """Shapes and dtypes; a DTensor's mesh and placements too, so that a
+    `Shard(0)` and a `Replicate()` leaf of one global shape, or one leaf
+    on two meshes, get graphs of their own."""
+    return tuple((tuple(t.shape), t.dtype) if _placements(t) is None else
+                 (tuple(t.shape), t.dtype, mesh_key(t.device_mesh),
+                  tuple(t.placements)) for t in tensors)
 
 
 def _mesh_axis(mesh, axis: str):
@@ -619,13 +703,16 @@ def _tiled_program(ops, bk: Backend, mesh=None, axis: Optional[str] = None):
     """One access over a whole tile stack: the backend's own [T, n, lanes]
     form (the fused kernel's grid walks the tile axis). With a mesh, this
     rank's block of the tiles, then the raw planes all-gathered over
-    `axis`."""
+    `axis` (a functional all-gather, captured into the program's graph on
+    NCCL)."""
     if mesh is None:
         return lambda ta, tb: bk(ta, tb, ops)
     from torch.distributed.tensor import DTensor, Shard
 
+    from repro_torch.launch.mesh import sub_mesh
+
     n_dev, coord = _mesh_axis(mesh, axis)
-    sub = mesh[axis]
+    sub = sub_mesh(mesh, axis)
 
     def run(ta, tb):
         per = ta.shape[0] // n_dev
@@ -641,14 +728,13 @@ def _cached_program(ops, n_bits: int, tile_shape: tuple, bk: Backend,
                     mesh=None, axis: Optional[str] = None):
     """The tiled program of one schedule key. The bank count is not part of
     the key: the same tile shape is the same program (one graph per tile
-    count). The mesh is (two meshes of the same shape over other ranks must
-    not share one)."""
+    count). The mesh is, by identity (`mesh_key`): two meshes of the same
+    shape over other ranks or other groups must not share one."""
     key = (ops, n_bits, tile_shape, bk.name,
-           None if mesh is None else (mesh, axis))
+           None if mesh is None else (mesh_key(mesh), axis))
     prog = program_cache_get(key)
     if prog is None:
-        prog = Program(_tiled_program(ops, bk, mesh, axis),
-                       graphed=captures(mesh))
+        prog = Program(_tiled_program(ops, bk, mesh, axis), mesh=mesh)
         program_cache_put(key, prog)
     return prog
 

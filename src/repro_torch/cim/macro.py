@@ -17,9 +17,11 @@ entry packs and the exit unpack — as ONE CUDA graph, and every later call
 replays it: one device launch (`dispatch.Program`). Every call, first or
 warm, is ONE dispatch whose recorded charges replay into the ledger, and
 the fused kernel's launch count moves as the eager body's would. CPU and
-`meta` tensors run the body eagerly every call, and so does a program over
-a mesh (`dispatch.captures`). XLA also fuses the peripherals; a graph
-replays them as the body launched them.
+`meta` tensors run the body eagerly every call. Over a mesh the body's
+tiled accesses run inline in the capture, so their all-gathers join the
+schedule's one graph (`dispatch.captures`: the mesh's groups are NCCL).
+XLA also fuses the peripherals; a graph replays them as the body
+launched them.
 
 Operands, partial products, accumulators and tree levels all stay in the
 PlanePack packed domain; the only codec entries are the entry packs and the
@@ -151,9 +153,8 @@ class CompiledSchedule(dispatch.Program):
 
     __slots__ = ("charges",)
 
-    def __init__(self, fn, charges: PlannedCharges, graphed: bool = True,
-                 first=None):
-        super().__init__(fn, graphed=graphed, first=first)
+    def __init__(self, fn, charges: PlannedCharges, first=None, mesh=None):
+        super().__init__(fn, first=first, mesh=mesh)
         self.charges = charges
 
     def __call__(self, *leaves):
@@ -187,9 +188,10 @@ def run_schedule_program(schedule: planner.Schedule, body, operands,
     """Execute `body(cursor, *operands)` as ONE schedule program.
 
     Cached in the dispatch layer's bounded LRU under the schedule, the body
-    identity (`body_key`), the operand signatures, the backend and the
-    banked geometry: a repeat hits (no new program), runs the cached
-    program (on CUDA: captures it at the first hit, replays it after) and
+    identity (`body_key`), the operand signatures, the backend, the banked
+    geometry and the mesh (by identity, `dispatch.mesh_key`): a repeat
+    hits (no new program), runs the cached program (on CUDA: captures it
+    at the first hit, replays it after) and
     replays the charges recorded the first time — accesses ==
     schedule.accesses (placed_accesses on a `spec`) either way. The body's
     accesses take the traced forms, which never see the fault overlay:
@@ -200,7 +202,8 @@ def run_schedule_program(schedule: planner.Schedule, body, operands,
     bk_name = get_backend(backend).name
     leaves = tuple(operands)
     key = ("step-program", schedule, tuple(body_key),
-           tuple(_leaf_sig(x) for x in leaves), bk_name, spec, mesh)
+           tuple(_leaf_sig(x) for x in leaves), bk_name, spec,
+           dispatch.mesh_key(mesh))
     prog = dispatch.program_cache_get(key)
     if prog is not None:
         return prog(*leaves)
@@ -221,7 +224,7 @@ def run_schedule_program(schedule: planner.Schedule, body, operands,
             f"plan has {schedule.accesses}")
     dispatch.program_cache_put(
         key, CompiledSchedule(lambda *args: run([], *args), planned,
-                              graphed=dispatch.captures(mesh), first=leaves))
+                              first=leaves, mesh=mesh))
     planned.replay()
     dispatch.count_dispatch()
     return out

@@ -65,3 +65,24 @@ def elastic_mesh_shape(n_devices: int, prefer_model: int = 16) -> tuple:
         if n_devices % model == 0:
             return (n_devices // model, model)
     return (n_devices, 1)
+
+
+#: each mesh's one-axis sub-meshes, sliced once: (mesh, {axis: sub-mesh}) by
+#: the mesh's id (holding the mesh, so the id is not reused)
+_SUB_MESHES: dict = {}
+
+
+def sub_mesh(mesh: DeviceMesh, axis: str) -> DeviceMesh:
+    """`mesh[axis]`, sliced at its first use and kept. Slicing runs host
+    ops on the mesh's rank tensor (a `nonzero` among them), which a CUDA
+    graph's capture refuses (`dispatch.CaptureGuard`), so a body that a
+    program captures takes its sub-meshes from here: the program's eager
+    first call has sliced them. Two equal meshes over other process groups
+    keep their own."""
+    entry = _SUB_MESHES.get(id(mesh))
+    if entry is None or entry[0] is not mesh:
+        entry = _SUB_MESHES[id(mesh)] = (mesh, {})
+    subs = entry[1]
+    if axis not in subs:
+        subs[axis] = mesh[axis]
+    return subs[axis]

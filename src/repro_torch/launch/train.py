@@ -30,15 +30,19 @@ parameter at its use (`repro_torch.models.model`):
       --preset full --device cuda --steps 4 --batch 2 --seq 2048
 
 With a single process it trains on one device with no process group and
-no mesh, and the step is the reference's `jax.jit(train_step,
+no mesh. Either way the step is the reference's `jax.jit(train_step,
 donate_argnums=(0,))`: a `dispatch.Program` with the state donated, which
 on the card runs eagerly at the first step, is captured as ONE CUDA graph
 (forward, backward over the microbatches, the optional int8 compression
 and AdamW in place; gradients live in the graph's pool) at the second and
 replays from the third, the learning rate read from the state's device
-step counter. A step over a mesh stays eager (`dispatch.captures`). Each
-step is timed between two device synchronizes, so its wall ms covers the
-device's work as well as the host's. Rank 0 prints. It
+step counter. Over a mesh each rank captures its own graph at the same
+step, with the step's NCCL collectives in it (the tensor-parallel joins,
+DTensor's redistributes, the gradient reductions, the dp mean, AdamW's
+norm), its DTensor state donated and its DTensor batch a leaf; on CPU
+ranks (gloo) the step runs eagerly. Each step is timed between two
+device synchronizes, so its wall ms covers the device's work as well as
+the host's. Rank 0 prints. It
 prints every `--log-every`-th step's loss, ce, grad norm and wall ms; at
 the end the steady tokens/s (the first step and every step that ran an
 eager first call or captured a graph excluded: the reference compiles
@@ -104,7 +108,10 @@ def main(argv=None, model: Optional[Model] = None) -> Dict[str, Any]:
         if dev.type == "cuda":
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
             torch.cuda.set_device(dev)
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+            # the communicators made now, not inside a step's capture
+            dist.init_process_group("nccl", device_id=dev)
+        else:
+            dist.init_process_group("gloo")
     if dist.is_initialized():
         mesh = make_smoke_mesh(device_type=dev.type)
     try:
@@ -156,12 +163,11 @@ def _train(args, dev: torch.device, mesh, model: Optional[Model]):
                 mesh, batch_specs(cfg, batch, mesh)))
         return batch
 
-    step_fn = make_train_step(model, opt_cfg, lr_schedule=sched,
-                              compress_grads=args.compress_grads)
-    program = None
-    if dispatch.captures(mesh):
-        # the state donated: the step leaves its new state in its tensors
-        program = step_fn = dispatch.Program(step_fn, donate=(0,))
+    # the state donated: the step leaves its new state in its tensors
+    program = dispatch.Program(
+        make_train_step(model, opt_cfg, lr_schedule=sched,
+                        compress_grads=args.compress_grads),
+        donate=(0,), mesh=mesh)
     records = []
 
     def logging_step(state, batch):
@@ -170,7 +176,7 @@ def _train(args, dev: torch.device, mesh, model: Optional[Model]):
             torch.cuda.synchronize(dev)
         g0 = dispatch.graph_stats()
         t0 = time.perf_counter()
-        out = step_fn(state, batch)
+        out = program(state, batch)
         if on_card:
             torch.cuda.synchronize(dev)
         ms = (time.perf_counter() - t0) * 1e3
@@ -202,7 +208,7 @@ def _train(args, dev: torch.device, mesh, model: Optional[Model]):
     capture_steps = [r["step"] for r in records if r["compiled"]]
     tok_s = (len(steady) * args.batch * args.seq
              / (sum(r["ms"] for r in steady) / 1e3)) if steady else None
-    graphs = dict(program.stats) if program is not None else None
+    graphs = dict(program.stats)
     peak_gib = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                 if on_card else None)
     if lead:
@@ -213,10 +219,9 @@ def _train(args, dev: torch.device, mesh, model: Optional[Model]):
               + f" ({len(capture_steps)} capture steps left out)"
               f"; {flash_launches} flash launches; {rglru_launches} rglru "
               f"launches; {slstm_launches} slstm launches; step graph "
-              + (f"{graphs['captured']} captured, {graphs['replays']} "
-                 f"replays, {graphs['capture_s']:.3f} s capturing"
-                 if graphs else "none (mesh)")
-              + "; peak device memory "
+              f"{graphs['captured']} captured, {graphs['replays']} "
+              f"replays, {graphs['capture_s']:.3f} s capturing"
+              "; peak device memory "
               + (f"{peak_gib:.2f} GiB" if on_card else "not measured (CPU)"),
               flush=True)
     return {"steps": args.steps, "records": records,

@@ -58,6 +58,7 @@ def moe_apply_ep(p: Params, cfg: ArchConfig, x: torch.Tensor, mesh,
     model; each rank slices its experts)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+    from repro_torch.launch.mesh import sub_mesh
     from repro_torch.sharding import rules
 
     m = cfg.moe
@@ -84,10 +85,10 @@ def moe_apply_ep(p: Params, cfg: ArchConfig, x: torch.Tensor, mesh,
                    cfg=cfg, e_local=e_local, shard=shard)
     # ONE collective over the expert axis (the reference's psum), then the
     # dp shards' rows gathered
-    sub = mesh[axis]
+    sub = sub_mesh(mesh, axis)
     y = DTensor.from_local(y, sub, [Partial()], run_check=False) \
         .redistribute(sub, [Replicate()]).to_local()
     if dp != axis:
-        y = DTensor.from_local(y, mesh[dp], [Shard(0)],
+        y = DTensor.from_local(y, sub_mesh(mesh, dp), [Shard(0)],
                                run_check=False).full_tensor()
     return y.reshape(b, t, d)

@@ -13,7 +13,10 @@ every case on each, and rank 0 writes `<dir>/results.json`: per case
 4x2 (the train steps, prefill and decode; elastic restore onto 2x4 and
 8x1), 1x8 (train steps with attention split by head_dim) and (1, 8),
 (2, 4), (4, 2) (expert parallelism, and the tiled accesses over 1, 2 and
-4 "data" ranks).
+4 "data" ranks). The mesh programs also run under the stand-in capture
+of `_torch_stand_in.py` (`case_graph_cim`, `case_graph_train`): each
+capture under `CaptureGuard`, each replay a rerun of the body with its
+collectives, held to the bit to the same calls under `eager_programs()`.
 """
 import json
 import os
@@ -428,8 +431,206 @@ def case_hints(ctx):
     return out
 
 
+#: the train steps run as programs under the stand-in capture: (arch, key)
+GRAPH_TRAIN = [("llama3.2-1b", "train"), ("deepseek-v2-lite-16b", "moe_train")]
+GRAPH_STEPS = 4
+
+
+def _all_ranks(flag: bool) -> bool:
+    """Whether `flag` holds on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([int(flag)])
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())
+
+
+def _program_stats(dispatch) -> list:
+    return [dict(p.stats) for _, p in dispatch._PROGRAMS.items()]
+
+
+def case_graph_cim(ctx):
+    """`execute_sharded`, `cim.multiply(mesh=)` and `lower(mesh=)` over 1,
+    2 and 4 "data" ranks under the stand-in capture, 3 calls each (eager,
+    capture, replay): every call's bits and ledger equal to the eager
+    program's and to the reference's; every program captured once."""
+    import torch
+
+    import _torch_stand_in
+    from repro_torch import cim
+    from repro_torch.cim import PlanePack, dispatch
+    from repro_torch.cim.accounting import LEDGER
+    from repro_torch.cim.lower import lower
+
+    npz, meta = ctx["npz"], ctx["json"]
+    pa = PlanePack.pack(torch.from_numpy(npz["tile_a"]), 8)
+    pb = PlanePack.pack(torch.from_numpy(npz["tile_b"]), 8)
+    spec = cim.ArraySpec(banks=2, subarrays=1, rows=64, bitline_words=32)
+    spec2 = cim.ArraySpec(banks=2, subarrays=1, rows=256, bitline_words=32)
+    mx = PlanePack.pack(torch.from_numpy(npz["mul_x"]), 8)
+    my = PlanePack.pack(torch.from_numpy(npz["mul_y"]), 8)
+    la, lb = torch.from_numpy(npz["low_a"]), torch.from_numpy(npz["low_b"])
+
+    def calls(mesh):
+        """3 calls of each access: (bits, ledger) per call, program stats."""
+        dispatch.clear_schedule_cache()
+        lf = lower(lambda a, b: (a + b) * b, backend="torch-boolean",
+                   spec=spec2, mesh=mesh)
+        got = {"tile": [], "mul": [], "lower": []}
+        for _ in range(3):
+            LEDGER.reset()
+            o = dispatch.execute_sharded(pa, pb, ("sub", "lt"), mesh,
+                                         spec=spec, backend="torch-boolean")
+            got["tile"].append((o["sub"].planes, o["lt"].planes,
+                                _ledger(LEDGER)))
+            LEDGER.reset()
+            prod = cim.multiply(mx, my, backend="torch-boolean", spec=spec2,
+                                mesh=mesh)
+            got["mul"].append((prod.planes, prod.unpack(), LEDGER.accesses))
+            LEDGER.reset()
+            got["lower"].append((lf(la, lb), LEDGER.accesses,
+                                 sum(LEDGER.bank_accesses.values())))
+        return got, _program_stats(dispatch)
+
+    def same(a, b) -> bool:
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    out = {}
+    for n_data in (1, 2, 4):
+        mesh = _mesh_for(n_data)
+        with dispatch.eager_programs():
+            eager, _ = calls(mesh)
+        with _torch_stand_in.stand_in() as graphs:
+            got, stats = calls(mesh)
+        out[str(n_data)] = {
+            "equal_eager": _all_ranks(same(got, eager)),
+            "tile_ref": all(
+                np.array_equal(sub.numpy(), npz["tile_sub_planes"])
+                and led == meta[f"tile_ledger_{n_data}"]
+                for sub, _, led in got["tile"]),
+            "mul_ref": all(np.array_equal(v.numpy(),
+                                          npz["mul_x"] * npz["mul_y"])
+                           for _, v, _ in got["mul"]),
+            "mul_accesses": [a for _, _, a in got["mul"]],
+            "lower_ref": all(np.array_equal(y.numpy(), npz["low_out"])
+                             for y, _, _ in got["lower"]),
+            "lower_accesses": [a for _, a, _ in got["lower"]],
+            "lower_bank_total": [b for _, _, b in got["lower"]],
+            "captures": len(graphs),
+            "stats": stats}
+        dispatch.clear_schedule_cache()
+    return out
+
+
+def _graph_train(ctx, arch, key):
+    """`GRAPH_STEPS` steps of the 4x2 train step of `arch` from the
+    reference's weights as `launch/train.py` runs it, a program with the
+    state donated: under `eager_programs()`, then from the same weights
+    under the stand-in capture (eager first call, capture, replays)."""
+    from repro_torch.cim import dispatch
+    from repro_torch.data import DataConfig, sharded_batch, synthetic_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import batch_specs, distribute_model, to_named
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    import _torch_stand_in
+
+    runs = []
+    for graphed in (False, True):
+        cfg, model = _reference_model(ctx, arch, key)
+        mesh = make_mesh((4, 2), ("data", "model"), "cpu")
+        distribute_model(model, cfg, mesh)
+        opt = AdamWConfig(lr=1e-3)
+        state = init_state(model, opt)
+        held = leaves(state)
+        prog = dispatch.Program(make_train_step(model, opt), donate=(0,),
+                                mesh=mesh)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=8, seq_len=64)
+        run = {"loss": [], "grad_norm": []}
+        ctx_ = _torch_stand_in.stand_in() if graphed else \
+            dispatch.eager_programs()
+        with ctx_:
+            for s in range(GRAPH_STEPS):
+                host = synthetic_batch(s, dcfg)
+                batch = sharded_batch(s, dcfg, mesh, to_named(
+                    mesh, batch_specs(cfg, host, mesh)))
+                state, m = prog(state, batch)
+                run["loss"].append(float(m["loss"]))
+                run["grad_norm"].append(float(m["grad_norm"]))
+        run["stats"] = dict(prog.stats)
+        run["donated"] = all(a is b for a, b in zip(held, leaves(state)))
+        run["state"] = [t.to_local() if hasattr(t, "to_local") else t
+                        for t in leaves(state)]
+        runs.append(run)
+    eager, got = runs
+    import torch
+
+    same_state = all(torch.equal(a, b)
+                     for a, b in zip(eager.pop("state"), got.pop("state")))
+    return {"eager": eager, **got, "state_equal": _all_ranks(same_state)}
+
+
+def case_graph_train(ctx):
+    """The 4x2 train steps of `GRAPH_TRAIN` as donated programs under the
+    stand-in capture against the same steps under `eager_programs()`."""
+    return {key: _graph_train(ctx, arch, key) for arch, key in GRAPH_TRAIN}
+
+
+def case_capture_guard(ctx):
+    """What `CaptureGuard` sees of DTensor ops on a 4x2 mesh: a DTensor
+    `.item()` refused by name; the all-gather of an explicit `full_tensor`
+    seen; the all-reduce of an implicit redistribute (a `Partial` sum
+    added to a number comes out `Replicate`) unseen, as is every local op
+    inside DTensor's dispatch."""
+    import torch
+
+    from repro_torch.cim import dispatch
+    from repro_torch.cim.opset import CimOpError
+    from repro_torch.sharding import rules
+
+    class Seen(dispatch.CaptureGuard):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    mesh = _mesh_for(4)
+    x = torch.arange(8 * 6, dtype=torch.float32).reshape(8, 6)
+    d = rules.from_local_batch(rules.local_rows(x, mesh), mesh)
+    out = {}
+    with Seen() as g:
+        whole = d.full_tensor()
+    out["explicit"] = g.ops
+    out["explicit_equal"] = bool(torch.equal(whole, x))
+    with Seen() as g:
+        s = d.sum() + 1
+    out["implicit"] = g.ops
+    out["implicit_placements"] = [repr(p) for p in s.placements]
+    out["implicit_equal"] = bool(torch.equal(s.full_tensor(), x.sum() + 1))
+    try:
+        with dispatch.CaptureGuard():
+            s.item()
+        out["item"] = None
+    except CimOpError as e:
+        out["item"] = str(e)
+    return out
+
+
 CASES = [case_train_4x2, case_train_moe_4x2, case_tp_train, case_tp_serve,
-         case_elastic, case_moe_ep, case_cim, case_hints]
+         case_elastic, case_moe_ep, case_cim, case_hints, case_graph_cim,
+         case_graph_train, case_capture_guard]
 
 
 def _rank(rank: int, work: str, store: str) -> None:

@@ -12,7 +12,9 @@ and `lower()` over a one-rank NCCL mesh equal their unsharded calls (the
 CPU tests hold the mesh path to the reference over 1, 2 and 4 gloo ranks).
 
 The float paths' step programs (the donated decode, the donated train
-step, the float serve) replay as CUDA graphs equal to their eager runs.
+step, the float serve) and the mesh programs (over a one-rank NCCL group:
+the tiled access, the schedule programs, the sharded train step) replay
+as CUDA graphs equal to their eager runs.
 
 Every case is marked `cuda` and skips without a card. `tests/conftest.py`
 imports the reference, so on the card the file runs without it:
@@ -387,12 +389,27 @@ def test_autotune_measures_on_the_card(tmp_path):
     assert fresh.searches == 0
 
 
+def _one_rank_nccl():
+    """A one-rank NCCL process group (its communicator made at once)."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+
+
 def test_mesh_path_on_a_one_rank_nccl_group():
     """`execute_sharded`, `cim.multiply(mesh=)` and `lower(mesh=)` on a
-    (1,) "data" mesh of one NCCL rank: planes, outputs and ledgers equal
-    to the unsharded calls, one launch a logical access."""
+    (1,) "data" mesh of one NCCL rank, 3 calls each (the eager first call,
+    the capture as a CUDA graph with its all-gathers, a replay): planes,
+    outputs and ledgers of every call equal to the unsharded calls, one
+    launch a logical access, every program over the mesh captured once."""
     import dataclasses
-    import socket
 
     import torch.distributed as dist
 
@@ -401,11 +418,7 @@ def test_mesh_path_on_a_one_rank_nccl_group():
     from repro_torch.cim.lower import lower
     from repro_torch.launch.mesh import make_mesh
 
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            rank=0, world_size=1)
+    _one_rank_nccl()
     try:
         mesh = make_mesh((1,), ("data",), "cuda")
         spec = cim.ArraySpec(banks=2, subarrays=1, rows=256,
@@ -416,25 +429,34 @@ def test_mesh_path_on_a_one_rank_nccl_group():
         x = torch.arange(-700, 700, dtype=torch.int16, device="cuda")
         y = (x * 7 + 3) % 101
         got = []
-        for m in (None, mesh):
+        dispatch.clear_schedule_cache()
+        plain, meshed = (lower(lambda u, v: (u + v) * v, spec=spec, mesh=m)
+                         for m in (None, mesh))
+        for m, lowered in [(None, plain)] + [(mesh, meshed)] * 3:
             LEDGER.reset()
             tfk.fused_planes_op.launches = 0
             o = dispatch.execute_tiled(pa, pb, ("add", "lt"), spec=spec,
                                        mesh=m)
             prod = cim.multiply(PlanePack.pack(x, 16), PlanePack.pack(y, 16),
                                 spec=spec, mesh=m)
-            low = lower(lambda u, v: (u + v) * v, spec=spec, mesh=m)(x, y)
+            low = lowered(x, y)
             torch.cuda.synchronize()
             got.append((o["add"].planes, o["lt"].planes, prod.unpack(), low,
                         dataclasses.asdict(LEDGER),
                         tfk.fused_planes_op.launches))
-        (a0, l0, p0, w0, led0, n0), (a1, l1, p1, w1, led1, n1) = got
-        assert torch.equal(a0, a1) and torch.equal(l0, l1)
-        assert torch.equal(p0, p1) and torch.equal(w0, w1)
-        assert torch.equal(p1.to(torch.int64),
+        (a0, l0, p0, w0, led0, n0) = got[0]
+        assert torch.equal(p0.to(torch.int64),
                            x.to(torch.int64) * y.to(torch.int64))
-        assert led0 == led1 and n0 == n1
+        for a1, l1, p1, w1, led1, n1 in got[1:]:
+            assert torch.equal(a0, a1) and torch.equal(l0, l1)
+            assert torch.equal(p0, p1) and torch.equal(w0, w1)
+            assert led0 == led1 and n0 == n1
+        on_mesh = [p.stats for k, p in dispatch._PROGRAMS.items()
+                   if k[-1] is not None]
+        assert on_mesh and all(s["captured"] == 1 and s["replays"] >= 1
+                               for s in on_mesh), on_mesh
     finally:
+        dispatch.clear_schedule_cache()
         dist.destroy_process_group()
 
 
@@ -651,6 +673,60 @@ def test_train_step_graph_equals_eager(arch):
         assert prog.stats["captured"] == (1 if graphed else 0)
         runs.append(out)
         dispatch.clear_schedule_cache()
+    assert runs[0] == runs[1], runs
+
+
+def test_mesh_train_step_graph_equals_eager():
+    """4 train steps of reduced llama3.2-1b on a (1, 1) mesh of one NCCL
+    rank, DTensor state and batch, through the donated step program
+    (eager, captured with its collectives, replayed), and 4 steps under
+    `eager_programs()` from the same weights: losses, grad norms and
+    learning rates equal to the bit, every kernel counter as eager's."""
+    import torch.distributed as dist
+
+    from repro_torch.cim import dispatch
+    from repro_torch.data import DataConfig, sharded_batch, synthetic_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    from repro_torch.sharding import batch_specs, distribute_model, to_named
+    from repro_torch.train import init_state, make_train_step
+
+    opt = AdamWConfig(lr=1e-3)
+    runs = []
+    _one_rank_nccl()
+    try:
+        for graphed in (True, False):
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            model = _reduced_model("llama3.2-1b", seed=1)
+            distribute_model(model, model.cfg, mesh)
+            state = init_state(model, opt)
+            step = make_train_step(model, opt,
+                                   lr_schedule=cosine_schedule(1e-3, 5, 10))
+            prog = dispatch.Program(step, donate=(0,), mesh=mesh)
+            dcfg = DataConfig(vocab_size=model.cfg.vocab_size, batch=2,
+                              seq_len=64)
+            out = []
+            dispatch.clear_schedule_cache()
+            for s in range(4):
+                host = synthetic_batch(s, dcfg)
+                batch = sharded_batch(s, dcfg, mesh, to_named(
+                    mesh, batch_specs(model.cfg, host, mesh)))
+                c0 = _launch_counts()
+                if graphed:
+                    _, m = prog(state, batch)
+                else:
+                    with dispatch.eager_programs():
+                        _, m = prog(state, batch)
+                torch.cuda.synchronize()
+                out.append(([float(m[k]) for k in ("loss", "grad_norm",
+                                                   "lr")],
+                            tuple(b - a for a, b in
+                                  zip(c0, _launch_counts()))))
+            assert prog.stats["captured"] == (1 if graphed else 0)
+            runs.append(out)
+            dispatch.clear_schedule_cache()
+    finally:
+        dist.destroy_process_group()
     assert runs[0] == runs[1], runs
 
 

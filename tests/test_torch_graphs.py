@@ -20,8 +20,10 @@ tensor built from host data, no output whose shape depends on the data.
     RG-LRU, sLSTM); eager first calls are counted, so a timed window can
     tell them from steady calls; a program inside another's capture runs
     eagerly; dict leaves round-trip; successive results do not alias, new
-    leaf values give new results, eviction drops the graph, a mesh program
-    stays eager, the tiled program keeps one graph per tile count, a body
+    leaf values give new results, eviction drops the graph, a program over
+    a mesh is graphed and keyed on the mesh by identity (the tiled access
+    over a one-rank mesh too), DTensor leaves key on their mesh and
+    placements, the tiled program keeps one graph per tile count, a body
     that cannot be captured raises, and dispatch/hit/miss counts and
     ledgers move as the reference's do (`tests/test_cim_program.py:48-93`,
     same inputs);
@@ -38,6 +40,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import _torch_stand_in
 
 from repro import cim as rcim
 from repro.cim import dispatch as rdisp
@@ -81,53 +85,12 @@ def _fresh_state():
         clear()
 
 
-class StandInGraph:
-    """A CUDA graph's contract on the CPU: `replay` recomputes the captured
-    body on its static inputs into its static outputs and leaves every
-    counter as it found it (a replay runs no Python)."""
-
-    def __init__(self, fn, args, out):
-        self.fn, self.args = fn, args
-        self.outputs = []
-        tdisp._flatten(out, self.outputs)
-
-    def replay(self):
-        before = tdisp._counters()
-        fresh = []
-        tdisp._CAPTURING = True          # programs inside: part of the graph
-        try:
-            tdisp._flatten(self.fn(*self.args), fresh)
-        finally:
-            tdisp._CAPTURING = False
-        after = tdisp._counters()
-        tdisp._add_counters(tuple(b - a for a, b in zip(after, before)))
-        for o, f in zip(self.outputs, fresh):
-            o.copy_(f)
-
-
 @pytest.fixture
-def stand_in(monkeypatch):
+def stand_in():
     """Programs on CPU tensors take the graph path, captured (under the
     capture guard) into stand-in graphs; returns the list of captures."""
-    graphs = []
-
-    def record(fn, args, device):
-        assert device == torch.device("cpu")
-        tdisp._CAPTURING = True
-        try:
-            with tdisp.CaptureGuard():
-                out = fn(*args)
-        finally:
-            tdisp._CAPTURING = False
-        graphs.append(StandInGraph(fn, args, out))
-        return graphs[-1], out
-
-    def graph_device(tensors):
-        return None if tdisp._EAGER or not tensors else torch.device("cpu")
-
-    monkeypatch.setattr(tdisp, "_record", record)
-    monkeypatch.setattr(tdisp, "_graph_device", graph_device)
-    return graphs
+    with _torch_stand_in.stand_in() as graphs:
+        yield graphs
 
 
 @pytest.fixture
@@ -517,16 +480,94 @@ class _Mesh:
     """Hashable stand-in for a mesh key (unbanked programs never touch it)."""
 
 
-def test_mesh_program_stays_eager(stand_in):
+def test_mesh_program_takes_the_graph_path(stand_in):
+    """A schedule program over a mesh is captured at its second call and
+    replays to the bit; its key holds the mesh by identity, so a second
+    mesh gets a program and a graph of its own."""
     x, y, pa, pb = _packs()
-    mesh = _Mesh()
-    for _ in range(3):
-        assert torch.equal(tmacro.multiply(pa, pb, mesh=mesh).unpack(), x * y)
-    (prog,) = [p for _, p in tdisp._PROGRAMS.items()]
-    assert not prog.graphed and prog.graphs == {}
-    assert tdisp.graph_stats()["captured"] == 0 and not stand_in
-    assert tdisp.cache_stats()["dispatches"] == 3
-    assert not tdisp.captures(mesh) and tdisp.captures(None)
+    meshes = (_Mesh(), _Mesh())
+    for mesh in meshes:
+        for _ in range(3):
+            got = tmacro.multiply(pa, pb, mesh=mesh).unpack()
+            assert torch.equal(got, x * y)
+    progs = [p for _, p in tdisp._PROGRAMS.items()]
+    assert len(progs) == 2 and len(stand_in) == 2
+    assert [p.mesh for p in progs] == list(meshes)
+    for prog in progs:
+        assert len(prog.graphs) == 1
+        assert (prog.stats["eager"], prog.stats["captured"],
+                prog.stats["replays"]) == (1, 1, 2)
+    assert tdisp.cache_stats()["dispatches"] == 6
+    assert tdisp.mesh_key(meshes[0]) != tdisp.mesh_key(meshes[1])
+    assert tdisp.mesh_key(None) is None
+
+
+def test_tiled_access_over_a_mesh_is_graphed_per_mesh(stand_in):
+    """`execute_sharded` over a one-rank (1,) "data" mesh (a fake process
+    group): eager, capture, replay, each equal to the unsharded call to the
+    bit with the same ledger; an equal mesh made again (as after a new
+    process group) gets a new program, not the old graph."""
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_mesh
+
+    _, _, pa, pb = _packs(n=200)
+    TLEDGER.reset()
+    want = tdisp.execute_tiled(pa, pb, ("sub", "lt"), spec=TSPEC)
+    want_ledger = dataclasses.asdict(TLEDGER)
+    tdisp.clear_schedule_cache()
+    with fake_world(1):
+        meshes = [make_mesh((1,), ("data",), "cpu") for _ in range(2)]
+        assert meshes[0] == meshes[1]
+        for mesh in meshes:
+            for _ in range(3):
+                TLEDGER.reset()
+                got = tdisp.execute_sharded(pa, pb, ("sub", "lt"), mesh,
+                                            spec=TSPEC)
+                for op in ("sub", "lt"):
+                    assert torch.equal(got[op].planes, want[op].planes)
+                assert dataclasses.asdict(TLEDGER) == want_ledger
+        progs = [p for _, p in tdisp._PROGRAMS.items()]
+        assert [p.mesh for p in progs] == meshes
+        assert all(p.stats["captured"] == 1 and p.stats["replays"] == 2
+                   for p in progs)
+
+
+def test_dtensor_leaves_key_on_mesh_and_placements(stand_in):
+    """DTensor leaves of one global shape and dtype get one signature each
+    for `Shard(0)` and `Replicate()` and for an equal mesh made again; a
+    graph's static inputs are DTensors of the leaf's mesh and placements,
+    and replays give the eager body's values."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_mesh
+
+    with fake_world(2):
+        mesh, again = (make_mesh((2,), ("data",), "cpu") for _ in range(2))
+        half = torch.arange(12.0).reshape(2, 6)
+        shard = DTensor.from_local(half, mesh, [Shard(0)], run_check=False)
+        repl = DTensor.from_local(torch.arange(24.0).reshape(4, 6), mesh,
+                                  [Replicate()], run_check=False)
+        shard2 = DTensor.from_local(half, again, [Shard(0)],
+                                    run_check=False)
+        assert shard.shape == repl.shape == shard2.shape
+        sigs = {tdisp._signature([t]) for t in (shard, repl, shard2)}
+        assert len(sigs) == 3
+        prog = tdisp.Program(lambda t: t * 2 + 1, mesh=mesh)
+        for t in (shard, repl):
+            for _ in range(3):
+                out = prog(t)
+                assert out.placements == t.placements
+                assert torch.equal(out.to_local(), t.to_local() * 2 + 1)
+        assert (prog.stats["captured"], prog.stats["replays"]) == (2, 4)
+        for sig, graph in prog.graphs.items():
+            (static,) = graph.inputs
+            assert static.device_mesh is mesh
+            assert tuple(static.placements) == sig[0][3]
+        assert tdisp.captures(mesh, torch.device("cpu"))
+        # the fake group is not NCCL: a CUDA graph could not hold it
+        assert not tdisp.captures(mesh, torch.device("cuda"))
+        assert tdisp.captures(None, torch.device("cuda"))
 
 
 def test_tiled_program_keeps_one_graph_per_tile_count(stand_in):

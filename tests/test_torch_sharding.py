@@ -20,7 +20,12 @@ of llama3.2-1b, deepseek and recurrentgemma-9b on 4x2 against its
 unsharded logits, the elastic restore 4x2 -> 2x4
 and 8x1 (and in place), `moe_apply_ep` on 2x4, 1x8 and 4x2, and
 `execute_sharded`, `cim.multiply(mesh=)` and `lower(mesh=)` over 1, 2 and
-4 "data" ranks against the reference's bits and ledgers.
+4 "data" ranks against the reference's bits and ledgers. The mesh
+programs (those three, and 4 steps of the 4x2 train step of llama3.2-1b
+and deepseek-v2-lite-16b) also run under the stand-in capture of
+`tests/_torch_stand_in.py`, to the bit of their eager runs and within the
+same tolerances of the reference's; and what `CaptureGuard` sees of
+DTensor ops is recorded.
 """
 import dataclasses
 import json
@@ -241,6 +246,10 @@ def _ledger(led) -> dict:
 TRAIN_REFS = (("llama3.2-1b", "train"), ("deepseek-v2-lite-16b", "moe_train"),
               ("gemma-2b", "gemma_train"), ("recurrentgemma-9b", "rg_train"),
               ("grok-1-314b", "grok_train"))
+#: the train steps also run as programs under the stand-in capture, held
+#: to the reference's first `GRAPH_STEPS` steps
+GRAPH_KEYS = ("train", "moe_train")
+GRAPH_STEPS = 4
 #: the reference's unsharded prefill + decode that the 4x2 sharded one is
 #: held to (the keys of their train weights)
 SERVE_REFS = ("train", "moe_train", "rg_train")
@@ -282,7 +291,7 @@ def _reference_inputs(work):
         rstep = jax.jit(r_make_train_step(rmodel, ropt))
         dcfg = RDataConfig(vocab_size=rcfg.vocab_size, batch=8, seq_len=64)
         meta[key + "_loss"], meta[key + "_grad_norm"] = [], []
-        for s in range(2):
+        for s in range(GRAPH_STEPS if key in GRAPH_KEYS else 2):
             b = rsynthetic_batch(s, dcfg)
             rstate, m = rstep(rstate,
                               {k: jnp.asarray(v) for k, v in b.items()})
@@ -411,10 +420,18 @@ def _assert_train_matches(meta, res, key, case):
     assert res["tp_regions"] == [TP_REGIONS[case]] * 2
     assert set(res["params_whole"]) == WHOLE.get(case, set())
     assert res["caches_whole"] == 0
-    np.testing.assert_allclose(res["loss"], meta[key + "_loss"], atol=1e-5,
-                               rtol=0)
-    np.testing.assert_allclose(res["grad_norm"], meta[key + "_grad_norm"],
-                               atol=1e-5, rtol=1e-5)
+    _assert_steps_match(meta, res, key)
+
+
+def _assert_steps_match(meta, res, key):
+    """Losses and grad norms within the tolerances of the sharded cases
+    of the reference's first steps."""
+    n = len(res["loss"])
+    np.testing.assert_allclose(res["loss"], meta[key + "_loss"][:n],
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(res["grad_norm"],
+                               meta[key + "_grad_norm"][:n], atol=1e-5,
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("case,key", [("train_4x2", "train"),
@@ -516,3 +533,71 @@ def test_activation_hints_on_mesh(ranks):
     assert res["activation_equal"]
     assert res["short"] == ["Shard(dim=0)", "Replicate()"]
     assert res["batch"] == ["Shard(dim=0)", "Replicate()"]
+
+
+# ---------------------------------------------------------------------------
+# mesh programs under the stand-in capture (`tests/_torch_stand_in.py`)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_data", [1, 2, 4])
+def test_tiled_access_on_mesh_graphed_equals_eager(ranks, n_data):
+    """The tiled access over the "data" ranks, 3 calls under the stand-in
+    capture (eager, capture, replay): bits and ledger of every call equal
+    to the eager program's and to the reference's."""
+    _, res = _case(ranks, "graph_cim")
+    r = res[str(n_data)]
+    assert r["equal_eager"] and r["tile_ref"]
+    tiled = [s for s in r["stats"] if s["eager"] == 1 and s["captured"] == 1]
+    assert tiled and all(s["replays"] == 2 for s in r["stats"])
+
+
+@pytest.mark.parametrize("n_data", [1, 2, 4])
+def test_multiply_and_lower_on_mesh_graphed_equal_eager(ranks, n_data):
+    """`cim.multiply(mesh=)` and `lower(mesh=)` under the stand-in capture,
+    3 calls each: bits and accesses of every call equal to the eager
+    programs' and to the reference's; every program on the mesh captured
+    once and replayed twice."""
+    meta, res = _case(ranks, "graph_cim")
+    r = res[str(n_data)]
+    assert r["equal_eager"] and r["mul_ref"] and r["lower_ref"]
+    assert r["mul_accesses"] == [meta["mul_placed"]] * 3
+    assert r["lower_accesses"] == [meta["low_accesses"]] * 3
+    assert r["lower_bank_total"] == [meta["low_bank_total"]] * 3
+    assert r["captures"] == len(r["stats"])
+    assert all(s["captured"] == 1 and s["replays"] == 2 for s in r["stats"])
+
+
+@pytest.mark.parametrize("key", GRAPH_KEYS)
+def test_sharded_train_step_graphed_equals_eager(ranks, key):
+    """4 steps of the 4x2 train step (llama3.2-1b; deepseek-v2-lite-16b,
+    expert-parallel) as `launch/train.py`'s donated program under the stand-in
+    capture: eager first step, capture (its graph replayed at once: 3
+    replays in all), 2 more replays; losses, grad norms and
+    every rank's state equal to the bit to the same steps under
+    `eager_programs()`, and within the sharded cases' tolerances of the
+    reference's 4 steps."""
+    meta, res = _case(ranks, "graph_train")
+    r = res[key]
+    assert (r["stats"]["eager"], r["stats"]["captured"],
+            r["stats"]["replays"]) == (1, 1, GRAPH_STEPS - 1)
+    assert r["eager"]["stats"]["captured"] == 0
+    assert r["loss"] == r["eager"]["loss"]
+    assert r["grad_norm"] == r["eager"]["grad_norm"]
+    assert r["state_equal"] and r["donated"] and r["eager"]["donated"]
+    assert len(r["loss"]) == GRAPH_STEPS
+    _assert_steps_match(meta, r, key)
+
+
+def test_capture_guard_sees_dtensor_ops_not_their_local_collectives(ranks):
+    """`CaptureGuard` on a 4x2 mesh: it refuses a DTensor's `.item()` by
+    name and sees an explicit `full_tensor`'s all-gather, but not the
+    all-reduce of an implicit redistribute inside DTensor's dispatch (a
+    host read there would fail as CUDA's own capture error)."""
+    _, res = _case(ranks, "capture_guard")
+    assert res["explicit_equal"] and res["implicit_equal"]
+    assert any("all_gather_into_tensor" in op for op in res["explicit"])
+    assert res["implicit_placements"] == ["Replicate()", "Replicate()"]
+    assert not any("c10d" in op for op in res["implicit"]), res["implicit"]
+    assert res["item"] and "_local_scalar_dense" in res["item"] \
+        and "cannot be captured" in res["item"]
