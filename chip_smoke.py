@@ -754,7 +754,8 @@ def phase_banked(dev) -> dict:
                 torch.cuda.synchronize()
             rows = [(e.key, e.self_device_time_total / 1e3)
                     for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
+                    if e.device_type == DeviceType.CUDA
+                    and not e.is_user_annotation]
             kern.append(sum(ms for key, ms in rows
                             if "fused_planes_kernel" in key))
             busy.append(sum(ms for _, ms in rows))
@@ -2517,7 +2518,8 @@ def phase_hybrid_prefill(model, dev) -> dict:
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
                for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     busy_ms = sum(r[2] for r in kernels)
     rec = [r for r in kernels if "rglru" in r[0]]
     rglru_ms = sum(r[2] for r in rec)
@@ -2796,7 +2798,8 @@ def profile_train_step(model, args, dev) -> None:
         wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.key_averages()
     kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
-               for e in events if e.device_type == DeviceType.CUDA]
+               for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     ops = [(e.key, e.count, e.self_device_time_total / 1e3)
            for e in events if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]
@@ -4119,10 +4122,12 @@ def phase_profile(m, dev, max_len: int, position: int) -> None:
     fused_bytes = fused.bytes - bytes0
     # key_averages() holds each kernel twice, as its own device row and in
     # the self device time of the PyTorch op that launched it; busy time
-    # sums the device rows only (the ctypes kernels have no op above them)
+    # sums the device rows only (the ctypes kernels have no op above them),
+    # and not the device-side copies of the port's `repro.` spans
     events = prof.key_averages()
     kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
-               for e in events if e.device_type == DeviceType.CUDA]
+               for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     ops = [(e.key, e.count, e.self_device_time_total / 1e3)
            for e in events if e.device_type == DeviceType.CPU
            and e.self_device_time_total > 0]

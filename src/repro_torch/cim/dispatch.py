@@ -85,6 +85,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import takes_plain
 from repro_torch.core import bitplane
+from repro_torch.spans import span
 from . import array as array_mod
 from . import engine, opset
 from .accounting import LEDGER
@@ -542,15 +543,18 @@ class _Graph:
         self.shared = [id(o) in ids for o in self.outputs]
 
     def __call__(self, tensors, stats):
-        for s, t in zip(self.inputs, tensors):
-            if s is not t:
-                _local(s).copy_(_local(t))
-        self.graph.replay()
+        with span("repro.graph.copy_in"):
+            for s, t in zip(self.inputs, tensors):
+                if s is not t:
+                    _local(s).copy_(_local(t))
+        with span("repro.graph.replay"):
+            self.graph.replay()
         _note(stats, "replays")
         _add_counters(self.counts)
-        return _unflatten(self.template, iter([
-            o if shared else o.clone()
-            for o, shared in zip(self.outputs, self.shared)]))
+        with span("repro.graph.copy_out"):
+            return _unflatten(self.template, iter([
+                o if shared else o.clone()
+                for o, shared in zip(self.outputs, self.shared)]))
 
 
 def _pairs(old, new, out: List[Tuple[torch.Tensor, torch.Tensor]]) -> bool:

@@ -52,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.fx import Node
 
+from repro_torch.spans import span
 from . import array as array_mod
 from . import cost as cost_mod
 from . import macro, planner
@@ -553,6 +554,10 @@ class LoweredComputation:
 
     # -- execution ----------------------------------------------------------
     def execute(self, *args):
+        with span("repro.lower.call"):
+            return self._execute(args)
+
+    def _execute(self, args):
         leaves, _ = trace_mod.flatten_args(args)
         invars = self.trace.invars
         if len(leaves) != len(invars):
@@ -586,28 +591,38 @@ class LoweredComputation:
                 rs.peek(("lowered", id(self), r.index, ra.ai) + fp, fp)
                 for r in self.regions for ra in r.resident)
 
-        for i, (kind, payload) in enumerate(self.items):
+        i, n = 0, len(self.items)
+        while i < n:
+            kind, payload = self.items[i]
             if kind == "host":
-                if not (warm and i in self._warm_skip):
-                    self._run_host(payload, env, device)
-                for v in self._host_dead[i]:
-                    env.pop(v, None)
+                # a maximal run of host items under one span
+                with span("repro.lower.host"):
+                    while i < n and self.items[i][0] == "host":
+                        if not (warm and i in self._warm_skip):
+                            self._run_host(self.items[i][1], env, device)
+                        for v in self._host_dead[i]:
+                            env.pop(v, None)
+                        i += 1
                 continue
             rmap = None
             if resident_on and payload.resident:
-                rmap = {}
-                for ra in payload.resident:
-                    key = ("lowered", id(self), payload.index, ra.ai) + fp
-                    entry = rs.get(key, fingerprint=fp)
-                    if entry is None:
-                        value = _read_host(env, payload.in_atoms[ra.ai],
-                                           device)
-                        entry = rs.pin(
-                            key,
-                            self._build_resident_pack(payload, ra, value),
-                            fingerprint=fp, aux=keep)
-                    rmap[ra.ai] = entry.pack
+                with span("repro.lower.resident"):
+                    rmap = {}
+                    for ra in payload.resident:
+                        key = ("lowered", id(self), payload.index,
+                               ra.ai) + fp
+                        entry = rs.get(key, fingerprint=fp)
+                        if entry is None:
+                            value = _read_host(env, payload.in_atoms[ra.ai],
+                                               device)
+                            entry = rs.pin(
+                                key,
+                                self._build_resident_pack(payload, ra,
+                                                          value),
+                                fingerprint=fp, aux=keep)
+                        rmap[ra.ai] = entry.pack
             self._run_region(payload, env, device, resident_map=rmap)
+            i += 1
         outs = [_read_host(env, v, device) for v in self.trace.outvars]
         return trace_mod.pytree.tree_unflatten(outs, self.trace.out_spec)
 
@@ -636,29 +651,31 @@ class LoweredComputation:
         never read, their entry packs never rebuilt — under the resident
         schedule and a resident-marked body key, so streamed and resident
         runs of one region never share a program."""
-        leaves = tuple(
-            resident_map[j] if resident_map and j in resident_map
-            else _read_host(env, a, device)
-            for j, a in enumerate(region.in_atoms))
-        if resident_map:
-            schedule = region.schedule_resident
-            body_key = ("region", region.key,
-                        ("resident",) + region.resident)
-            dead = region.donatable_resident
-            body = self._region_body(region, device, frozenset(resident_map))
-        else:
-            schedule = region.schedule
-            body_key = ("region", region.key)
-            dead = region.donatable
-            body = self._region_body(region, device)
-        outs = macro.run_schedule_program(
-            schedule, body, leaves, body_key=body_key, backend=self.backend,
-            spec=self.spec, mesh=self.mesh)
-        del leaves
-        for j in dead:
-            env.pop(region.in_atoms[j], None)
-        for var, val in zip(region.unpack_vars, outs):
-            env[var] = val
+        with span("repro.cim.region", region.index):
+            leaves = tuple(
+                resident_map[j] if resident_map and j in resident_map
+                else _read_host(env, a, device)
+                for j, a in enumerate(region.in_atoms))
+            if resident_map:
+                schedule = region.schedule_resident
+                body_key = ("region", region.key,
+                            ("resident",) + region.resident)
+                dead = region.donatable_resident
+                body = self._region_body(region, device,
+                                         frozenset(resident_map))
+            else:
+                schedule = region.schedule
+                body_key = ("region", region.key)
+                dead = region.donatable
+                body = self._region_body(region, device)
+            outs = macro.run_schedule_program(
+                schedule, body, leaves, body_key=body_key,
+                backend=self.backend, spec=self.spec, mesh=self.mesh)
+            del leaves
+            for j in dead:
+                env.pop(region.in_atoms[j], None)
+            for var, val in zip(region.unpack_vars, outs):
+                env[var] = val
 
     def _region_body(self, region: Region, device,
                      resident_ais: frozenset = frozenset()):

@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.spans import span
 from . import dispatch, engine, planner
 from .accounting import LEDGER, PlannedCharges
 from .array import ArraySpec
@@ -199,35 +200,36 @@ def run_schedule_program(schedule: planner.Schedule, body, operands,
     injects nothing into them (and draws nothing for them). A body must be
     capturable: the tensors it makes from host values are made at its
     first call and kept (`lower`'s region literals)."""
-    bk_name = get_backend(backend).name
-    leaves = tuple(operands)
-    key = ("step-program", schedule, tuple(body_key),
-           tuple(_leaf_sig(x) for x in leaves), bk_name, spec,
-           dispatch.mesh_key(mesh))
-    prog = dispatch.program_cache_get(key)
-    if prog is not None:
-        return prog(*leaves)
+    with span("repro.cim.program"):
+        bk_name = get_backend(backend).name
+        leaves = tuple(operands)
+        key = ("step-program", schedule, tuple(body_key),
+               tuple(_leaf_sig(x) for x in leaves), bk_name, spec,
+               dispatch.mesh_key(mesh))
+        prog = dispatch.program_cache_get(key)
+        if prog is not None:
+            return prog(*leaves)
 
-    def run(charges: list, *args):
-        cur = ScheduleCursor(schedule, bk_name, spec=spec, mesh=mesh,
-                             charges=charges)
-        out = body(cur, *args)
-        cur.finish()
+        def run(charges: list, *args):
+            cur = ScheduleCursor(schedule, bk_name, spec=spec, mesh=mesh,
+                                 charges=charges)
+            out = body(cur, *args)
+            cur.finish()
+            return out
+
+        charges: list = []
+        out = run(charges, *leaves)
+        planned = PlannedCharges(tuple(charges))
+        if planned.accesses != schedule.accesses:   # pragma: no cover
+            raise CimOpError(
+                f"{schedule.macro}: recorded {planned.accesses} accesses "
+                f"but the plan has {schedule.accesses}")
+        dispatch.program_cache_put(
+            key, CompiledSchedule(lambda *args: run([], *args), planned,
+                                  first=leaves, mesh=mesh))
+        planned.replay()
+        dispatch.count_dispatch()
         return out
-
-    charges: list = []
-    out = run(charges, *leaves)
-    planned = PlannedCharges(tuple(charges))
-    if planned.accesses != schedule.accesses:   # pragma: no cover
-        raise CimOpError(
-            f"{schedule.macro}: recorded {planned.accesses} accesses but the "
-            f"plan has {schedule.accesses}")
-    dispatch.program_cache_put(
-        key, CompiledSchedule(lambda *args: run([], *args), planned,
-                              first=leaves, mesh=mesh))
-    planned.replay()
-    dispatch.count_dispatch()
-    return out
 
 
 def _place(sched: planner.Schedule, spec: Optional[ArraySpec],

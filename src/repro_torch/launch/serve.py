@@ -130,6 +130,7 @@ from repro_torch.launch.paged_kv import PagedKV
 from repro_torch.models.model import (XLSTM_CELLS, Model, build,
                                       dense_mlp_width, is_moe_layer,
                                       stack_kinds, with_cim)
+from repro_torch.spans import span
 from repro_torch.train import (adra_sample, greedy_sample, make_decode_step,
                                make_prefill_step)
 
@@ -149,7 +150,6 @@ class ServeRequest:
     tokens: List[int] = dataclasses.field(default_factory=list)
     prefill_ms: float = 0.0
     prefill_kind: str = ""         # eager, capture or replay (see `_kind`)
-    prefill_capture_s: float = 0.0
     first_token_s: float = -1.0
     done_s: float = -1.0
     accesses: float = 0.0          # ledger attribution (see module docstring)
@@ -170,7 +170,6 @@ class ServeRequest:
             "done_s": round(self.done_s, 6),
             "prefill_ms": round(self.prefill_ms, 3),
             "prefill_kind": self.prefill_kind,
-            "prefill_capture_s": round(self.prefill_capture_s, 6),
             "tokens": len(self.tokens),
             "token_ids": list(self.tokens),
             "shed": self.shed,
@@ -414,16 +413,18 @@ class ServeEngine:
                     g0 = dispatch.graph_stats()
                     ta = time.perf_counter()
                     l0 = (led.accesses, led.load_accesses)
-                    c1, logits1 = self.prefill_fn(self._prompt_inputs(req))
-                    _sync(self.device)
+                    with span("repro.serve.prefill"):
+                        c1, logits1 = self.prefill_fn(
+                            self._prompt_inputs(req))
+                        _sync(self.device)
                     req.prefill_ms = (time.perf_counter() - ta) * 1e3
-                    g1 = dispatch.graph_stats()
-                    req.prefill_kind = _kind(g0, g1)
-                    req.prefill_capture_s = g1["capture_s"] - g0["capture_s"]
+                    req.prefill_kind = _kind(g0, dispatch.graph_stats())
                     req.accesses += led.accesses - l0[0]
                     req.load_accesses += led.load_accesses - l0[1]
-                    self._insert(caches, c1, slot)
-                    first = int(self.sample(logits1)[0])
+                    with span("repro.serve.insert"):
+                        self._insert(caches, c1, slot)
+                    with span("repro.serve.sample"):
+                        first = int(self.sample(logits1)[0])
                     tok[slot] = first
                     req.tokens.append(first)
                     req.first_token_s = now()
@@ -447,27 +448,29 @@ class ServeEngine:
             # ECC verify finds uncorrectable damage (the failing pin is
             # already invalidated, so the retry re-pins from the weights)
             attempts = 0
-            while True:
-                try:
-                    caches, logits = self.decode_fn(caches, step_in)
-                    break
-                except faults_mod.UncorrectableFaultError:
-                    attempts += 1
-                    self.repairs += 1
-                    for req in active.values():
-                        req.repairs += 1
-                    if attempts > self.retry_budget:
-                        raise
-            _sync(self.device)
+            with span("repro.serve.decode"):
+                while True:
+                    try:
+                        caches, logits = self.decode_fn(caches, step_in)
+                        break
+                    except faults_mod.UncorrectableFaultError:
+                        attempts += 1
+                        self.repairs += 1
+                        for req in active.values():
+                            req.repairs += 1
+                        if attempts > self.retry_budget:
+                            raise
+                _sync(self.device)
             dt = time.perf_counter() - ts
             g1 = dispatch.graph_stats()
             d_acc = led.accesses - l0[0]
             d_load = led.load_accesses - l0[1]
-            tok = self.sample(logits).to(torch.int64)
+            with span("repro.serve.sample"):
+                tok = self.sample(logits).to(torch.int64)
+                tok_host = tok.tolist()
             # a step's counts include its sampler's accesses (none: greedy)
             step_accesses.append(led.accesses - l0[0])
             step_dispatches.append(dispatch.cache_stats()["dispatches"] - d0)
-            tok_host = tok.tolist()
             n_active = len(active)
             decode_steps += 1
             step_capture_s.append(g1["capture_s"] - g0["capture_s"])

@@ -97,6 +97,7 @@ from repro_torch import resolve_device
 from repro_torch.cim.array import ArraySpec
 from repro_torch.configs.base import ArchConfig
 from repro_torch.sharding import rules as shard_rules
+from repro_torch.spans import span
 from . import attention as attn
 from . import moe as moe_lib
 from . import recurrent as rec_lib
@@ -603,14 +604,15 @@ class Model(nn.Module):
         """Layer i's MLP: (y, aux), aux the MoE load-balancing loss (None
         for a dense MLP), tensor-parallel where the mesh and specs allow
         it."""
-        if is_moe_layer(self.cfg, i):
-            return self._moe(raw["mlp"], h2, mode == "train")
-        if self._tp_on():
-            y = self._mlp_tp(raw["mlp"], h2)
-            if y is not None:
-                return y, None
-        return self._apply_mlp(self._cast_part(raw, "mlp", mode == "train"),
-                               h2, mode), None
+        with span("repro.model.mlp"):
+            if is_moe_layer(self.cfg, i):
+                return self._moe(raw["mlp"], h2, mode == "train")
+            if self._tp_on():
+                y = self._mlp_tp(raw["mlp"], h2)
+                if y is not None:
+                    return y, None
+            return self._apply_mlp(
+                self._cast_part(raw, "mlp", mode == "train"), h2, mode), None
 
     def _cache_width(self, name: str) -> int:
         """A mixer cache leaf's last-dim width, by which it splits."""
@@ -626,56 +628,59 @@ class Model(nn.Module):
         train), tensor-parallel where the mesh and specs allow it. A layer
         run whole on a mesh joins its cache's "model" blocks first and
         keeps its own block of the new cache."""
-        cfg, train = self.cfg, mode == "train"
-        out = None
-        if self._tp_on():
-            if kind == "rec":
-                out = self._rec_tp(raw["rec"], h, cache)
+        with span("repro.model.mixer"):
+            cfg, train = self.cfg, mode == "train"
+            out = None
+            if self._tp_on():
+                if kind == "rec":
+                    out = self._rec_tp(raw["rec"], h, cache)
+                elif cfg.mla is not None and kind != "local":
+                    out = self._mla_tp(raw["attn"], h, positions, mode, cache,
+                                       max_len)
+                else:
+                    out = self._attn_tp(raw["attn"], h, positions, kind, mode,
+                                        cache, max_len)
+            if out is not None:
+                return out[0], (None if train else out[1])
+            mesh = self.mesh
+            split = {} if cache is None or not self._tp_on() else {
+                k: self._feature_split(self._cache_width(k)) for k in cache}
+            if any(split.values()):
+                cache = shard_rules.tree_join_blocks(cache, mesh, split)
+            name = "rec" if kind == "rec" else "attn"
+            p = self._cast_part(raw, name, train)
+            if kind == "rec":       # prefill and train start from a zero state
+                y, nc = rec_lib.rglru_block_apply(p, cfg, h, cache)
             elif cfg.mla is not None and kind != "local":
-                out = self._mla_tp(raw["attn"], h, positions, mode, cache,
-                                   max_len)
-            else:
-                out = self._attn_tp(raw["attn"], h, positions, kind, mode,
-                                    cache, max_len)
-        if out is not None:
-            return out[0], (None if train else out[1])
-        mesh = self.mesh
-        split = {} if cache is None or not self._tp_on() else {
-            k: self._feature_split(self._cache_width(k)) for k in cache}
-        if any(split.values()):
-            cache = shard_rules.tree_join_blocks(cache, mesh, split)
-        name = "rec" if kind == "rec" else "attn"
-        p = self._cast_part(raw, name, train)
-        if kind == "rec":       # prefill and train start from a zero state
-            y, nc = rec_lib.rglru_block_apply(p, cfg, h, cache)
-        elif cfg.mla is not None and kind != "local":
-            if train:
-                y, nc = attn.mla_apply(p, cfg, h, positions), None
+                if train:
+                    y, nc = attn.mla_apply(p, cfg, h, positions), None
+                elif mode == "prefill":
+                    y, nc = attn.mla_prefill(p, cfg, h, positions, max_len)
+                else:
+                    y, nc = attn.mla_decode(p, cfg, h, cache, positions)
+            elif kind == "local":
+                y, nc = ((attn.local_apply(p, cfg, h, positions), None)
+                         if train else
+                         attn.local_prefill(p, cfg, h, positions)
+                         if mode == "prefill" else
+                         attn.local_decode(p, cfg, h, cache, positions))
+            elif train:
+                y, nc = attn.gqa_apply(p, cfg, h, positions,
+                                       use_flash=True), None
             elif mode == "prefill":
-                y, nc = attn.mla_prefill(p, cfg, h, positions, max_len)
+                y, nc = attn.gqa_prefill(p, cfg, h, positions, max_len)
+            elif cfg.cim_attention_bits:
+                y, nc = attn.gqa_decode_cim(p, cfg, h, cache, positions)
             else:
-                y, nc = attn.mla_decode(p, cfg, h, cache, positions)
-        elif kind == "local":
-            y, nc = ((attn.local_apply(p, cfg, h, positions), None) if train
-                     else attn.local_prefill(p, cfg, h, positions)
-                     if mode == "prefill" else
-                     attn.local_decode(p, cfg, h, cache, positions))
-        elif train:
-            y, nc = attn.gqa_apply(p, cfg, h, positions, use_flash=True), None
-        elif mode == "prefill":
-            y, nc = attn.gqa_prefill(p, cfg, h, positions, max_len)
-        elif cfg.cim_attention_bits:
-            y, nc = attn.gqa_decode_cim(p, cfg, h, cache, positions)
-        else:
-            y, nc = attn.gqa_decode(p, cfg, h, cache, positions)
-        if train:
-            return y, None
-        if self._tp_on():
-            nc = {k: t[..., shard_rules.model_block(
-                      mesh, self._cache_width(k))]
-                  if self._feature_split(self._cache_width(k)) else t
-                  for k, t in nc.items()}
-        return y, nc
+                y, nc = attn.gqa_decode(p, cfg, h, cache, positions)
+            if train:
+                return y, None
+            if self._tp_on():
+                nc = {k: t[..., shard_rules.model_block(
+                          mesh, self._cache_width(k))]
+                      if self._feature_split(self._cache_width(k)) else t
+                      for k, t in nc.items()}
+            return y, nc
 
     def _train_layer(self, i: int, x, positions):
         """One layer of the train path, each kind from a zero state as the
@@ -803,16 +808,18 @@ class Model(nn.Module):
     def logits(self, x_final: torch.Tensor) -> torch.Tensor:
         """Full logits over the padded vocab, pad columns masked (on a
         vocab-split mesh each rank's columns, joined by one all-gather)."""
-        cfg = self.cfg
-        w, v0, mesh = self._head()
-        if mesh is not None:
-            x_final = shard_rules.tp_enter(x_final, mesh)
-        out = torch.matmul(x_final.float(), w.float())
-        if cfg.vocab_padded != cfg.vocab_size:
-            pad = torch.arange(v0, v0 + w.shape[1], device=out.device) \
-                >= cfg.vocab_size
-            out = out + pad * (-1e30)
-        return out if mesh is None else shard_rules.tp_gather(out, mesh, -1)
+        with span("repro.model.head"):
+            cfg = self.cfg
+            w, v0, mesh = self._head()
+            if mesh is not None:
+                x_final = shard_rules.tp_enter(x_final, mesh)
+            out = torch.matmul(x_final.float(), w.float())
+            if cfg.vocab_padded != cfg.vocab_size:
+                pad = torch.arange(v0, v0 + w.shape[1], device=out.device) \
+                    >= cfg.vocab_size
+                out = out + pad * (-1e30)
+            return out if mesh is None else \
+                shard_rules.tp_gather(out, mesh, -1)
 
     def _positions(self, x: torch.Tensor) -> torch.Tensor:
         b, t = x.shape[0], x.shape[1]
