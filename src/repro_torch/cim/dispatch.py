@@ -37,8 +37,9 @@ captured) and replayed from then on, one device launch per warm call.
 Each call copies its leaves into the graph's static inputs, replays, and
 hands the caller clones of the static outputs; what the capture added to
 the kernels' launch counters (the fused kernel's launches and bytes, the
-flash, RG-LRU and sLSTM kernels' launches) and to the codec counters is
-added again at every replay, so counts do not depend on graphs. A program
+flash, RG-LRU and sLSTM kernels' launches), to the codec counters and to
+the matmul lhs pack counts is added again at every replay, so counts do
+not depend on graphs. A program
 made with `donate=` (the reference's `donate_argnums`) takes the caller's
 own tensors of those leaves as the graph's static inputs and leaves its
 new values in them. Graphs of one device share one memory pool (replays
@@ -198,10 +199,11 @@ def cache_stats() -> Dict[str, int]:
 
 def clear_schedule_cache() -> None:
     """Drop every program (and its graphs) and zero the counters, the
-    graph counters included."""
+    graph counters and the matmul lhs pack counts included."""
     global _DISPATCHES
     _PROGRAMS.clear()
     _DISPATCHES = 0
+    _LHS_PACKS.update(broadcast=0, expanded=0)
     _GRAPH_STATS.update(captured=0, replays=0, capture_s=0.0, eager=0)
     _POOLS.clear()
 
@@ -236,6 +238,8 @@ _EAGER = False
 #: a capture is running: programs called inside it run their eager body
 _CAPTURING = False
 _GRAPH_STATS = {"captured": 0, "replays": 0, "capture_s": 0.0, "eager": 0}
+#: matmul lhs entry packs by path, bumped by `macro._lhs_pack`
+_LHS_PACKS = {"broadcast": 0, "expanded": 0}
 #: one graph memory pool per device: (its handle, the live graphs in it)
 _POOLS: Dict[torch.device, tuple] = {}
 
@@ -383,11 +387,13 @@ def _wrappers() -> List:
 def _counters() -> Tuple[int, ...]:
     """The counters a body bumps from Python, which a replay does not run:
     the fused kernel's launches and bytes, the codec's packs and unpacks,
-    and the float kernels' launches (`_wrappers`)."""
+    the float kernels' launches (`_wrappers`) and the matmul lhs packs by
+    path (`macro.lhs_pack_counts`)."""
     codec = bitplane._CODEC_CALLS
     return (fused_planes_op.launches, fused_planes_op.bytes,
             codec["pack"], codec["unpack"]) \
-        + tuple(w.launches for w in _wrappers())
+        + tuple(w.launches for w in _wrappers()) \
+        + (_LHS_PACKS["broadcast"], _LHS_PACKS["expanded"])
 
 
 def _add_counters(delta: Tuple[int, ...]) -> None:
@@ -396,8 +402,10 @@ def _add_counters(delta: Tuple[int, ...]) -> None:
     fused_planes_op.bytes += delta[1]
     codec["pack"] += delta[2]
     codec["unpack"] += delta[3]
-    for w, d in zip(_wrappers(), delta[4:]):
+    for w, d in zip(_wrappers(), delta[4:-2]):
         w.launches += d
+    _LHS_PACKS["broadcast"] += delta[-2]
+    _LHS_PACKS["expanded"] += delta[-1]
 
 
 _LIFTS = ("lift_fresh", "lift_fresh_copy", "lift")

@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.bitplane import pack_broadcast_planes
 from repro_torch.spans import span
 from . import dispatch, engine, planner
 from .accounting import LEDGER, PlannedCharges
@@ -464,6 +465,29 @@ def _expand_lhs(a2: torch.Tensor, k_pad: int, n: int) -> torch.Tensor:
     return a_exp
 
 
+def _lhs_pack(a2: torch.Tensor, k_pad: int, n: int, n_bits: int,
+              signed: bool) -> PlanePack:
+    """The streamed lhs's entry pack over the [R, K_pad, N] broadcast
+    layout. With N % 32 == 0 its planes are written straight from the
+    [R, K] lhs (`pack_broadcast_planes`); otherwise a lane word straddles
+    two k and the layout is expanded, then packed. The planes are the
+    same either way; `lhs_pack_counts` says which ran."""
+    if n % 32 == 0:
+        dispatch._LHS_PACKS["broadcast"] += 1
+        return PlanePack(planes=pack_broadcast_planes(a2, k_pad, n, n_bits),
+                         n_bits=n_bits, signed=signed,
+                         shape=(int(a2.shape[0]), k_pad, n))
+    dispatch._LHS_PACKS["expanded"] += 1
+    return PlanePack.pack(_expand_lhs(a2, k_pad, n), n_bits, signed=signed)
+
+
+def lhs_pack_counts() -> dict:
+    """Matmul lhs entry packs built each way since the last
+    `clear_schedule_cache`: `broadcast` (N % 32 == 0) and `expanded`. A
+    graph replay counts as the eager call did."""
+    return dict(dispatch._LHS_PACKS)
+
+
 def matmul_rhs_pack(b: torch.Tensor, m: int, n_bits: int,
                     signed: bool = True) -> PlanePack:
     """The expanded [M, K_pad, N] rhs entry pack of a matmul — the plane
@@ -512,7 +536,7 @@ def _contract_with(cur: ScheduleCursor, a2: torch.Tensor, b3, m: int,
         k_pad = 1 << planner._log2_ceil(k)
         pb = PlanePack.pack(_expand_rhs(b3, m, k_pad), n_bits, signed=signed)
         cur.charge_load(n_bits, pb.n_words)
-    pa = PlanePack.pack(_expand_lhs(a2, k_pad, n), n_bits, signed=signed)
+    pa = _lhs_pack(a2, k_pad, n, n_bits, signed)
     cur.charge_load(n_bits, pa.n_words)
     if b_pack is not None:
         cur.charge_resident(n_bits, pb.n_words)

@@ -8,7 +8,9 @@ as `(x >> j) & 1` and a logical right shift masks the sign fill away.
 
 Unlike the reference, which builds an [N, n_bits] bit matrix and lets XLA
 fuse it away, the packers here work one plane at a time: in eager PyTorch
-the bit matrix of one full-width operand would be several GB.
+the bit matrix of one full-width operand would be several GB. The matmul's
+broadcast lhs (`pack_broadcast_planes`) needs no bit matrix at all: each
+of its words is one element's bit, repeated.
 """
 from __future__ import annotations
 
@@ -83,6 +85,27 @@ def pack_bitplanes(x: torch.Tensor, n_bits: int) -> torch.Tensor:
     for p in range(n_bits):
         planes[p] = _pack_lanes((x >> p) & 1)
     return planes
+
+
+def pack_broadcast_planes(a2: torch.Tensor, k_pad: int, n: int,
+                          n_bits: int) -> torch.Tensor:
+    """[R, K] int -> the packed planes of its [R, K_pad, N] broadcast
+    layout (each a[r, k] repeated over N, K zero-padded to K_pad), for
+    N % 32 == 0: `pack_bitplanes` of that layout, to the bit, without it.
+
+    With N a multiple of 32 the 32 elements of a lane word share one
+    (r, k), so word w of plane p is all ones or zero: -((a[r, k] >> p) & 1),
+    repeated N/32 times. Only the [n_bits, R, K_pad] bits are computed;
+    the one full-width pass is the expansion's copy."""
+    if n % 32:
+        raise ValueError(f"broadcast packing needs N % 32 == 0, got N={n}")
+    _CODEC_CALLS["pack"] += 1
+    r, k = a2.shape
+    a = torch.nn.functional.pad(a2.to(torch.int32), (0, k_pad - k))
+    shifts = torch.arange(n_bits, dtype=torch.int32, device=a.device)
+    words = -((a.unsqueeze(0) >> shifts.view(-1, 1, 1)) & 1)
+    return words.unsqueeze(-1).expand(n_bits, r, k_pad, n // 32) \
+        .contiguous().view(n_bits, -1)
 
 
 def unpack_lanes(planes: torch.Tensor) -> torch.Tensor:

@@ -548,6 +548,56 @@ def test_graph_replay_equals_the_eager_body(case):
     dispatch.clear_schedule_cache()
 
 
+@pytest.mark.parametrize("k,n", [(12800, 4096), (4096, 12800)])
+def test_broadcast_lhs_pack_equals_expanded_at_the_cell_widths(k, n):
+    """granite-3-8b's decode MLP lhs packs over 2 slots (down: [2, 12800]
+    to K_pad 16384, N 4096; up and gate: [2, 4096], N 12800): the planes
+    written straight from the lhs equal the expanded layout's pack to the
+    bit."""
+    from repro_torch.cim import macro as tmacro
+    from repro_torch.cim import planner as tplan
+    from repro_torch.cim.planepack import PlanePack
+
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    a = torch.randint(-128, 128, (2, k), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    a[0, 0], a[-1, -1] = -128, 127
+    k_pad = 1 << tplan._log2_ceil(k)
+    want = PlanePack.pack(tmacro._expand_lhs(a, k_pad, n), 8, signed=True)
+    got = tmacro._lhs_pack(a, k_pad, n, 8, True)
+    assert got.planes.is_cuda and torch.equal(got.planes, want.planes)
+    assert (got.n_bits, got.signed, got.shape) == \
+        (want.n_bits, want.signed, want.shape)
+
+
+def test_broadcast_matmul_counts_every_replay():
+    """The down product of the cell (a [2, 12800] lhs on a resident
+    [12800, 4096] rhs) through its program: eager, captured, then replayed
+    twice, each call exact and counted once as a broadcast lhs pack."""
+    from repro_torch.cim import dispatch
+    from repro_torch.cim import macro as tmacro
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randint(-128, 128, (2, 12800), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    b = torch.randint(-128, 128, (12800, 4096), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    want = (a.double() @ b.double()).to(torch.int64)
+    bp = tmacro.matmul_rhs_pack(b, 2, 8)
+    dispatch.clear_schedule_cache()
+    for i in range(4):
+        c0 = tmacro.lhs_pack_counts()
+        got = tmacro.matmul(a, b_pack=bp)
+        torch.cuda.synchronize()
+        c1 = tmacro.lhs_pack_counts()
+        assert torch.equal(got.to(torch.int64), want), i
+        assert (c1["broadcast"] - c0["broadcast"],
+                c1["expanded"] - c0["expanded"]) == (1, 0), i
+    stats = dispatch.graph_stats()
+    assert (stats["captured"], stats["replays"]) == (1, 3), stats
+    dispatch.clear_schedule_cache()
+
+
 def _item_body(cur, a, b):
     out = cur.execute(a, b, ("add",))["add"]
     int(out.planes.sum())                 # a host read of a device value
